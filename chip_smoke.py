@@ -1,0 +1,340 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (fitclip_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the int8 CLIP ViT-B/16 zero-shot encoding path at full width, with
+weights initialized from a seed, and fails (non-zero exit) if any phase fails:
+
+1. device: needs CUDA; prints the card and its power limit;
+2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
+3. kernels: each Hopper kernel against its plain PyTorch version on the card,
+   at the main path's shapes (ViT-B/16 vision: 32 frames x 197 tokens x 768;
+   text: 8 x 77 x 512). int8 outputs may differ by one step on at most 0.1% of
+   the elements; float outputs stay within atol/rtol 2e-2 of the plain version
+   run in fp32;
+4. the slice: load, fold the pixel normalization, calibrate on 8 clips and 32
+   token rows, encode 8 clips and 8 token rows. The launch counters, zeroed just
+   before and read just after, must show calibration through the qkv-mode
+   attention kernel and K1's kernels on 12 layers of each tower. Gates: the
+   kernel path against the plain path on the card, and int8 against the bf16
+   float model, both towers, min-row cosine > 0.999; finite text x video scores;
+5. timings (CUDA events, after warm-up): each kernel beside its plain version,
+   and the slice's clips/s at 32 clips.
+
+TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
+The last two lines are the kernels' JSON record and the card line from
+nvidia-smi before the final {"ok": true, "device": {...}} line.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+VISION = dict(batch=32, seq=197, width=768, heads=12)
+TEXT = dict(batch=8, seq=77, width=512, heads=8)
+INT8_MAX_FLIPPED = 1e-3  # share of int8 elements allowed one step off
+FLOAT_TOL = 2e-2
+GATE_COSINE = 0.999
+
+
+def require(condition: bool, message: str) -> None:
+    if not condition:
+        raise RuntimeError(f"chip_smoke: {message}")
+
+
+def nvidia_smi() -> str:
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60)
+    require(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip()
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def min_cosine(a, b) -> float:
+    import torch
+
+    a, b = a.float(), b.float()
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+
+
+class KernelChecks:
+    """Kernel-vs-plain comparisons, with the largest error seen per kernel."""
+
+    def __init__(self):
+        self.max_abs_err = {}
+
+    def _record(self, name, err):
+        self.max_abs_err[name] = max(self.max_abs_err.get(name, 0.0), err)
+
+    def int8(self, name, what, kernel_out, plain_out):
+        import torch
+
+        torch.cuda.synchronize()
+        diff = (kernel_out.int() - plain_out.int()).abs()
+        err, flipped = int(diff.max()), float((diff != 0).float().mean())
+        print(f"  {name} {what}: max |diff| {err} LSB, {flipped:.2e} of elements differ")
+        require(err <= 1 and flipped <= INT8_MAX_FLIPPED,
+                f"{name} {what}: int8 output off by {err} LSB on {flipped:.2e} of elements")
+        self._record(name, float(err))
+
+    def float(self, name, what, kernel_out, plain_fp32):
+        import torch
+
+        torch.cuda.synchronize()
+        k = kernel_out.float()
+        err = float((k - plain_fp32).abs().max())
+        print(f"  {name} {what}: max |diff| {err:.3e} against the plain version in fp32")
+        require(bool(torch.isfinite(k).all()), f"{name} {what}: non-finite output")
+        require(torch.allclose(k, plain_fp32, atol=FLOAT_TOL, rtol=FLOAT_TOL),
+                f"{name} {what}: max |diff| {err} beyond atol/rtol {FLOAT_TOL}")
+        self._record(name, err)
+
+
+def kernel_phase(torch, checks: KernelChecks):
+    """Phase 3: each kernel against its plain version; returns {name: (ms, plain_ms)}."""
+    from fitclip_torch.ops import attention as A
+    from fitclip_torch.ops import block as K
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = "cuda"
+
+    def normal(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    times = {}
+    for tag, s in (("vision", VISION), ("text", TEXT)):
+        m, w = s["batch"] * s["seq"], s["width"]
+        timed = tag == "vision"
+
+        # ln_quant: the bf16 layer input and the fp32 mid-layer residual.
+        gamma, beta = 1 + normal(w, std=0.1), normal(w, std=0.1)
+        for what, x in (("bf16 input", normal(m, w, dtype=torch.bfloat16)),
+                        ("fp32 residual", normal(m, w, std=3.0))):
+            inv = 127.0 / 4.0
+            checks.int8("ln_quant", f"{tag} {what}", K.ln_quant(x, gamma, beta, inv),
+                        K.ln_quant_plain(x, gamma, beta, inv))
+            if timed and what == "bf16 input":
+                times["ln_quant"] = (cuda_ms(lambda: K.ln_quant(x, gamma, beta, inv)),
+                                     cuda_ms(lambda: K.ln_quant_plain(x, gamma, beta, inv)))
+
+        # int8 GEMM, its three epilogues at the layer's four shapes.
+        a_w, a_4w = int8(m, w), int8(m, 4 * w)
+        wq, wo, wf, wp = int8(3 * w, w), int8(w, w), int8(4 * w, w), int8(w, 4 * w)
+        scale = lambda n, k: (torch.rand(n, generator=gen, device=dev) + 0.5) / (73.0 * 73.0 * k ** 0.5)
+        sq, bq = scale(3 * w, w), normal(3 * w, std=0.1)
+        out = K.int8_gemm_bias(a_w, wq, sq, bq, torch.bfloat16)
+        checks.float("int8_gemm_bias", f"{tag} qkv", out,
+                      K.int8_gemm_bias_plain(a_w, wq, sq, bq, torch.float32))
+        if timed:
+            times["int8_gemm_bias"] = (
+                cuda_ms(lambda: K.int8_gemm_bias(a_w, wq, sq, bq, torch.bfloat16)),
+                cuda_ms(lambda: K.int8_gemm_bias_plain(a_w, wq, sq, bq, torch.bfloat16)))
+
+        so, bo, x_in = scale(w, w), normal(w, std=0.1), normal(m, w, dtype=torch.bfloat16)
+        out = K.int8_gemm_residual(a_w, wo, so, bo, x_in, torch.float32)
+        checks.float("int8_gemm_residual", f"{tag} out-proj (bf16 -> fp32)", out,
+                     K.int8_gemm_residual_plain(a_w, wo, so, bo, x_in, torch.float32))
+        sp, bp, x32 = scale(w, 4 * w), normal(w, std=0.1), normal(m, w)
+        out = K.int8_gemm_residual(a_4w, wp, sp, bp, x32, torch.bfloat16)
+        checks.float("int8_gemm_residual", f"{tag} proj (fp32 -> bf16)", out,
+                     K.int8_gemm_residual_plain(a_4w, wp, sp, bp, x32, torch.float32))
+        if timed:
+            times["int8_gemm_residual"] = (
+                cuda_ms(lambda: K.int8_gemm_residual(a_4w, wp, sp, bp, x32, torch.bfloat16)),
+                cuda_ms(lambda: K.int8_gemm_residual_plain(a_4w, wp, sp, bp, x32,
+                                                           torch.bfloat16)))
+
+        inv_p = 127.0 / 6.0
+        fs2, fb2 = scale(4 * w, w) * 20.0, normal(4 * w, std=2.0)  # t ~ 20 N(0, 1)
+        for quick in (True, False):
+            kv = (-1.702 * K.LOG2E / inv_p) if quick else (0.7071067811865475 / inv_p)
+            checks.int8("int8_gemm_gelu", f"{tag} fc ({'quick' if quick else 'exact'} GELU)",
+                        K.int8_gemm_gelu(a_w, wf, fs2, fb2, kv, quick),
+                        K.int8_gemm_gelu_plain(a_w, wf, fs2, fb2, kv, quick))
+            if timed and quick:
+                times["int8_gemm_gelu"] = (
+                    cuda_ms(lambda: K.int8_gemm_gelu(a_w, wf, fs2, fb2, kv, True)),
+                    cuda_ms(lambda: K.int8_gemm_gelu_plain(a_w, wf, fs2, fb2, kv, True)))
+
+        # Attention, both modes. Vision is not causal (and once with seq_valid < L);
+        # text is causal.
+        b, seq, heads = s["batch"], s["seq"], s["heads"]
+        causal = tag == "text"
+        qkv = normal(b, seq, 3 * w, std=1.5, dtype=torch.bfloat16)
+        scale_q = (w // heads) ** -0.5
+        out_mul = 127.0 / 2.5
+        valids = (None, 150) if tag == "vision" else (None,)
+        for valid in valids:
+            what = f"{tag} {'causal' if causal else 'full'}" + (f", seq_valid {valid}" if valid else "")
+            checks.int8("attention_int8", what,
+                        A.attention_int8(qkv, heads, scale_q, causal, out_mul, valid),
+                        A.attention_int8_plain(qkv, heads, scale_q, causal, out_mul, valid))
+        checks.float("fused_attention_qkv", f"{tag} {'causal' if causal else 'full'}",
+                     A.fused_attention_qkv(qkv, heads, scale_q, causal),
+                     A.attention_core_plain(qkv.float(), heads, scale_q, causal))
+        if timed:
+            times["attention_int8"] = (
+                cuda_ms(lambda: A.attention_int8(qkv, heads, scale_q, causal, out_mul)),
+                cuda_ms(lambda: A.attention_int8_plain(qkv, heads, scale_q, causal, out_mul)))
+            times["fused_attention_qkv"] = (
+                cuda_ms(lambda: A.fused_attention_qkv(qkv, heads, scale_q, causal)),
+                cuda_ms(lambda: A.attention_core_plain(qkv, heads, scale_q, causal)))
+    return times
+
+
+def token_ids(rows: int, rng: np.random.Generator, context: int = 77, vocab: int = 49408):
+    """Random token rows ending in the max-id EOT token (as bench.py makes them)."""
+    ids = np.zeros((rows, context), np.int64)
+    for row in range(rows):
+        n = int(rng.integers(5, context - 7))
+        ids[row, :n] = rng.integers(1, vocab - 1, n)
+        ids[row, n] = vocab - 1
+    return ids
+
+
+def main() -> int:
+    import torch
+
+    # Phase 1: the device.
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from fitclip_torch import _build
+    from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.ops import attention as A
+    from fitclip_torch.ops import block as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = nvidia_smi()
+    print(f"device: {torch.cuda.get_device_name(0)} (torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}); nvidia-smi: {card}; TF32 off")
+
+    # Phase 2: the build.
+    start = time.perf_counter()
+    library = _build.build()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s -> {library}")
+    for line in (library.parent / "ptxas.txt").read_text().splitlines():
+        if "Used" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    # Phase 3: each kernel against its plain version.
+    print("kernels against their plain versions:")
+    checks = KernelChecks()
+    times = kernel_phase(torch, checks)
+
+    # Phase 4: the slice.
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    start = time.perf_counter()
+    int8_enc = load_clip_encoder("ViT-B/16", dtype="int8", device="cuda", seed=0).encoder
+    float_enc = load_clip_encoder("ViT-B/16", dtype="bfloat16", device="cuda", seed=0).encoder
+    int8_enc.fold_pixel_normalization()
+    float_enc.fold_pixel_normalization()
+    print(f"slice: loaded int8 and bf16 ViT-B/16 in {time.perf_counter() - start:.1f} s")
+    video = torch.randint(0, 256, (8, 4, 224, 224, 3), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    calib_text = torch.from_numpy(token_ids(32, rng)).cuda()
+    text = torch.from_numpy(token_ids(8, rng)).cuda()
+
+    wrappers = {"ln_quant": K.ln_quant, "int8_gemm_bias": K.int8_gemm_bias,
+                "int8_gemm_residual": K.int8_gemm_residual,
+                "int8_gemm_gelu": K.int8_gemm_gelu, "attention_int8": A.attention_int8,
+                "fused_attention_qkv": A.fused_attention_qkv}
+    for fn in wrappers.values():
+        fn.launches = 0
+    int8_enc.calibrate(video, calib_text)
+    torch.cuda.synchronize()
+    after_calibration = {name: fn.launches for name, fn in wrappers.items()}
+    video_emb = int8_enc.encode_video(video)
+    text_emb = int8_enc.encode_text(text)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"slice: launches after calibration {after_calibration}; after encoding {launches}")
+    layers = 12
+    require(after_calibration["fused_attention_qkv"] == 2 * layers,
+            "calibration did not run the qkv-mode attention kernel on every layer")
+    expected = {"ln_quant": 4 * layers, "int8_gemm_bias": 2 * layers,
+                "int8_gemm_residual": 4 * layers, "int8_gemm_gelu": 2 * layers,
+                "attention_int8": 2 * layers, "fused_attention_qkv": 2 * layers}
+    require(launches == expected, f"launch counts {launches}, expected {expected}")
+
+    frames = int8_enc._prepare_frames(video)
+    for tower, kernel_emb, plain_emb in (
+            ("vision", encode_frames_fast(int8_enc.model, frames),
+             encode_frames_fast(int8_enc.model, frames, layer_fn=K.fused_int8_layer_plain)),
+            ("text", encode_text_fast(int8_enc.model, text),
+             encode_text_fast(int8_enc.model, text, layer_fn=K.fused_int8_layer_plain))):
+        cos = min_cosine(kernel_emb, plain_emb)
+        print(f"slice gate (i) {tower}: kernels vs plain on the card, min cosine {cos:.6f}")
+        require(cos > GATE_COSINE, f"{tower}: kernel path vs plain path cosine {cos}")
+    for tower, int8_emb, float_emb in (("vision", video_emb, float_enc.encode_video(video)),
+                                       ("text", text_emb, float_enc.encode_text(text))):
+        cos = min_cosine(int8_emb, float_emb)
+        print(f"slice gate (ii) {tower}: int8 vs bf16 float model, min cosine {cos:.6f}")
+        require(cos > GATE_COSINE, f"{tower}: int8 vs bf16 cosine {cos}")
+    scores = text_emb.float() @ video_emb.float().T
+    require(scores.shape == (8, 8) and bool(torch.isfinite(scores).all()),
+            f"text x video scores: shape {tuple(scores.shape)} or non-finite values")
+    print(f"slice: text x video scores {tuple(scores.shape)}, all finite, "
+          f"diagonal mean {float(scores.diagonal().mean()):.4f}")
+
+    # Phase 5: the slice's throughput at 32 clips.
+    video32 = torch.randint(0, 256, (32, 4, 224, 224, 3), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    int8_ms = cuda_ms(lambda: int8_enc.encode_video(video32), iters=10)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    float_ms = cuda_ms(lambda: float_enc.encode_video(video32), iters=10)
+    print(f"slice: int8 encode_video, 32 clips x 4 frames: {int8_ms:.3f} ms, "
+          f"{32e3 / int8_ms:.1f} clips/s, peak {peak_gib:.2f} GiB; "
+          f"bf16 float model: {float_ms:.3f} ms, {32e3 / float_ms:.1f} clips/s")
+
+    replaces = {"fused_attention_qkv": "fitclip_tpu/ops/attention.py:41"}
+    sources = {"ln_quant": "ln_quant.cu", "attention_int8": "attention.cu",
+               "fused_attention_qkv": "attention.cu"}
+    record = [{"name": name, "route": "cuda",
+               "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",
+               "replaces": replaces.get(name, "fitclip_tpu/ops/block.py:137"),
+               "launches": launches[name], "max_abs_err": checks.max_abs_err[name],
+               "ms": times[name][0], "plain_ms": times[name][1]}
+              for name in wrappers]
+    for entry in record:
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms")
+    print(json.dumps({"kernels": record}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

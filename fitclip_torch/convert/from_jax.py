@@ -1,0 +1,135 @@
+"""Map a JAX CLIP parameter tree (as numpy) to the port's modules and back.
+
+The JAX tree (``fitclip_tpu/models/clip/model.py``) stacks each transformer's
+layers on a leading axis, stores dense kernels as (in, out), LayerNorms as
+``{"ln": {"scale", "bias"}}`` and the patch embedding as a (p*p*3, width)
+kernel over patches ordered (ph, pw, c). An int8 tree (``quantize_clip_params``)
+has ``kernel_q``/``scale``/``bias``/``act_scale`` in place of each block
+dense's ``kernel``/``bias``. The port keeps one module per layer, dense
+weights as (out, in), and the patch embedding as a (width, 3, p, p) conv.
+
+``params_from_jax`` gives a state dict for ``CLIPModel.load_state_dict``;
+``params_to_jax`` is its inverse. They let both packages compute the same
+function in the tests, and carry the quantization of a torch-initialized
+model through the one numpy ``quantize_clip_params``.
+"""
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from fitclip_torch.models.clip.model import CLIPConfig
+
+_DENSES = (("attn", "in_proj"), ("attn", "out_proj"), ("mlp_fc",), ("mlp_proj",))
+_LNS = ("ln_1", "ln_2")
+
+
+def _t(array) -> torch.Tensor:
+    return torch.from_numpy(np.array(array))  # a writable, contiguous copy
+
+
+def _get(node, path):
+    for key in path:
+        node = node[key]
+    return node
+
+
+def _blocks_from_jax(blocks, prefix: str, layers: int, out: Dict[str, torch.Tensor]):
+    for i in range(layers):
+        p = f"{prefix}.{i}"
+        for name in _LNS:
+            out[f"{p}.{name}.weight"] = _t(np.asarray(blocks[name]["ln"]["scale"][i], np.float32))
+            out[f"{p}.{name}.bias"] = _t(np.asarray(blocks[name]["ln"]["bias"][i], np.float32))
+        for path in _DENSES:
+            node, name = _get(blocks, path), f"{p}.{'.'.join(path)}"
+            if "kernel_q" in node:
+                out[f"{name}.weight_q"] = _t(np.asarray(node["kernel_q"][i], np.int8).T)
+                out[f"{name}.scale"] = _t(np.asarray(node["scale"][i], np.float32))
+                out[f"{name}.act_scale"] = _t(
+                    np.asarray(node["act_scale"][i], np.float32).reshape(1))
+            else:
+                out[f"{name}.weight"] = _t(np.asarray(node["kernel"][i], np.float32).T)
+            out[f"{name}.bias"] = _t(np.asarray(node["bias"][i], np.float32))
+
+
+def _ln_from_jax(node, name: str, out):
+    out[f"{name}.weight"] = _t(np.asarray(node["ln"]["scale"], np.float32))
+    out[f"{name}.bias"] = _t(np.asarray(node["ln"]["bias"], np.float32))
+
+
+def params_from_jax(tree, config: CLIPConfig) -> Dict[str, torch.Tensor]:
+    """JAX CLIP tree (float or int8, numpy leaves) -> CLIPModel state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    v, t = tree["visual"], tree["text"]
+    p, width = config.vision.patch_size, config.vision.width
+    kernel = np.asarray(v["patch_embed"]["kernel"], np.float32)
+    out["visual.patch_embed.weight"] = _t(kernel.reshape(p, p, 3, width).transpose(3, 2, 0, 1))
+    out["visual.patch_embed.bias"] = _t(np.asarray(v["patch_embed"]["bias"], np.float32))
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        out[f"visual.{name}"] = _t(np.asarray(v[name], np.float32))
+    _ln_from_jax(v["ln_pre"], "visual.ln_pre", out)
+    _ln_from_jax(v["ln_post"], "visual.ln_post", out)
+    _blocks_from_jax(v["transformer"]["blocks"], "visual.transformer.blocks",
+                     config.vision.layers, out)
+    for name in ("token_embedding", "positional_embedding", "text_projection"):
+        out[f"text.{name}"] = _t(np.asarray(t[name], np.float32))
+    _ln_from_jax(t["ln_final"], "text.ln_final", out)
+    _blocks_from_jax(t["transformer"]["blocks"], "text.transformer.blocks",
+                     config.text.layers, out)
+    return out
+
+
+def _np(state, key) -> np.ndarray:
+    return state[key].detach().cpu().numpy()
+
+
+def _blocks_to_jax(state, prefix: str, layers: int):
+    def stack(suffix, transpose=False):
+        arrays = [_np(state, f"{prefix}.{i}.{suffix}") for i in range(layers)]
+        return np.stack([a.T if transpose else a for a in arrays])
+
+    blocks = {name: {"ln": {"scale": stack(f"{name}.weight"), "bias": stack(f"{name}.bias")}}
+              for name in _LNS}
+    blocks["attn"] = {}
+    for path in _DENSES:
+        name = ".".join(path)
+        if f"{prefix}.0.{name}.weight_q" in state:
+            node = {"kernel_q": stack(f"{name}.weight_q", transpose=True),
+                    "scale": stack(f"{name}.scale"), "bias": stack(f"{name}.bias"),
+                    "act_scale": stack(f"{name}.act_scale")}
+        else:
+            node = {"kernel": stack(f"{name}.weight", transpose=True),
+                    "bias": stack(f"{name}.bias")}
+        parent = blocks["attn"] if path[0] == "attn" else blocks
+        parent[path[-1]] = node
+    return blocks
+
+
+def params_to_jax(state: Dict[str, torch.Tensor], config: CLIPConfig):
+    """CLIPModel state dict -> JAX CLIP tree with numpy leaves."""
+    p, width = config.vision.patch_size, config.vision.width
+
+    def ln(name):
+        return {"ln": {"scale": _np(state, f"{name}.weight"), "bias": _np(state, f"{name}.bias")}}
+
+    conv = _np(state, "visual.patch_embed.weight")  # (width, 3, p, p)
+    visual = {
+        "patch_embed": {"kernel": conv.transpose(2, 3, 1, 0).reshape(p * p * 3, width),
+                        "bias": _np(state, "visual.patch_embed.bias")},
+        "class_embedding": _np(state, "visual.class_embedding"),
+        "positional_embedding": _np(state, "visual.positional_embedding"),
+        "proj": _np(state, "visual.proj"),
+        "ln_pre": ln("visual.ln_pre"), "ln_post": ln("visual.ln_post"),
+        "transformer": {"blocks": _blocks_to_jax(state, "visual.transformer.blocks",
+                                                 config.vision.layers)},
+    }
+    text = {
+        "token_embedding": _np(state, "text.token_embedding"),
+        "positional_embedding": _np(state, "text.positional_embedding"),
+        "text_projection": _np(state, "text.text_projection"),
+        "ln_final": ln("text.ln_final"),
+        "transformer": {"blocks": _blocks_to_jax(state, "text.transformer.blocks",
+                                                 config.text.layers)},
+    }
+    return {"visual": visual, "text": text}

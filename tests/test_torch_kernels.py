@@ -1,0 +1,158 @@
+"""The Hopper kernels of fitclip_torch against their plain PyTorch versions.
+
+The tests marked ``cuda`` need a CUDA card and nvcc; they skip elsewhere. This
+file imports torch only (no JAX), so it also runs on a GPU machine without
+JAX: ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py``.
+The other tests check the dispatch rule on the CPU: a CPU tensor takes the
+plain version and launches nothing, and a failed build raises.
+"""
+
+import pytest
+import torch
+
+from fitclip_torch import _build
+from fitclip_torch.ops import attention as A
+from fitclip_torch.ops import block as K
+
+INT8_MAX_FLIPPED = 1e-3  # share of int8 elements allowed one step off
+FLOAT_TOL = 2e-2          # bf16 output against the plain version in fp32
+
+
+def _int8(gen, *shape, device="cpu"):
+    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(device)
+
+
+def _layer_operands(width, gen, device, quick_gelu=True):
+    """Random operands of one int8 layer, shaped as prepare_int8_layer makes them."""
+    def vec(n, std=0.1, mean=0.0):
+        return (torch.randn(n, generator=gen) * std + mean).to(device)
+
+    def scale(n, k, gain=1.0):
+        return ((torch.rand(n, generator=gen) + 0.5) * gain / (73.0 * 73.0 * k ** 0.5)).to(device)
+
+    inv_p = 127.0 / 6.0
+    kv = (-1.702 * K.LOG2E / inv_p) if quick_gelu else (0.7071067811865475 / inv_p)
+    return K.Int8LayerOperands(
+        vec(width, mean=1.0), vec(width), _int8(gen, 3 * width, width, device=device),
+        scale(3 * width, width, 1.5), vec(3 * width),
+        _int8(gen, width, width, device=device), scale(width, width), vec(width),
+        vec(width, mean=1.0), vec(width), _int8(gen, 4 * width, width, device=device),
+        scale(4 * width, width, 20.0), vec(4 * width, std=2.0),
+        _int8(gen, width, 4 * width, device=device), scale(width, 4 * width), vec(width),
+        127.0 / 4.0, 127.0 / 2.5, 127.0 / 4.0, kv, quick_gelu)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 5, 64, generator=gen)
+    ops = _layer_operands(64, gen, "cpu")
+    counts = [fn.launches for fn in (K.ln_quant, K.int8_gemm_bias, K.int8_gemm_residual,
+                                     K.int8_gemm_gelu, A.attention_int8, A.fused_attention_qkv)]
+    out = K.fused_int8_layer(x, ops, heads=1)
+    torch.testing.assert_close(out, K.fused_int8_layer_plain(x, ops, heads=1), rtol=0, atol=0)
+    A.fused_attention_qkv(torch.randn(2, 5, 192, generator=gen), 1, 0.125)
+    assert counts == [fn.launches for fn in (
+        K.ln_quant, K.int8_gemm_bias, K.int8_gemm_residual, K.int8_gemm_gelu,
+        A.attention_int8, A.fused_attention_qkv)]
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """No nvcc, or a source that does not compile: the build raises, and
+    nothing falls back to the plain versions."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "broken.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+
+
+def test_cuda_wrappers_reject_other_devices():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.check_cuda_operand("x", torch.zeros(4, device="meta"))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_int8_close(kernel_out, plain_out):
+    diff = (kernel_out.int() - plain_out.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff != 0).float().mean()) <= INT8_MAX_FLIPPED
+
+
+SHAPES = [(6304, 768), (616, 512), (37, 128)]  # ViT-B/16 32 frames, text 8 x 77, ragged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", SHAPES)
+def test_ln_quant_kernel_matches_plain(cuda, rows, width):
+    gen = torch.Generator().manual_seed(1)
+    gamma = (1 + 0.1 * torch.randn(width, generator=gen)).to(cuda)
+    beta = (0.1 * torch.randn(width, generator=gen)).to(cuda)
+    for x in (torch.randn(rows, width, generator=gen).to(cuda, torch.bfloat16),
+              (3 * torch.randn(rows, width, generator=gen)).to(cuda)):
+        before = K.ln_quant.launches
+        out = K.ln_quant(x, gamma, beta, 127.0 / 4.0)
+        _assert_int8_close(out, K.ln_quant_plain(x, gamma, beta, 127.0 / 4.0))
+        assert K.ln_quant.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", SHAPES)
+def test_int8_gemm_epilogues_match_plain(cuda, rows, width):
+    gen = torch.Generator().manual_seed(2)
+    ops = _layer_operands(width, gen, cuda)
+    a, a4 = _int8(gen, rows, width, device=cuda), _int8(gen, rows, 4 * width, device=cuda)
+    out = K.int8_gemm_bias(a, ops.wq, ops.qs, ops.qb, torch.bfloat16)
+    ref = K.int8_gemm_bias_plain(a, ops.wq, ops.qs, ops.qb, torch.float32)
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    x = torch.randn(rows, width, generator=gen).to(cuda, torch.bfloat16)
+    out = K.int8_gemm_residual(a, ops.wo, ops.os, ops.ob, x, torch.float32)
+    ref = K.int8_gemm_residual_plain(a, ops.wo, ops.os, ops.ob, x, torch.float32)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    x32 = torch.randn(rows, width, generator=gen).to(cuda)
+    out = K.int8_gemm_residual(a4, ops.wp, ops.ps, ops.pb, x32, torch.bfloat16)
+    ref = K.int8_gemm_residual_plain(a4, ops.wp, ops.ps, ops.pb, x32, torch.float32)
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    for quick in (True, False):
+        kv = (-1.702 * K.LOG2E if quick else 0.7071067811865475) / (127.0 / 6.0)
+        _assert_int8_close(K.int8_gemm_gelu(a, ops.wf, ops.fs2, ops.fb2, kv, quick),
+                           K.int8_gemm_gelu_plain(a, ops.wf, ops.fs2, ops.fb2, kv, quick))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,causal,seq_valid", [
+    (197, False, None), (197, True, None), (197, False, 150),
+    (577, False, None)])  # ViT-L/14@336: K and V need 148 KB of shared memory
+def test_attention_kernel_matches_plain(cuda, seq, causal, seq_valid):
+    gen = torch.Generator().manual_seed(3)
+    heads, head_dim = 12, 64
+    qkv = (1.5 * torch.randn(2, seq, 3 * heads * head_dim, generator=gen)).to(
+        cuda, torch.bfloat16)
+    scale, out_mul = head_dim ** -0.5, 127.0 / 2.5
+    _assert_int8_close(A.attention_int8(qkv, heads, scale, causal, out_mul, seq_valid),
+                       A.attention_int8_plain(qkv, heads, scale, causal, out_mul, seq_valid))
+    out = A.fused_attention_qkv(qkv, heads, scale, causal)
+    ref = A.attention_core_plain(qkv.float(), heads, scale, causal)
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quick_gelu,causal", [(True, False), (True, True), (False, False)])
+def test_fused_int8_layer_kernels_match_plain(cuda, quick_gelu, causal):
+    gen = torch.Generator().manual_seed(4)
+    width, heads = 768, 12
+    ops = _layer_operands(width, gen, cuda, quick_gelu)
+    x = torch.randn(4, 197, width, generator=gen).to(cuda, torch.bfloat16)
+    out = K.fused_int8_layer(x, ops, heads, causal=causal)
+    ref = K.fused_int8_layer_plain(x, ops, heads, causal=causal)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=FLOAT_TOL, rtol=FLOAT_TOL)
