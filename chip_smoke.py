@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py
 
-Drives the int8 CLIP ViT-B/16 zero-shot encoding path at full width, with
-weights initialized from a seed, and fails (non-zero exit) if any phase fails:
+Drives two paths of CLIP ViT-B/16 at full width, with weights initialized
+from a seed: int8 zero-shot encoding, and training (contrastive and FitCLIP
+teacher-student, through ``run_train``). It fails (non-zero exit) if any phase
+fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
    at the main path's shapes (ViT-B/16 vision: 32 frames x 197 tokens x 768;
-   text: 8 x 77 x 512). int8 outputs may differ by one step on at most 0.1% of
-   the elements; float outputs stay within atol/rtol 2e-2 of the plain version
-   run in fp32;
+   text: 8 x 77 x 512; the attention backward at the training shapes, 128
+   frames x 197 x 2304 and 32 x 77 x 1536 causal, in bf16 and fp32). int8
+   outputs may differ by one step on at most 0.1% of the elements; float
+   outputs stay within atol/rtol 2e-2 of the plain version run in fp32; two
+   launches of the attention backward give the same bits;
 4. the slice: load, fold the pixel normalization, calibrate on 8 clips and 32
    token rows, encode 8 clips and 8 token rows. The launch counters, zeroed just
    before and read just after, must show calibration through the qkv-mode
@@ -20,14 +24,29 @@ weights initialized from a seed, and fails (non-zero exit) if any phase fails:
    kernel path against the plain path on the card, and int8 against the bf16
    float model, both towers, min-row cosine > 0.999; finite text x video scores;
 5. timings (CUDA events, after warm-up): each kernel beside its plain version,
-   and the slice's clips/s at 32 clips.
+   and the slice's clips/s at 32 clips;
+6. training: bf16 compute, fp32 master weights, fused attention, fused AdamW,
+   synthetic uint8 video and token ids from a seed, through ``run_train``:
+   (a) contrastive, 32 clips x 4 frames, config/trainer.yaml's optimizer and
+       temperature, 5 steps: 24 launches each of the attention forward and
+       backward kernels per step; the losses within relative 2e-2 of the same
+       steps with the plain attention (forward and backward); the gradient
+       reaches in_proj through the attention;
+   (b) teacher-student, 8 labeled + 8 unlabeled clips, labeled share 0.9999,
+       the calibrated int8 encoder of phase 4 as the frozen teacher on K1's
+       kernels, 3 steps with finite losses and counted launches;
+   (c) resume: 3 steps, checkpoint, restore, 2 more equal (a)'s 5 straight
+       steps bit for bit (params and AdamW moments);
+   (d) timings: contrastive and teacher-student step ms, clips/s, peak memory.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 The last two lines are the kernels' JSON record and the card line from
 nvidia-smi before the final {"ok": true, "device": {...}} line.
 """
 
+import copy
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -35,11 +54,19 @@ from pathlib import Path
 
 import numpy as np
 
+ROOT = Path(__file__).resolve().parent
 VISION = dict(batch=32, seq=197, width=768, heads=12)
 TEXT = dict(batch=8, seq=77, width=512, heads=8)
+# The attention backward at the training step's shapes: 32 clips x 4 frames.
+TRAIN_VISION = dict(VISION, batch=128)
+TRAIN_TEXT = dict(TEXT, batch=32)
 INT8_MAX_FLIPPED = 1e-3  # share of int8 elements allowed one step off
 FLOAT_TOL = 2e-2
 GATE_COSINE = 0.999
+LOSS_RTOL = 2e-2  # kernel path vs plain attention, per training step
+LAYERS = 12  # of each ViT-B/16 tower
+INT8_LAUNCHES_PER_LAYER = {"ln_quant": 2, "int8_gemm_bias": 1, "int8_gemm_residual": 2,
+                           "int8_gemm_gelu": 1, "attention_int8": 1}
 
 
 def require(condition: bool, message: str) -> None:
@@ -203,6 +230,30 @@ def kernel_phase(torch, checks: KernelChecks):
             times["fused_attention_qkv"] = (
                 cuda_ms(lambda: A.fused_attention_qkv(qkv, heads, scale_q, causal)),
                 cuda_ms(lambda: A.attention_core_plain(qkv, heads, scale_q, causal)))
+
+    # The attention backward (K3b) at the training shapes, bf16 and fp32.
+    name = "fused_attention_qkv_backward"
+    for tag, s in (("vision", TRAIN_VISION), ("text", TRAIN_TEXT)):
+        b, seq, w, heads = s["batch"], s["seq"], s["width"], s["heads"]
+        causal = tag == "text"
+        scale_q = (w // heads) ** -0.5
+        qkv32, grad32 = normal(b, seq, 3 * w, std=1.5), normal(b, seq, w)
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, grad = qkv32.to(dtype), grad32.to(dtype)
+            what = f"{tag} {b} x {seq} x {3 * w} {str(dtype)[6:]}{' causal' if causal else ''}"
+            out = A.fused_attention_qkv_backward(qkv, grad, heads, scale_q, causal)
+            checks.float(name, what, out, A.attention_backward_plain(
+                qkv.float(), grad.float(), heads, scale_q, causal))
+            again = A.fused_attention_qkv_backward(qkv, grad, heads, scale_q, causal)
+            require(torch.equal(out, again), f"{name} {what}: two launches differ")
+            print(f"  {name} {what}: two launches bit-identical")
+            if tag == "vision" and dtype == torch.bfloat16:
+                times[name] = (
+                    cuda_ms(lambda: A.fused_attention_qkv_backward(qkv, grad, heads, scale_q,
+                                                                   causal)),
+                    cuda_ms(lambda: A.attention_backward_plain(qkv, grad, heads, scale_q,
+                                                               causal)))
+            del out, again
     return times
 
 
@@ -216,6 +267,236 @@ def token_ids(rows: int, rng: np.random.Generator, context: int = 77, vocab: int
     return ids
 
 
+class CountingLoader:
+    """Batches in a fixed order. Notes the launch counters as it hands out each
+    batch, so successive notes differ by the launches of one train step."""
+
+    def __init__(self, batches, counters):
+        self.batches, self.counters, self.notes = batches, counters, []
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        for batch in self.batches:
+            self.notes.append(self.counters())
+            yield batch
+
+
+class TrainData:
+    """A data module with a train split only (run_train then skips validation)."""
+
+    def __init__(self, batches, counters):
+        self.loader = CountingLoader(batches, counters)
+
+    def train_dataloader(self):
+        return self.loader
+
+    def val_dataloader(self):
+        raise NotImplementedError
+
+
+def step_launches(notes, final):
+    """Per-step launch counts from the loader's notes and the counts at the end."""
+    marks = [*notes, final]
+    return [{k: after[k] - before[k] for k in after} for before, after in zip(marks, marks[1:])]
+
+
+def plain_attention_function(torch):
+    """fused_attention_qkv with the kernels' plain versions as forward and backward."""
+    from fitclip_torch.ops import attention as A
+
+    class PlainAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, qkv, heads, scale, causal):
+            ctx.save_for_backward(qkv)
+            ctx.args = (heads, scale, causal)
+            return A.attention_core_plain(qkv, heads, scale, causal)
+
+        @staticmethod
+        def backward(ctx, grad_out):
+            (qkv,) = ctx.saved_tensors
+            return A.attention_backward_plain(qkv, grad_out, *ctx.args), None, None, None
+
+    return lambda qkv, heads, scale, causal=False: PlainAttention.apply(qkv, heads, scale,
+                                                                         causal)
+
+
+def train(torch, slot, batches, model_cfg, counters, workdir: Path, max_steps=None,
+          checkpoint_dir=None, checkpoint_path=None):
+    """One run_train call; returns (state, losses per step, launches per step)."""
+    from fitclip_torch.training.train_runner import run_train
+
+    data = TrainData(batches, counters)
+    trainer_cfg = {"max_epochs": 1, "log_every_n_steps": 1, "max_steps": max_steps}
+    callbacks = None
+    if checkpoint_dir:
+        callbacks = {"checkpoint": {"dirpath": str(checkpoint_dir), "monitor": None,
+                                    "every_n_epochs": 0, "train_time_interval_seconds": None}}
+    optimizer_cfg = {"lr": 3e-6, "weight_decay": 0.01, "eps": 1e-8}  # config/*trainer.yaml
+    out = run_train(slot, data, model_cfg, trainer_cfg, optimizer_cfg, callbacks,
+                    log_dir=str(workdir), checkpoint_path=checkpoint_path)
+    torch.cuda.synchronize()
+    launches = step_launches(data.loader.notes, counters())
+    logged = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()]
+    return out["state"], [entry["loss/train"] for entry in logged], launches
+
+
+def same_bits(torch, a, b) -> bool:
+    """Params, moments, AdamW count and step of two train states are identical."""
+    named_a, named_b = a.named_parameters(), b.named_parameters()
+    return (a.step == b.step and a.opt_state["count"] == b.opt_state["count"]
+            and all(torch.equal(named_a[n], named_b[n]) for n in named_a)
+            and all(torch.equal(a.opt_state[k][n], b.opt_state[k][n])
+                    for k in ("mu", "nu") for n in named_a))
+
+
+def training_phase(torch, student_template, teacher, wrappers, workdir: Path):
+    """Phase 6; returns ({phase: launches summed over its steps}, timings)."""
+    import fitclip_torch.models.clip.model as model_module
+    from fitclip_torch.models.clip.load import LoadedEncoder
+    from fitclip_torch.ops.losses import nce_loss
+    from fitclip_torch.training.state import init_train_state, make_optimizer
+    from fitclip_torch.training.steps import (make_contrastive_train_step,
+                                              make_teacher_student_train_step)
+    from fitclip_torch.training.train_runner import make_batch_preparer
+
+    def counters():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def student():
+        return LoadedEncoder(copy.deepcopy(student_template.encoder))
+
+    rng = np.random.default_rng(2)
+    size = student_template.encoder.config.vision.image_size
+    frames = student_template.encoder.num_frames
+
+    def clips(n):
+        return rng.integers(0, 256, size=(n, frames, size, size, 3), dtype=np.uint8)
+
+    # config/trainer.yaml's temperature; fit_temperature false freezes it.
+    contrastive_cfg = {"init_temperature": 0.015, "min_temperature": 0.001,
+                       "fit_temperature": False}
+    batches = [{"video": clips(32), "text": token_ids(32, rng)} for _ in range(5)]
+    per_layer = {"fused_attention_qkv": 1, "fused_attention_qkv_backward": 1}
+    totals = {}
+
+    # (a) Contrastive, the kernel path.
+    zero()
+    straight, losses, launches = train(torch, student(), batches, contrastive_cfg, counters,
+                                       workdir / "contrastive")
+    totals["contrastive"] = counters()
+    expected = {k: 2 * LAYERS * per_layer.get(k, 0) for k in wrappers}
+    print(f"train (a) contrastive, 32 clips x {frames} frames: losses {losses}; "
+          f"launches per step {launches[0]}")
+    require(len(losses) == 5 and all(np.isfinite(losses)), f"contrastive losses {losses}")
+    require(all(step == expected for step in launches),
+            f"contrastive launches per step {launches}, expected {expected}")
+
+    # The gradient reaches in_proj through the attention kernels.
+    device_batch = make_batch_preparer("cuda")(batches[0])
+    model = straight.params["encoder"].model
+    in_projs = [model.visual.transformer.blocks[0].attn.in_proj.weight,
+                model.text.transformer.blocks[0].attn.in_proj.weight]
+    encoder = straight.params["encoder"]
+    scores = torch.exp(straight.params["logit_scale"][0]) * (
+        encoder.encode_video(device_batch["video"]).float()
+        @ encoder.encode_text(device_batch["text"]).float().T)
+    for tower, grad in zip(("vision", "text"),
+                           torch.autograd.grad(nce_loss(scores), in_projs)):
+        norm = float(grad.float().norm())
+        print(f"train (a) {tower} block 0 in_proj gradient norm {norm:.4e}")
+        require(np.isfinite(norm) and norm > 0, f"{tower} in_proj gradient norm {norm}")
+
+    # (c) Resume: 3 steps, checkpoint, restore, 2 more.
+    zero()
+    checkpoints = workdir / "checkpoints"
+    train(torch, student(), batches, contrastive_cfg, counters, workdir / "resume_3",
+          max_steps=3, checkpoint_dir=checkpoints)
+    resumed, resumed_losses, _ = train(torch, student(), batches, contrastive_cfg, counters,
+                                       workdir / "resume_5", max_steps=5,
+                                       checkpoint_path=str(checkpoints / "last"))
+    totals["resume"] = counters()
+    bitwise = same_bits(torch, resumed, straight)
+    print(f"train (c) resume: 3 steps + checkpoint + 2 steps; losses after resume "
+          f"{resumed_losses}; bit-identical to 5 straight steps: {bitwise}")
+    require(bitwise, "resumed params or moments differ from the straight run")
+    del resumed
+
+    # (a) again with the plain attention forward and backward.
+    fused = model_module.fused_attention_qkv
+    model_module.fused_attention_qkv = plain_attention_function(torch)
+    zero()
+    _, plain_losses, plain_launches = train(torch, student(), batches, contrastive_cfg,
+                                            counters, workdir / "contrastive_plain")
+    model_module.fused_attention_qkv = fused
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    print(f"train (a) plain attention: losses {plain_losses}; relative differences {rel}")
+    require(not any(any(step.values()) for step in plain_launches),
+            "the plain-attention run launched a kernel")
+    require(len(plain_losses) == 5 and max(rel) <= LOSS_RTOL,
+            f"kernel vs plain attention losses beyond relative {LOSS_RTOL}: {rel}")
+    del straight, model, in_projs, encoder, scores
+
+    # (b) Teacher-student with the int8 teacher.
+    ts_cfg = {"init_temperature": 0.05, "min_temperature": 0.001, "fit_temperature": True,
+              "labeled_dataset_loss_share": 0.9999}
+
+    def ts_batch():
+        def sub():
+            video, text = clips(8), token_ids(8, rng)
+            return {"video_student": video, "text_student": text,
+                    "video_teacher": video, "text_teacher": text}
+        return {"labeled": sub(), "unlabeled": sub()}
+
+    ts_batches = [ts_batch() for _ in range(3)]
+    zero()
+    _, ts_losses, ts_launches = train(torch, {"student": student(), "teacher": teacher},
+                                      ts_batches, ts_cfg, counters, workdir / "teacher_student")
+    totals["teacher_student"] = counters()
+    expected = {k: 2 * LAYERS * {**per_layer, **INT8_LAUNCHES_PER_LAYER}[k] for k in wrappers}
+    print(f"train (b) teacher-student, 8 + 8 clips, int8 teacher: losses {ts_losses}; "
+          f"launches per step {ts_launches[0]}")
+    require(len(ts_losses) == 3 and all(np.isfinite(ts_losses)),
+            f"teacher-student losses {ts_losses}")
+    require(all(step == expected for step in ts_launches),
+            f"teacher-student launches per step {ts_launches}, expected {expected}")
+    shutil.rmtree(workdir)
+
+    # (d) Timings of the steps run_train drives, on fresh states.
+    torch.cuda.empty_cache()
+    timings = {}
+    optimizer = make_optimizer(3e-6, weight_decay=0.01, eps=1e-8, fused=True)
+    encoder = student().encoder
+    state = init_train_state(encoder, optimizer, init_temperature=0.015)
+    step = make_contrastive_train_step(encoder, optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    timings["contrastive_ms"] = cuda_ms(lambda: step(state, device_batch), iters=5, warmup=2)
+    timings["contrastive_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step, encoder
+    torch.cuda.empty_cache()
+    encoder = student().encoder
+    state = init_train_state(encoder, optimizer, init_temperature=0.05,
+                             with_teacher_student_scale=True)
+    step = make_teacher_student_train_step(encoder, teacher.encoder, optimizer,
+                                           labeled_loss_share=0.9999)
+    ts_device_batch = make_batch_preparer("cuda")(ts_batches[0])
+    torch.cuda.reset_peak_memory_stats()
+    timings["teacher_student_ms"] = cuda_ms(lambda: step(state, ts_device_batch), iters=5,
+                                            warmup=2)
+    timings["teacher_student_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train (d) contrastive step, 32 clips x {frames} frames: "
+          f"{timings['contrastive_ms']:.3f} ms, {32e3 / timings['contrastive_ms']:.1f} clips/s, "
+          f"peak {timings['contrastive_peak_gib']:.2f} GiB; teacher-student step, 8 + 8 clips: "
+          f"{timings['teacher_student_ms']:.3f} ms, "
+          f"peak {timings['teacher_student_peak_gib']:.2f} GiB")
+    return totals, timings
+
+
 def main() -> int:
     import torch
 
@@ -223,10 +504,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(ROOT))
     from fitclip_torch import _build
     from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
-    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.models.clip.load import LoadedEncoder, load_clip_encoder
     from fitclip_torch.ops import attention as A
     from fitclip_torch.ops import block as K
 
@@ -250,7 +531,8 @@ def main() -> int:
     checks = KernelChecks()
     times = kernel_phase(torch, checks)
 
-    # Phase 4: the slice.
+    # Phase 4: the slice. Encoding is inference: no autograd graph.
+    torch.set_grad_enabled(False)
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     start = time.perf_counter()
@@ -267,7 +549,8 @@ def main() -> int:
     wrappers = {"ln_quant": K.ln_quant, "int8_gemm_bias": K.int8_gemm_bias,
                 "int8_gemm_residual": K.int8_gemm_residual,
                 "int8_gemm_gelu": K.int8_gemm_gelu, "attention_int8": A.attention_int8,
-                "fused_attention_qkv": A.fused_attention_qkv}
+                "fused_attention_qkv": A.fused_attention_qkv,
+                "fused_attention_qkv_backward": A.fused_attention_qkv_backward}
     for fn in wrappers.values():
         fn.launches = 0
     int8_enc.calibrate(video, calib_text)
@@ -278,12 +561,13 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     print(f"slice: launches after calibration {after_calibration}; after encoding {launches}")
-    layers = 12
+    layers = LAYERS
     require(after_calibration["fused_attention_qkv"] == 2 * layers,
             "calibration did not run the qkv-mode attention kernel on every layer")
     expected = {"ln_quant": 4 * layers, "int8_gemm_bias": 2 * layers,
                 "int8_gemm_residual": 4 * layers, "int8_gemm_gelu": 2 * layers,
-                "attention_int8": 2 * layers, "fused_attention_qkv": 2 * layers}
+                "attention_int8": 2 * layers, "fused_attention_qkv": 2 * layers,
+                "fused_attention_qkv_backward": 0}
     require(launches == expected, f"launch counts {launches}, expected {expected}")
 
     frames = int8_enc._prepare_frames(video)
@@ -317,13 +601,27 @@ def main() -> int:
           f"{32e3 / int8_ms:.1f} clips/s, peak {peak_gib:.2f} GiB; "
           f"bf16 float model: {float_ms:.3f} ms, {32e3 / float_ms:.1f} clips/s")
 
-    replaces = {"fused_attention_qkv": "fitclip_tpu/ops/attention.py:41"}
+    # Phase 6: training.
+    torch.set_grad_enabled(True)
+    student = load_clip_encoder("ViT-B/16", dtype="bfloat16", device="cuda", seed=0)
+    paths, train_times = training_phase(torch, student, LoadedEncoder(int8_enc), wrappers,
+                                        ROOT / "build" / "chip_smoke_train")
+    paths = {"encode": launches, **paths}
+    print(f"launches per path: {paths}")
+    for name in wrappers:
+        require(any(counts[name] for counts in paths.values()),
+                f"{name} was launched in no path")
+
+    replaces = {"fused_attention_qkv": "fitclip_tpu/ops/attention.py:41",
+                "fused_attention_qkv_backward": "fitclip_tpu/ops/attention.py:349"}
     sources = {"ln_quant": "ln_quant.cu", "attention_int8": "attention.cu",
-               "fused_attention_qkv": "attention.cu"}
+               "fused_attention_qkv": "attention.cu",
+               "fused_attention_qkv_backward": "attention_bwd.cu"}
     record = [{"name": name, "route": "cuda",
                "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",
                "replaces": replaces.get(name, "fitclip_tpu/ops/block.py:137"),
-               "launches": launches[name], "max_abs_err": checks.max_abs_err[name],
+               "launches": sum(counts[name] for counts in paths.values()),
+               "max_abs_err": checks.max_abs_err[name],
                "ms": times[name][0], "plain_ms": times[name][1]}
               for name in wrappers]
     for entry in record:

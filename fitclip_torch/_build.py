@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels in ``fitclip_torch/csrc``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``. The build
-runs on first use, never at import, into ``build/fitclip_torch/<hash>/`` at the
-root of the checkout; the hash covers the sources and the flags, so an edited
-source rebuilds and an unchanged one loads the library already built. Only the
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+process per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The build runs on first use,
+never at import, into ``build/fitclip_torch/<hash>/`` at the root of the
+checkout; the hash covers the sources and the flags, so an edited source
+rebuilds and an unchanged one loads the library already built. Only the
 sources in this package are compiled. A missing ``nvcc`` or a failed build
 raises with the compiler's output: nothing falls back to the plain versions.
 
@@ -12,6 +13,7 @@ Each C entry point returns ``cudaGetLastError()`` after its launch, and
 ``call`` raises if that is not 0.
 """
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -27,8 +29,8 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "fitclip_torch"
 LIBRARY_NAME = "libfitclip_kernels.so"
 # No --use_fast_math: the kernels' divides, exp2f and rounding must stay IEEE
 # to agree with the plain PyTorch versions.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,6 +44,8 @@ _SIGNATURES = {
     # qkv, dtype, out, int8_out, batch, seq, heads, head_dim, scale, causal,
     # seq_valid, out_mul, stream
     "fitclip_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P),
+    # qkv, grad, dtype, dqkv, stats, batch, seq, heads, head_dim, scale, causal, stream
+    "fitclip_attention_bwd": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P),
 }
 
 
@@ -57,8 +61,18 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run(cmd) -> subprocess.CompletedProcess:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    return proc
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into one .so (if not built already); return its path."""
+    """Compile csrc/*.cu into one .so (if not built already); return its path.
+    Each source compiles in its own nvcc process, all started together, then
+    one link."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources():
         digest.update(path.name.encode())
@@ -68,16 +82,20 @@ def build() -> Path:
     if library.is_file():
         return library
     out_dir.mkdir(parents=True, exist_ok=True)
-    partial = out_dir / f"{LIBRARY_NAME}.{os.getpid()}.partial"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial),
-           *(str(p) for p in sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    nvcc = _nvcc()
+    tag = os.getpid()
+    units = [(src, out_dir / f"{src.stem}.{tag}.o") for src in sources() if src.suffix == ".cu"]
+    objects = [obj for _, obj in units]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in units]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+        procs = list(pool.map(_run, compiles))
+    partial = out_dir / f"{LIBRARY_NAME}.{tag}.partial"
+    _run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(partial), *(str(o) for o in objects)])
     # ptxas -v: registers, shared memory and spills of each kernel.
-    (out_dir / "ptxas.txt").write_text(proc.stdout + proc.stderr)
+    (out_dir / "ptxas.txt").write_text("".join(p.stdout + p.stderr for p in procs))
     os.replace(partial, library)  # atomic: a concurrent build never loads a partial file
+    for obj in objects:
+        obj.unlink()
     return library
 
 
@@ -90,8 +108,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fitclip_error_string.argtypes = (ctypes.c_int,)
     lib.fitclip_error_string.restype = ctypes.c_char_p
-    lib.fitclip_attention_smem_bytes.argtypes = (ctypes.c_int, ctypes.c_int)
-    lib.fitclip_attention_smem_bytes.restype = ctypes.c_size_t
+    for name in ("fitclip_attention_smem_bytes", "fitclip_attention_bwd_smem_bytes"):
+        getattr(lib, name).argtypes = (ctypes.c_int, ctypes.c_int)
+        getattr(lib, name).restype = ctypes.c_size_t
     return lib
 
 

@@ -12,14 +12,21 @@ weights as (out, in), and the patch embedding as a (width, 3, p, p) conv.
 ``params_to_jax`` is its inverse. They let both packages compute the same
 function in the tests, and carry the quantization of a torch-initialized
 model through the one numpy ``quantize_clip_params``.
+
+``load_train_state_from_jax`` and ``train_state_to_jax`` carry a whole
+training state across: the encoder params, the logit scales, the clamp, the
+step and the fused AdamW state (``count``, ``mu``, ``nu``), whose moment trees
+have the params' layout, with a 0-dim placeholder at each frozen leaf. The JAX
+side is a dict of the TrainState's fields with numpy leaves.
 """
 
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from fitclip_torch.models.clip.model import CLIPConfig
+from fitclip_torch.training.state import TrainState, jax_param_path
 
 _DENSES = (("attn", "in_proj"), ("attn", "out_proj"), ("mlp_fc",), ("mlp_proj",))
 _LNS = ("ln_1", "ln_2")
@@ -133,3 +140,73 @@ def params_to_jax(state: Dict[str, torch.Tensor], config: CLIPConfig):
                                                  config.text.layers)},
     }
     return {"visual": visual, "text": text}
+
+
+def _fill_placeholders(moments, params):
+    """The moment tree with each 0-dim placeholder (a frozen leaf) replaced by
+    zeros of its parameter's shape."""
+    if isinstance(moments, Mapping):
+        return {k: _fill_placeholders(moments[k], params[k]) for k in moments}
+    moment, param = np.asarray(moments), np.asarray(params)
+    return np.zeros(param.shape, np.float32) if moment.ndim == 0 and param.ndim else moment
+
+
+def _named_from_jax(tree, config: CLIPConfig) -> Dict[str, torch.Tensor]:
+    named = {f"encoder.{k}": v for k, v in params_from_jax(tree["encoder"], config).items()}
+    named.update((k, _t(np.asarray(v, np.float32))) for k, v in tree.items() if k != "encoder")
+    return named
+
+
+def load_train_state_from_jax(state: TrainState, jax_state: Mapping[str, Any],
+                              config: CLIPConfig) -> TrainState:
+    """Copy a JAX TrainState ({"step", "params", "opt_state": {"count", "mu",
+    "nu"}, "max_logit_scale"}, numpy leaves, fused AdamW layout) into ``state``,
+    a port state of the same configuration, in place. Frozen parameters keep
+    the port's placeholder moments."""
+    params = jax_state["params"]
+    values = _named_from_jax(params, config)
+    with torch.no_grad():
+        for name, param in state.named_parameters().items():
+            param.copy_(values[name])
+        for key in ("mu", "nu"):
+            moments = _named_from_jax(_fill_placeholders(jax_state["opt_state"][key], params),
+                                      config)
+            for name, target in state.opt_state[key].items():
+                if target.dim():
+                    target.copy_(moments[name])
+        state.max_logit_scale.copy_(_t(np.asarray(jax_state["max_logit_scale"], np.float32)))
+    state.opt_state["count"] = int(np.asarray(jax_state["opt_state"]["count"]))
+    state.step = int(np.asarray(jax_state["step"]))
+    return state
+
+
+def _set_placeholders(tree, frozen, prefix=""):
+    if isinstance(tree, Mapping):
+        return {k: _set_placeholders(v, frozen, f"{prefix}{k}/") for k, v in tree.items()}
+    return np.zeros((), np.float32) if prefix.rstrip("/") in frozen else tree
+
+
+def _tree_from_named(named: Mapping[str, torch.Tensor], config: CLIPConfig):
+    encoder = {k[len("encoder."):]: v for k, v in named.items() if k.startswith("encoder.")}
+    tree = {"encoder": params_to_jax(encoder, config)}
+    tree.update((k, _np(named, k)) for k in named if not k.startswith("encoder."))
+    return tree
+
+
+def train_state_to_jax(state: TrainState, config: CLIPConfig) -> Dict[str, Any]:
+    """The inverse of ``load_train_state_from_jax``: a dict of the JAX
+    TrainState's fields with numpy leaves. numpy has no bfloat16, so bf16
+    moments come back as fp32 arrays holding the same values."""
+    named = state.named_parameters()
+
+    def moments(key):
+        stored = state.opt_state[key]
+        frozen = {jax_param_path(n) for n, m in stored.items() if m.dim() < named[n].dim()}
+        full = {n: (m if m.dim() == named[n].dim() else torch.zeros_like(named[n])).float()
+                for n, m in stored.items()}
+        return _set_placeholders(_tree_from_named(full, config), frozen)
+
+    return {"step": np.int32(state.step), "params": _tree_from_named(named, config),
+            "opt_state": {"count": np.int32(state.opt_state["count"]), "mu": moments("mu"),
+                          "nu": moments("nu")},
+            "max_logit_scale": _np({"m": state.max_logit_scale}, "m")}

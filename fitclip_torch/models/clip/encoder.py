@@ -9,10 +9,15 @@ both towers in dynamic-quant mode.
 
 The tokenizer is not ported yet: ``encode_text`` takes token ids whose EOT
 token carries the largest id of its row, as CLIP's BPE gives them.
+
+``encode_video`` and ``encode_text`` are differentiable through the module
+path (the train steps differentiate through them); eval callers and the
+frozen teacher run them under ``torch.no_grad()``. The fused int8 layer path
+(``fused_block``) is inference only and runs without a graph.
 """
 
 import contextlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -38,12 +43,15 @@ class ClipVideoTextEncoder(nn.Module):
     then come from ``quantize_clip_params``). ``fused_block`` (default:
     quantized and fused_attention) runs each int8 layer through the fused
     layer kernels (``fast_eval``); otherwise the module path runs.
-    ``pad_seq`` pads the vision sequence of the fused path with masked rows."""
+    ``pad_seq`` pads the vision sequence of the fused path with masked rows.
+    ``remat`` (False, True or "dots") checkpoints each residual block in
+    training (``model.py``)."""
 
     def __init__(self, config: Optional[CLIPConfig] = None, num_frames: int = 4,
                  dtype: torch.dtype = torch.float32, fused_attention: bool = False,
                  pixel_normalization_folded: bool = False, quantized: bool = False,
-                 fused_block: Optional[bool] = None, pad_seq: int = 0, device=None):
+                 fused_block: Optional[bool] = None, pad_seq: int = 0, device=None,
+                 remat: Union[bool, str] = False):
         super().__init__()
         self.config = config or CLIPConfig.vit_b_16()
         self.dtype = dtype
@@ -56,7 +64,7 @@ class ClipVideoTextEncoder(nn.Module):
         self.pad_seq = pad_seq
         self.mean, self.std = CLIP_MEAN, CLIP_STD
         self.model = CLIPModel(self.config, dtype=dtype, fused_attention=fused_attention,
-                               quantized=quantized, device=device)
+                               quantized=quantized, device=device, remat=remat)
 
     def fold_pixel_normalization(self) -> "ClipVideoTextEncoder":
         """Fold this encoder's pixel normalization into the patch embedding,
@@ -79,7 +87,6 @@ class ClipVideoTextEncoder(nn.Module):
         b, t = video.shape[0], video.shape[1]
         return video.reshape(b * t, *video.shape[2:])
 
-    @torch.no_grad()
     def encode_video(self, video: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, C) -> (B, D): the mean of the L2-normalized frame embeddings."""
         b, t = video.shape[0], video.shape[1]
@@ -90,7 +97,6 @@ class ClipVideoTextEncoder(nn.Module):
             embeddings = self.model.encode_image(frames)
         return l2_normalize(embeddings).reshape(b, t, -1).mean(dim=1)
 
-    @torch.no_grad()
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
         if self.fused_block:
             return l2_normalize(encode_text_fast(self.model, text))

@@ -13,7 +13,7 @@ False (the module path, plain PyTorch).
 
 import dataclasses
 import logging
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -51,7 +51,7 @@ def load_clip_encoder(name: str = "ViT-B/16", dtype: str = "float32",
                       device="cpu", seed: int = 0, num_frames: int = 4,
                       fused_attention: Optional[bool] = None,
                       fused_block: Optional[bool] = None,
-                      pad_seq: int = 0) -> LoadedEncoder:
+                      pad_seq: int = 0, remat: Union[bool, str] = False) -> LoadedEncoder:
     if name not in PRESETS:
         raise ValueError(f"Unknown CLIP preset {name!r}. Presets: {sorted(PRESETS)}")
     quantized = str(dtype) == "int8"
@@ -65,7 +65,8 @@ def load_clip_encoder(name: str = "ViT-B/16", dtype: str = "float32",
     encoder = ClipVideoTextEncoder(config, num_frames=num_frames,
                                    dtype=_DTYPES["bfloat16" if quantized else str(dtype)],
                                    fused_attention=fused_attention, quantized=quantized,
-                                   fused_block=fused_block, pad_seq=pad_seq, device="cpu")
+                                   fused_block=fused_block, pad_seq=pad_seq, device="cpu",
+                                   remat=remat)
     LOGGER.warning("No checkpoint for CLIP %s: initializing from seed %d.", name, seed)
     float_model = init_float_params(CLIPModel(config), seed)
     state = float_model.state_dict()

@@ -10,15 +10,24 @@ statistics and softmax are fp32. Each Transformer holds its layers in an
 
 Dense layers come in three kinds, as in the JAX package: ``Dense`` (float),
 and ``QuantDense`` in static or dynamic (calibration) int8 mode.
+
+``remat`` is the JAX ``nn.remat`` of each residual block as activation
+checkpointing: True recomputes the whole block in the backward pass; "dots"
+keeps the dense products' outputs and the fused attention's output and
+recomputes the elementwise work (LayerNorms, GELU, residual adds), as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does.
 """
 
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from fitclip_torch.ops.attention import fused_attention_qkv
 from fitclip_torch.ops.block import prepare_int8_layer
@@ -241,11 +250,32 @@ class ResidualBlock(nn.Module):
         return self._int8_cache[1]
 
 
+# Ops whose outputs remat="dots" keeps: the dense products (no batch dims, as
+# F.linear dispatches them) and the fused attention. Batched products (the
+# einsum attention's) are recomputed, as under dots_with_no_batch_dims_saveable.
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.fitclip.fused_attention_qkv.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(remat: Union[bool, str]):
+    if remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    if remat is True:
+        return None
+    raise ValueError(f"remat must be False, True or 'dots', got {remat!r}")
+
+
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, causal: bool, quick_gelu: bool,
                  dtype: torch.dtype, fused_attention: bool = False, ln_eps: float = 1e-5,
-                 quantized=False, device=None):
+                 quantized=False, device=None, remat: Union[bool, str] = False):
         super().__init__()
+        self.remat = remat
+        self._remat_context = _remat_context(remat) if remat else None
         self.blocks = nn.ModuleList(
             ResidualBlock(width, heads, causal, quick_gelu, dtype, fused_attention, ln_eps,
                           quantized, device)
@@ -253,14 +283,18 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x)
+            if self.remat and torch.is_grad_enabled():
+                kwargs = {"context_fn": self._remat_context} if self._remat_context else {}
+                x = checkpoint(block, x, use_reentrant=False, **kwargs)
+            else:
+                x = block(x)
         return x
 
 
 class VisionTransformer(nn.Module):
     def __init__(self, config: VisionConfig, embed_dim: int, quick_gelu: bool,
                  dtype: torch.dtype, fused_attention: bool = False, quantized=False,
-                 device=None):
+                 device=None, remat: Union[bool, str] = False):
         super().__init__()
         self.config, self.dtype = config, dtype
         w, p = config.width, config.patch_size
@@ -273,7 +307,7 @@ class VisionTransformer(nn.Module):
         self.ln_pre = LayerNormFp32(w, dtype, device=device)
         self.transformer = Transformer(w, config.layers, config.heads, False, quick_gelu,
                                        dtype, fused_attention, quantized=quantized,
-                                       device=device)
+                                       device=device, remat=remat)
         self.ln_post = LayerNormFp32(w, dtype, device=device)
         self.proj = nn.Parameter(torch.zeros(w, embed_dim, device=device))
 
@@ -296,7 +330,7 @@ class VisionTransformer(nn.Module):
 class TextTransformer(nn.Module):
     def __init__(self, config: TextConfig, embed_dim: int, quick_gelu: bool,
                  dtype: torch.dtype, fused_attention: bool = False, quantized=False,
-                 device=None):
+                 device=None, remat: Union[bool, str] = False):
         super().__init__()
         self.config, self.dtype = config, dtype
         w = config.width
@@ -305,7 +339,7 @@ class TextTransformer(nn.Module):
             torch.zeros(config.context_length, w, device=device))
         self.transformer = Transformer(w, config.layers, config.heads, True, quick_gelu,
                                        dtype, fused_attention, quantized=quantized,
-                                       device=device)
+                                       device=device, remat=remat)
         self.ln_final = LayerNormFp32(w, dtype, device=device)
         self.text_projection = nn.Parameter(torch.zeros(w, embed_dim, device=device))
 
@@ -328,13 +362,14 @@ class TextTransformer(nn.Module):
 
 class CLIPModel(nn.Module):
     def __init__(self, config: CLIPConfig, dtype: torch.dtype = torch.float32,
-                 fused_attention: bool = False, quantized=False, device=None):
+                 fused_attention: bool = False, quantized=False, device=None,
+                 remat: Union[bool, str] = False):
         super().__init__()
         self.config, self.dtype, self.quantized = config, dtype, quantized
         self.visual = VisionTransformer(config.vision, config.embed_dim, config.quick_gelu,
-                                        dtype, fused_attention, quantized, device)
+                                        dtype, fused_attention, quantized, device, remat=remat)
         self.text = TextTransformer(config.text, config.embed_dim, config.quick_gelu,
-                                    dtype, fused_attention, quantized, device)
+                                    dtype, fused_attention, quantized, device, remat=remat)
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         return self.visual(images)

@@ -156,3 +156,83 @@ def test_fused_int8_layer_kernels_match_plain(cuda, quick_gelu, causal):
     ref = K.fused_int8_layer_plain(x, ops, heads, causal=causal)
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
     torch.testing.assert_close(out.float(), ref.float(), atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,seq,heads,causal", [
+    (4, 197, 12, False), (4, 77, 8, True), (3, 50, 12, False), (2, 257, 16, True),
+    (1, 577, 16, False)])  # every CLIP preset's L
+def test_attention_backward_kernel_matches_plain(cuda, dtype, batch, seq, heads, causal):
+    gen = torch.Generator().manual_seed(5)
+    width, scale = heads * 64, 64 ** -0.5
+    qkv = (1.5 * torch.randn(batch, seq, 3 * width, generator=gen)).to(cuda, dtype)
+    grad = torch.randn(batch, seq, width, generator=gen).to(cuda, dtype)
+    if dtype == torch.float32 and seq == 577:
+        # fp32 K^T and V^T of L = 577 exceed a block's shared memory (the
+        # forward kernel refuses the same shape).
+        with pytest.raises(ValueError, match="shared memory"):
+            A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal)
+        return
+    before = A.fused_attention_qkv_backward.launches
+    out = A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal)
+    ref = A.attention_backward_plain(qkv.float(), grad.float(), heads, scale, causal)
+    assert out.dtype == dtype and out.shape == qkv.shape
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    # No atomics: two launches give the same bits.
+    assert torch.equal(out, A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal))
+    assert A.fused_attention_qkv_backward.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_function_gradient_through_both_kernels(cuda, causal):
+    gen = torch.Generator().manual_seed(6)
+    qkv = (1.5 * torch.randn(2, 77, 3 * 512, generator=gen)).to(cuda).requires_grad_()
+    grad = torch.randn(2, 77, 512, generator=gen).to(cuda)
+    counts = (A.fused_attention_qkv.launches, A.fused_attention_qkv_backward.launches)
+    A.fused_attention_qkv(qkv, 8, 0.125, causal).backward(grad)
+    assert (A.fused_attention_qkv.launches, A.fused_attention_qkv_backward.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    ref = A.attention_backward_plain(qkv.detach(), grad, 8, 0.125, causal)
+    torch.testing.assert_close(qkv.grad, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, "dots"])
+def test_remat_on_the_kernels_gives_the_same_gradients(cuda, remat):
+    """Activation checkpointing over K3: the same gradients as without it; full
+    remat launches each attention forward again in the backward pass, "dots"
+    keeps its output."""
+    from fitclip_torch.models.clip.encoder import ClipVideoTextEncoder
+    from fitclip_torch.models.clip.model import (CLIPConfig, TextConfig, VisionConfig,
+                                                 init_float_params)
+
+    config = CLIPConfig(embed_dim=64,
+                        vision=VisionConfig(image_size=32, patch_size=16, width=128, layers=2,
+                                            heads=2),
+                        text=TextConfig(context_length=16, vocab_size=64, width=128, layers=2,
+                                        heads=2))
+    gen = torch.Generator().manual_seed(7)
+    video = torch.randint(0, 256, (3, 2, 32, 32, 3), generator=gen, dtype=torch.uint8).to(cuda)
+    text = torch.randint(1, 63, (3, 16), generator=gen).to(cuda)
+
+    def grads(remat):
+        enc = ClipVideoTextEncoder(config, num_frames=2, dtype=torch.bfloat16,
+                                   fused_attention=True, remat=remat)
+        init_float_params(enc.model, seed=0)
+        enc.to(cuda)
+        counts = (A.fused_attention_qkv.launches, A.fused_attention_qkv_backward.launches)
+        loss = (enc.encode_video(video) @ enc.encode_text(text).T).square().sum()
+        names, params = zip(*enc.model.named_parameters())
+        out = dict(zip(names, torch.autograd.grad(loss, params)))
+        return out, (A.fused_attention_qkv.launches - counts[0],
+                     A.fused_attention_qkv_backward.launches - counts[1])
+
+    ref, ref_launches = grads(False)
+    got, launches = grads(remat)
+    layers = 2 * 2  # two towers of two layers
+    assert ref_launches == (layers, layers)
+    assert launches == ((2 * layers if remat is True else layers), layers)
+    for name, value in ref.items():
+        torch.testing.assert_close(got[name], value, msg=name)
