@@ -3,28 +3,33 @@
 
     python3 chip_smoke.py
 
-Drives two paths of CLIP ViT-B/16 at full width, with weights initialized
-from a seed: int8 zero-shot encoding, and training (contrastive and FitCLIP
-teacher-student, through ``run_train``). It fails (non-zero exit) if any phase
-fails:
+Drives three paths at full width, with weights initialized from a seed: int8
+CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
+teacher-student, through ``run_train``), and Frozen-in-Time base zero-shot
+encoding (int8 and bf16). It fails (non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
-   at the main path's shapes (ViT-B/16 vision: 32 frames x 197 tokens x 768;
+   at the main paths' shapes (ViT-B/16 vision: 32 frames x 197 tokens x 768;
    text: 8 x 77 x 512; the attention backward at the training shapes, 128
-   frames x 197 x 2304 and 32 x 77 x 1536 causal, in bf16 and fp32). int8
-   outputs may differ by one step on at most 0.1% of the elements; float
-   outputs stay within atol/rtol 2e-2 of the plain version run in fp32; two
-   launches of the attention backward give the same bits;
-4. the slice: load, fold the pixel normalization, calibrate on 8 clips and 32
-   token rows, encode 8 clips and 8 token rows. The launch counters, zeroed just
-   before and read just after, must show calibration through the qkv-mode
+   frames x 197 x 2304 and 32 x 77 x 1536 causal, in bf16 and fp32; FiT base:
+   K4's int8 attention cores on the joint 32 x 785 x 2304 qkv, K5 on 128 frame
+   groups of 196 rows, K6 on 32 x 784 x 2304). int8 outputs may differ by one
+   step on at most 0.1% of the elements; float outputs stay within atol/rtol
+   2e-2 of the plain version run in fp32; two launches of the attention
+   backward and of each FiT kernel give the same bits. Each timed kernel gets
+   its plain time, its bound (bytes over 3.35 TB/s or operations over the
+   peak of their type) and, where one PyTorch call computes the same function
+   (scaled_dot_product_attention; torch._int_mm for the GEMMs' product only),
+   that call's time;
+4. the CLIP slice: load, fold the pixel normalization, calibrate on 8 clips and
+   32 token rows, encode 8 clips and 8 token rows. The launch counters, zeroed
+   just before and read just after, must show calibration through the qkv-mode
    attention kernel and K1's kernels on 12 layers of each tower. Gates: the
    kernel path against the plain path on the card, and int8 against the bf16
    float model, both towers, min-row cosine > 0.999; finite text x video scores;
-5. timings (CUDA events, after warm-up): each kernel beside its plain version,
-   and the slice's clips/s at 32 clips;
+5. timings (CUDA events, after warm-up): the CLIP slice's clips/s at 32 clips;
 6. training: bf16 compute, fp32 master weights, fused attention, fused AdamW,
    synthetic uint8 video and token ids from a seed, through ``run_train``:
    (a) contrastive, 32 clips x 4 frames, config/trainer.yaml's optimizer and
@@ -37,7 +42,18 @@ fails:
        kernels, 3 steps with finite losses and counted launches;
    (c) resume: 3 steps, checkpoint, restore, 2 more equal (a)'s 5 straight
        steps bit for bit (params and AdamW moments);
-   (d) timings: contrastive and teacher-student step ms, clips/s, peak memory.
+   (d) timings: contrastive and teacher-student step ms, clips/s, peak memory;
+7. Frozen-in-Time base (Bain et al., ICCV 2021: 12 SpaceTimeBlocks of width
+   768, 4 frames of 196 patches, DistilBERT, projection 256): load int8 and
+   bf16 from seed 0 with device="cuda", calibrate the int8 encoder on 8 clips,
+   encode 32 clips x 4 frames and 256 WordPiece-shaped rows x 77. Launch
+   counts per path: calibration and text launch nothing, the int8 encode runs
+   12 launches per block of K4's kernels, the bf16 encode K5 and K6 once per
+   block. Gates, min-row cosine over the video embeddings: (i) each kernel
+   path against the same model through the plain versions on the card, (ii)
+   int8 against bf16, both > 0.999; finite text embeddings. Timings: int8 and
+   bf16 clips/s, text rows/s, peak memory, and a torch.profiler breakdown of
+   the int8 encode by kernel with the device's busy share.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 The last two lines are the kernels' JSON record and the card line from
@@ -60,6 +76,14 @@ TEXT = dict(batch=8, seq=77, width=512, heads=8)
 # The attention backward at the training step's shapes: 32 clips x 4 frames.
 TRAIN_VISION = dict(VISION, batch=128)
 TRAIN_TEXT = dict(TEXT, batch=32)
+# Frozen-in-Time base (Bain et al., ICCV 2021, base_patch16_224): 32 clips x 4
+# frames of 196 patches + the CLS row, width 768, 12 heads.
+FIT = dict(clips=32, frames=4, patches=196, width=768, heads=12)
+FIT_LAYERS = 12
+FIT_INT8_LAUNCHES_PER_LAYER = {"ln_quant": 3, "int8_gemm_bias": 2, "int8_gemm_residual": 3,
+                               "int8_gemm_gelu": 1, "fit_cls_attention_int8": 2,
+                               "fit_time_attention_int8": 1, "fit_space_attention_int8": 1}
+FIT_BF16_LAUNCHES_PER_LAYER = {"fused_attention_qkv_gkv": 1, "fused_time_attention": 1}
 INT8_MAX_FLIPPED = 1e-3  # share of int8 elements allowed one step off
 FLOAT_TOL = 2e-2
 GATE_COSINE = 0.999
@@ -96,6 +120,44 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The least time the card could take (H100 SXM datasheet peaks):
+# the bytes a function must move over the memory rate, or its operations over
+# the peak rate of their type, whichever is larger.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+
+
+def bound(bytes_moved: float, ops: float, kind: str):
+    """(bound_ms, "bytes" or "operations")."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def timing(kernel_ms, plain_ms, library_ms, bound_pair):
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_pair[0], "bound_by": bound_pair[1]}
+
+
+def sdpa_ms(torch, q, k, v, scale, backward=False):
+    """One F.scaled_dot_product_attention call on (N, H, S, D) operands
+    (the yardstick of an attention kernel; the port never calls it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not backward:
+        return cuda_ms(lambda: sdpa(q, k, v, scale=scale))
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(q, k, v, scale=scale)
+    grad = torch.ones_like(out)
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True))
+
+
+def heads_first(qkv, heads):
+    """(B, L, 3*H*D) -> q, k, v as contiguous (B, H, L, D)."""
+    b, seq, triple = qkv.shape
+    return [t.reshape(b, seq, heads, -1).transpose(1, 2).contiguous()
+            for t in qkv.split(triple // 3, dim=-1)]
 
 
 def min_cosine(a, b) -> float:
@@ -139,7 +201,7 @@ class KernelChecks:
 
 
 def kernel_phase(torch, checks: KernelChecks):
-    """Phase 3: each kernel against its plain version; returns {name: (ms, plain_ms)}."""
+    """Phase 3: each kernel against its plain version; returns {name: timing(...)}."""
     from fitclip_torch.ops import attention as A
     from fitclip_torch.ops import block as K
 
@@ -165,8 +227,10 @@ def kernel_phase(torch, checks: KernelChecks):
             checks.int8("ln_quant", f"{tag} {what}", K.ln_quant(x, gamma, beta, inv),
                         K.ln_quant_plain(x, gamma, beta, inv))
             if timed and what == "bf16 input":
-                times["ln_quant"] = (cuda_ms(lambda: K.ln_quant(x, gamma, beta, inv)),
-                                     cuda_ms(lambda: K.ln_quant_plain(x, gamma, beta, inv)))
+                times["ln_quant"] = timing(
+                    cuda_ms(lambda: K.ln_quant(x, gamma, beta, inv)),
+                    cuda_ms(lambda: K.ln_quant_plain(x, gamma, beta, inv)), None,
+                    bound(m * w * 2 + m * w + 2 * w * 4, 9 * m * w, "fp32"))
 
         # int8 GEMM, its three epilogues at the layer's four shapes.
         a_w, a_4w = int8(m, w), int8(m, 4 * w)
@@ -176,10 +240,12 @@ def kernel_phase(torch, checks: KernelChecks):
         out = K.int8_gemm_bias(a_w, wq, sq, bq, torch.bfloat16)
         checks.float("int8_gemm_bias", f"{tag} qkv", out,
                       K.int8_gemm_bias_plain(a_w, wq, sq, bq, torch.float32))
-        if timed:
-            times["int8_gemm_bias"] = (
+        if timed:  # library: torch._int_mm, the product only, no epilogue
+            times["int8_gemm_bias"] = timing(
                 cuda_ms(lambda: K.int8_gemm_bias(a_w, wq, sq, bq, torch.bfloat16)),
-                cuda_ms(lambda: K.int8_gemm_bias_plain(a_w, wq, sq, bq, torch.bfloat16)))
+                cuda_ms(lambda: K.int8_gemm_bias_plain(a_w, wq, sq, bq, torch.bfloat16)),
+                cuda_ms(lambda: torch._int_mm(a_w, wq.t())),
+                bound(m * w + 3 * w * w + 3 * w * 8 + m * 3 * w * 2, 2 * m * 3 * w * w, "int8"))
 
         so, bo, x_in = scale(w, w), normal(w, std=0.1), normal(m, w, dtype=torch.bfloat16)
         out = K.int8_gemm_residual(a_w, wo, so, bo, x_in, torch.float32)
@@ -190,10 +256,13 @@ def kernel_phase(torch, checks: KernelChecks):
         checks.float("int8_gemm_residual", f"{tag} proj (fp32 -> bf16)", out,
                      K.int8_gemm_residual_plain(a_4w, wp, sp, bp, x32, torch.float32))
         if timed:
-            times["int8_gemm_residual"] = (
+            times["int8_gemm_residual"] = timing(
                 cuda_ms(lambda: K.int8_gemm_residual(a_4w, wp, sp, bp, x32, torch.bfloat16)),
                 cuda_ms(lambda: K.int8_gemm_residual_plain(a_4w, wp, sp, bp, x32,
-                                                           torch.bfloat16)))
+                                                           torch.bfloat16)),
+                cuda_ms(lambda: torch._int_mm(a_4w, wp.t())),
+                bound(m * 4 * w + 4 * w * w + w * 8 + m * w * 4 + m * w * 2,
+                      2 * m * w * 4 * w, "int8"))
 
         inv_p = 127.0 / 6.0
         fs2, fb2 = scale(4 * w, w) * 20.0, normal(4 * w, std=2.0)  # t ~ 20 N(0, 1)
@@ -203,9 +272,11 @@ def kernel_phase(torch, checks: KernelChecks):
                         K.int8_gemm_gelu(a_w, wf, fs2, fb2, kv, quick),
                         K.int8_gemm_gelu_plain(a_w, wf, fs2, fb2, kv, quick))
             if timed and quick:
-                times["int8_gemm_gelu"] = (
+                times["int8_gemm_gelu"] = timing(
                     cuda_ms(lambda: K.int8_gemm_gelu(a_w, wf, fs2, fb2, kv, True)),
-                    cuda_ms(lambda: K.int8_gemm_gelu_plain(a_w, wf, fs2, fb2, kv, True)))
+                    cuda_ms(lambda: K.int8_gemm_gelu_plain(a_w, wf, fs2, fb2, kv, True)),
+                    cuda_ms(lambda: torch._int_mm(a_w, wf.t())),
+                    bound(m * w + 4 * w * w + 4 * w * 8 + m * 4 * w, 2 * m * 4 * w * w, "int8"))
 
         # Attention, both modes. Vision is not causal (and once with seq_valid < L);
         # text is causal.
@@ -224,12 +295,16 @@ def kernel_phase(torch, checks: KernelChecks):
                      A.fused_attention_qkv(qkv, heads, scale_q, causal),
                      A.attention_core_plain(qkv.float(), heads, scale_q, causal))
         if timed:
-            times["attention_int8"] = (
+            ops = 4 * b * heads * seq * seq * (w // heads)
+            times["attention_int8"] = timing(
                 cuda_ms(lambda: A.attention_int8(qkv, heads, scale_q, causal, out_mul)),
-                cuda_ms(lambda: A.attention_int8_plain(qkv, heads, scale_q, causal, out_mul)))
-            times["fused_attention_qkv"] = (
+                cuda_ms(lambda: A.attention_int8_plain(qkv, heads, scale_q, causal, out_mul)),
+                None, bound(b * seq * 3 * w * 2 + b * seq * w, ops, "bf16"))
+            times["fused_attention_qkv"] = timing(
                 cuda_ms(lambda: A.fused_attention_qkv(qkv, heads, scale_q, causal)),
-                cuda_ms(lambda: A.attention_core_plain(qkv, heads, scale_q, causal)))
+                cuda_ms(lambda: A.attention_core_plain(qkv, heads, scale_q, causal)),
+                sdpa_ms(torch, *heads_first(qkv, heads), scale_q),
+                bound(b * seq * 3 * w * 2 + b * seq * w * 2, ops, "bf16"))
 
     # The attention backward (K3b) at the training shapes, bf16 and fp32.
     name = "fused_attention_qkv_backward"
@@ -248,12 +323,102 @@ def kernel_phase(torch, checks: KernelChecks):
             require(torch.equal(out, again), f"{name} {what}: two launches differ")
             print(f"  {name} {what}: two launches bit-identical")
             if tag == "vision" and dtype == torch.bfloat16:
-                times[name] = (
+                times[name] = timing(
                     cuda_ms(lambda: A.fused_attention_qkv_backward(qkv, grad, heads, scale_q,
                                                                    causal)),
                     cuda_ms(lambda: A.attention_backward_plain(qkv, grad, heads, scale_q,
-                                                               causal)))
+                                                               causal)),
+                    sdpa_ms(torch, *heads_first(qkv, heads), scale_q, backward=True),
+                    bound(b * seq * 3 * w * 2 * 2 + b * seq * w * 2,
+                          10 * b * heads * seq * seq * (w // heads), "bf16"))
             del out, again
+    return times
+
+
+def fit_kernel_phase(torch, checks: KernelChecks):
+    """Phase 3, Frozen-in-Time: csrc/fit_attention.cu against its plain
+    versions at FiT base shapes: K4's three int8-mode cores on the joint
+    (32, 785, 2304) qkv, K5 on 128 frame groups of 196 rows, K6 on (32, 784,
+    2304); each launched twice for bit-identity. Returns {name: timing(...)}."""
+    from fitclip_torch.ops import attention as A
+    from fitclip_torch.ops.quant import quantize_rint
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, f, p, w, heads = (FIT[k] for k in ("clips", "frames", "patches", "width", "heads"))
+    d, n = w // heads, 1 + f * p
+    scale, out_mul = d ** -0.5, 127.0 / 2.5
+
+    def normal(*shape):
+        return (1.5 * torch.randn(*shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    def twice(name, what, fn):
+        out = fn()
+        require(torch.equal(out, fn()), f"{name} {what}: two launches differ")
+        print(f"  {name} {what}: two launches bit-identical")
+        return out
+
+    times = {}
+    qkv = normal(b, n, 3 * w)
+    rows_in = b * n * 3 * w * 2
+    what = f"{b} x {n} x {3 * w} bf16"
+    out = twice("fit_cls_attention_int8", what, lambda: A.fit_cls_attention_int8(qkv, heads,
+                                                                                   out_mul))
+    checks.int8("fit_cls_attention_int8", what, out[:, :1],
+                quantize_rint(A.cls_attention_plain(qkv, heads, scale, out_mul)))
+    times["fit_cls_attention_int8"] = timing(
+        cuda_ms(lambda: A.fit_cls_attention_int8(qkv, heads, out_mul, out)),
+        cuda_ms(lambda: A.cls_attention_plain(qkv, heads, scale, out_mul)), None,
+        bound(b * (w + n * 2 * w) * 2 + b * w, 4 * b * heads * n * d, "bf16"))
+    for mode, keys in (("time", f + 1), ("space", p + 1)):
+        name = f"fit_{mode}_attention_int8"
+        wrapper = getattr(A, name)
+        out = twice(name, what, lambda: wrapper(qkv, heads, f, out_mul))
+        checks.int8(name, what, out[:, 1:],
+                    quantize_rint(A.fit_rows_attention_int8_plain(qkv, heads, f, mode, out_mul)))
+        times[name] = timing(
+            cuda_ms(lambda: wrapper(qkv, heads, f, out_mul, out)),
+            cuda_ms(lambda: A.fit_rows_attention_int8_plain(qkv, heads, f, mode, out_mul)),
+            None, bound(rows_in + b * (n - 1) * w, 4 * b * f * p * heads * keys * d, "bf16"))
+    del qkv, out
+
+    # K5: 128 frame groups of 196 rows and a global row each.
+    groups = normal(b * f, p, 3 * w)
+    gkv = normal(b * f, 3 * w)
+    what = f"{b * f} x {p} x {3 * w} + gkv bf16"
+    out = twice("fused_attention_qkv_gkv", what,
+                lambda: A.fused_attention_qkv_gkv(groups, gkv, heads, scale))
+    checks.float("fused_attention_qkv_gkv", what, out,
+                 A.attention_gkv_plain(groups.float(), gkv.float(), heads, scale))
+    q, k, v = heads_first(groups, heads)
+    g_k, g_v = (t.reshape(b * f, heads, 1, d) for t in gkv.split(w, dim=-1)[1:])
+    times["fused_attention_qkv_gkv"] = timing(
+        cuda_ms(lambda: A.fused_attention_qkv_gkv(groups, gkv, heads, scale)),
+        cuda_ms(lambda: A.attention_gkv_plain(groups, gkv, heads, scale)),
+        sdpa_ms(torch, q, torch.cat([g_k, k], 2), torch.cat([g_v, v], 2), scale),
+        bound(b * f * (p + 1) * 3 * w * 2 + b * f * p * w * 2,
+              4 * b * f * heads * p * (p + 1) * d, "bf16"))
+    del groups, out, q, k, v
+
+    # K6: 32 clips of 4 x 196 rows and their CLS rows.
+    rows = normal(b, f * p, 3 * w)
+    gkv = normal(b, 3 * w)
+    what = f"{b} x {f * p} x {3 * w} + gkv bf16"
+    out = twice("fused_time_attention", what,
+                lambda: A.fused_time_attention(rows, gkv, heads, f, scale))
+    checks.float("fused_time_attention", what, out,
+                 A.time_attention_plain(rows.float(), gkv.float(), heads, f, scale))
+    # The same function as SDPA: per (clip, location), F queries over [CLS | F frames].
+    q, k, v = (t.reshape(b, f, p, heads, d).permute(0, 2, 3, 1, 4).reshape(b * p, heads, f, d)
+               for t in rows.split(w, dim=-1))
+    g_k, g_v = (t.reshape(b, 1, heads, 1, d).expand(b, p, heads, 1, d).reshape(b * p, heads, 1, d)
+                for t in gkv.split(w, dim=-1)[1:])
+    times["fused_time_attention"] = timing(
+        cuda_ms(lambda: A.fused_time_attention(rows, gkv, heads, f, scale)),
+        cuda_ms(lambda: A.time_attention_plain(rows, gkv, heads, f, scale)),
+        sdpa_ms(torch, q.contiguous(), torch.cat([g_k, k], 2).contiguous(),
+                torch.cat([g_v, v], 2).contiguous(), scale),
+        bound(b * (f * p + 1) * 3 * w * 2 + b * f * p * w * 2,
+              4 * b * p * heads * f * (f + 1) * d, "bf16"))
     return times
 
 
@@ -458,7 +623,8 @@ def training_phase(torch, student_template, teacher, wrappers, workdir: Path):
     _, ts_losses, ts_launches = train(torch, {"student": student(), "teacher": teacher},
                                       ts_batches, ts_cfg, counters, workdir / "teacher_student")
     totals["teacher_student"] = counters()
-    expected = {k: 2 * LAYERS * {**per_layer, **INT8_LAUNCHES_PER_LAYER}[k] for k in wrappers}
+    expected = {k: 2 * LAYERS * {**per_layer, **INT8_LAUNCHES_PER_LAYER}.get(k, 0)
+                for k in wrappers}
     print(f"train (b) teacher-student, 8 + 8 clips, int8 teacher: losses {ts_losses}; "
           f"launches per step {ts_launches[0]}")
     require(len(ts_losses) == 3 and all(np.isfinite(ts_losses)),
@@ -497,6 +663,149 @@ def training_phase(torch, student_template, teacher, wrappers, workdir: Path):
     return totals, timings
 
 
+def wordpiece_ids(rows: int, rng: np.random.Generator, context: int = 77, vocab: int = 30522):
+    """Random DistilBERT rows: [CLS] (101), ids, [SEP] (102), [PAD] (0) to the end."""
+    ids = np.zeros((rows, context), np.int64)
+    for row in range(rows):
+        n = int(rng.integers(5, context - 2))
+        ids[row, 0], ids[row, n + 1] = 101, 102
+        ids[row, 1:n + 1] = rng.integers(1000, vocab, n)
+    return ids
+
+
+def profile_ms(torch, fn, calls: int = 3):
+    """torch.profiler over ``calls`` calls: ({kernel name: device ms per call},
+    device busy share of the host window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - start) * 1e3
+    per_kernel = {}
+    for event in prof.key_averages():
+        if str(getattr(event, "device_type", "")).endswith("CUDA"):
+            us = getattr(event, "self_device_time_total", None)
+            if us is None:
+                us = event.self_cuda_time_total
+            if us > 0:
+                per_kernel[event.key] = us / 1e3 / calls
+    return per_kernel, sum(per_kernel.values()) * calls / window_ms
+
+
+def fit_phase(torch, wrappers):
+    """Phase 7: Frozen-in-Time base, int8 (K4's kernels) and bf16 (K5/K6),
+    from seed 0; returns ({path: launches}, timings)."""
+    import fitclip_torch.models.frozen_in_time.video_transformer as vt
+    from fitclip_torch.models.clip.encoder import l2_normalize
+    from fitclip_torch.models.frozen_in_time.encoder import EMBED_EPS
+    from fitclip_torch.models.frozen_in_time.fit_fast import encode_video_features_fast
+    from fitclip_torch.models.frozen_in_time.load import load_frozen_in_time_encoder
+    from fitclip_torch.ops import attention as A
+    from fitclip_torch.ops.fit_block import fused_fit_int8_layer_plain
+
+    def counters():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def expect(per_layer):
+        return {k: FIT_LAYERS * per_layer.get(k, 0) for k in wrappers}
+
+    start = time.perf_counter()
+    int8_enc = load_frozen_in_time_encoder(dtype="int8", device="cuda", seed=0).encoder
+    bf16_enc = load_frozen_in_time_encoder(dtype="bfloat16", device="cuda", seed=0).encoder
+    print(f"fit: loaded int8 and bf16 FiT base in {time.perf_counter() - start:.1f} s "
+          f"(fused_block {int8_enc.fused_block} / {bf16_enc.fused_block}, fused_attention "
+          f"{int8_enc.fused_attention} / {bf16_enc.fused_attention})")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    clips, frames = FIT["clips"], FIT["frames"]
+
+    def uint8_video(n):
+        return torch.randint(0, 256, (n, frames, 224, 224, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    calib, video = uint8_video(8), uint8_video(clips)
+    text = torch.from_numpy(wordpiece_ids(256, np.random.default_rng(6))).cuda()
+
+    paths = {}
+    zero()
+    int8_enc.calibrate(calib)
+    paths["fit_calibrate"] = counters()
+    zero()
+    int8_emb = int8_enc.encode_video(video)
+    paths["fit_int8_encode"] = counters()
+    zero()
+    bf16_emb = bf16_enc.encode_video(video)
+    paths["fit_bf16_encode"] = counters()
+    zero()
+    text_emb = bf16_enc.encode_text(text)
+    paths["fit_text_encode"] = counters()
+    print(f"fit: launches per path {paths}")
+    nothing = expect({})
+    require(paths["fit_calibrate"] == nothing, "FiT calibration launched a kernel")
+    require(paths["fit_int8_encode"] == expect(FIT_INT8_LAUNCHES_PER_LAYER),
+            f"FiT int8 encode launches {paths['fit_int8_encode']}")
+    require(paths["fit_bf16_encode"] == expect(FIT_BF16_LAUNCHES_PER_LAYER),
+            f"FiT bf16 encode launches {paths['fit_bf16_encode']}")
+    require(paths["fit_text_encode"] == nothing, "the DistilBERT tower launched a kernel")
+
+    # Gate (i): the kernel paths against the same models through the plain versions.
+    zero()
+    features = encode_video_features_fast(int8_enc.video, int8_enc._prepare_video(video),
+                                          layer_fn=fused_fit_int8_layer_plain)
+    plain = {"int8": l2_normalize(int8_enc.vid_proj(features.float()), eps=EMBED_EPS)}
+    kernels = (vt.fused_attention_qkv_gkv, vt.fused_time_attention)
+    vt.fused_attention_qkv_gkv, vt.fused_time_attention = (A.attention_gkv_plain,
+                                                           A.time_attention_plain)
+    plain["bf16"] = bf16_enc.encode_video(video)
+    vt.fused_attention_qkv_gkv, vt.fused_time_attention = kernels
+    require(counters() == nothing, "the plain FiT paths launched a kernel")
+    for tag, emb in (("int8", int8_emb), ("bf16", bf16_emb)):
+        cos = min_cosine(emb, plain[tag])
+        print(f"fit gate (i) {tag} video: kernels vs plain on the card, min cosine {cos:.6f}")
+        require(cos > GATE_COSINE, f"FiT {tag}: kernel path vs plain path cosine {cos}")
+    cos = min_cosine(int8_emb, bf16_emb)
+    print(f"fit gate (ii) video: int8 vs bf16, min cosine {cos:.6f}")
+    require(cos > GATE_COSINE, f"FiT int8 vs bf16 cosine {cos}")
+    require(int8_emb.shape == (clips, 256) and bool(torch.isfinite(int8_emb).all())
+            and bool(torch.isfinite(bf16_emb).all()), "FiT video embeddings not finite (32, 256)")
+    require(text_emb.shape == (256, 256) and bool(torch.isfinite(text_emb).all()),
+            "FiT text embeddings not finite (256, 256)")
+    print(f"fit: text embeddings {tuple(text_emb.shape)}, all finite")
+    del plain, features
+
+    timings = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timings["int8_ms"] = cuda_ms(lambda: int8_enc.encode_video(video), iters=10)
+    timings["int8_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    timings["bf16_ms"] = cuda_ms(lambda: bf16_enc.encode_video(video), iters=10)
+    timings["bf16_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    timings["text_ms"] = cuda_ms(lambda: bf16_enc.encode_text(text), iters=10)
+    print(f"fit: int8 encode_video, {clips} clips x {frames} frames: {timings['int8_ms']:.3f} ms, "
+          f"{clips * 1e3 / timings['int8_ms']:.1f} clips/s, peak {timings['int8_peak_gib']:.2f} "
+          f"GiB; bf16: {timings['bf16_ms']:.3f} ms, {clips * 1e3 / timings['bf16_ms']:.1f} "
+          f"clips/s, peak {timings['bf16_peak_gib']:.2f} GiB; encode_text, 256 rows x 77: "
+          f"{timings['text_ms']:.3f} ms, {256e3 / timings['text_ms']:.1f} rows/s")
+
+    per_kernel, busy = profile_ms(torch, lambda: int8_enc.encode_video(video))
+    total = sum(per_kernel.values())
+    print(f"fit: int8 encode_video profile, device {total:.3f} ms per call, busy share "
+          f"{busy:.3f} of the host window; top kernels (ms per call, share):")
+    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
+    return paths, timings
+
+
 def main() -> int:
     import torch
 
@@ -530,6 +839,7 @@ def main() -> int:
     print("kernels against their plain versions:")
     checks = KernelChecks()
     times = kernel_phase(torch, checks)
+    times.update(fit_kernel_phase(torch, checks))
 
     # Phase 4: the slice. Encoding is inference: no autograd graph.
     torch.set_grad_enabled(False)
@@ -550,7 +860,12 @@ def main() -> int:
                 "int8_gemm_residual": K.int8_gemm_residual,
                 "int8_gemm_gelu": K.int8_gemm_gelu, "attention_int8": A.attention_int8,
                 "fused_attention_qkv": A.fused_attention_qkv,
-                "fused_attention_qkv_backward": A.fused_attention_qkv_backward}
+                "fused_attention_qkv_backward": A.fused_attention_qkv_backward,
+                "fused_attention_qkv_gkv": A.fused_attention_qkv_gkv,
+                "fused_time_attention": A.fused_time_attention,
+                "fit_cls_attention_int8": A.fit_cls_attention_int8,
+                "fit_time_attention_int8": A.fit_time_attention_int8,
+                "fit_space_attention_int8": A.fit_space_attention_int8}
     for fn in wrappers.values():
         fn.launches = 0
     int8_enc.calibrate(video, calib_text)
@@ -564,10 +879,10 @@ def main() -> int:
     layers = LAYERS
     require(after_calibration["fused_attention_qkv"] == 2 * layers,
             "calibration did not run the qkv-mode attention kernel on every layer")
-    expected = {"ln_quant": 4 * layers, "int8_gemm_bias": 2 * layers,
-                "int8_gemm_residual": 4 * layers, "int8_gemm_gelu": 2 * layers,
-                "attention_int8": 2 * layers, "fused_attention_qkv": 2 * layers,
-                "fused_attention_qkv_backward": 0}
+    expected = {name: 0 for name in wrappers}
+    expected.update({"ln_quant": 4 * layers, "int8_gemm_bias": 2 * layers,
+                     "int8_gemm_residual": 4 * layers, "int8_gemm_gelu": 2 * layers,
+                     "attention_int8": 2 * layers, "fused_attention_qkv": 2 * layers})
     require(launches == expected, f"launch counts {launches}, expected {expected}")
 
     frames = int8_enc._prepare_frames(video)
@@ -606,26 +921,41 @@ def main() -> int:
     student = load_clip_encoder("ViT-B/16", dtype="bfloat16", device="cuda", seed=0)
     paths, train_times = training_phase(torch, student, LoadedEncoder(int8_enc), wrappers,
                                         ROOT / "build" / "chip_smoke_train")
-    paths = {"encode": launches, **paths}
+
+    # Phase 7: Frozen-in-Time. Inference: no autograd graph.
+    torch.set_grad_enabled(False)
+    del student
+    torch.cuda.empty_cache()
+    fit_paths, fit_times = fit_phase(torch, wrappers)
+    paths = {"encode": launches, **paths, **fit_paths}
     print(f"launches per path: {paths}")
     for name in wrappers:
         require(any(counts[name] for counts in paths.values()),
                 f"{name} was launched in no path")
 
+    fit_attention = ("fused_attention_qkv_gkv", "fused_time_attention",
+                     "fit_cls_attention_int8", "fit_time_attention_int8",
+                     "fit_space_attention_int8")
     replaces = {"fused_attention_qkv": "fitclip_tpu/ops/attention.py:41",
-                "fused_attention_qkv_backward": "fitclip_tpu/ops/attention.py:349"}
+                "fused_attention_qkv_backward": "fitclip_tpu/ops/attention.py:349",
+                "fused_attention_qkv_gkv": "fitclip_tpu/ops/attention.py:85",
+                "fused_time_attention": "fitclip_tpu/ops/attention.py:168",
+                **{name: "fitclip_tpu/ops/fit_block.py:748" for name in fit_attention[2:]}}
     sources = {"ln_quant": "ln_quant.cu", "attention_int8": "attention.cu",
                "fused_attention_qkv": "attention.cu",
-               "fused_attention_qkv_backward": "attention_bwd.cu"}
+               "fused_attention_qkv_backward": "attention_bwd.cu",
+               **{name: "fit_attention.cu" for name in fit_attention}}
     record = [{"name": name, "route": "cuda",
                "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",
                "replaces": replaces.get(name, "fitclip_tpu/ops/block.py:137"),
                "launches": sum(counts[name] for counts in paths.values()),
-               "max_abs_err": checks.max_abs_err[name],
-               "ms": times[name][0], "plain_ms": times[name][1]}
+               "max_abs_err": checks.max_abs_err[name], **times[name]}
               for name in wrappers]
     for entry in record:
-        print(f"  {entry['name']}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms")
+        library = entry["library_ms"]
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+              f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), library "
+              f"{'none' if library is None else f'{library:.4f} ms'}")
     print(json.dumps({"kernels": record}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,6 +46,14 @@ _SIGNATURES = {
     "fitclip_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P),
     # qkv, grad, dtype, dqkv, stats, batch, seq, heads, head_dim, scale, causal, stream
     "fitclip_attention_bwd": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # qkv, qkv_clip_stride, gkv, gkv_stride, dtype, out, out_clip_stride, int8_out,
+    # groups (space) or clips (time), frames, patches, heads, head_dim, scale, out_mul, stream
+    "fitclip_fit_space_attention": (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                    _P),
+    "fitclip_fit_time_attention": (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                   _P),
+    # qkv, dtype, out, out_clip_stride, clips, seq, heads, head_dim, scale, out_mul, stream
+    "fitclip_fit_cls_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 
@@ -108,9 +116,12 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fitclip_error_string.argtypes = (ctypes.c_int,)
     lib.fitclip_error_string.restype = ctypes.c_char_p
-    for name in ("fitclip_attention_smem_bytes", "fitclip_attention_bwd_smem_bytes"):
+    for name in ("fitclip_attention_smem_bytes", "fitclip_attention_bwd_smem_bytes",
+                 "fitclip_fit_space_smem_bytes"):
         getattr(lib, name).argtypes = (ctypes.c_int, ctypes.c_int)
         getattr(lib, name).restype = ctypes.c_size_t
+    lib.fitclip_fit_cls_smem_bytes.argtypes = (ctypes.c_int,)
+    lib.fitclip_fit_cls_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 

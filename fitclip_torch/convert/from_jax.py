@@ -13,6 +13,10 @@ weights as (out, in), and the patch embedding as a (width, 3, p, p) conv.
 function in the tests, and carry the quantization of a torch-initialized
 model through the one numpy ``quantize_clip_params``.
 
+``fit_params_from_jax`` does the same for a Frozen-in-Time tree, whose blocks
+are not stacked (``blocks_{i}``, ``layer_{i}``) and whose LayerNorms are
+``{"weight", "bias"}``.
+
 ``load_train_state_from_jax`` and ``train_state_to_jax`` carry a whole
 training state across: the encoder params, the logit scales, the clamp, the
 step and the fused AdamW state (``count``, ``mu``, ``nu``), whose moment trees
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from fitclip_torch.models.clip.model import CLIPConfig
+from fitclip_torch.models.frozen_in_time.encoder import FrozenInTimeConfig
 from fitclip_torch.training.state import TrainState, jax_param_path
 
 _DENSES = (("attn", "in_proj"), ("attn", "out_proj"), ("mlp_fc",), ("mlp_proj",))
@@ -49,15 +54,8 @@ def _blocks_from_jax(blocks, prefix: str, layers: int, out: Dict[str, torch.Tens
             out[f"{p}.{name}.weight"] = _t(np.asarray(blocks[name]["ln"]["scale"][i], np.float32))
             out[f"{p}.{name}.bias"] = _t(np.asarray(blocks[name]["ln"]["bias"][i], np.float32))
         for path in _DENSES:
-            node, name = _get(blocks, path), f"{p}.{'.'.join(path)}"
-            if "kernel_q" in node:
-                out[f"{name}.weight_q"] = _t(np.asarray(node["kernel_q"][i], np.int8).T)
-                out[f"{name}.scale"] = _t(np.asarray(node["scale"][i], np.float32))
-                out[f"{name}.act_scale"] = _t(
-                    np.asarray(node["act_scale"][i], np.float32).reshape(1))
-            else:
-                out[f"{name}.weight"] = _t(np.asarray(node["kernel"][i], np.float32).T)
-            out[f"{name}.bias"] = _t(np.asarray(node["bias"][i], np.float32))
+            layer = {key: np.asarray(value)[i] for key, value in _get(blocks, path).items()}
+            _dense_from_jax(layer, f"{p}.{'.'.join(path)}", out)
 
 
 def _ln_from_jax(node, name: str, out):
@@ -84,6 +82,62 @@ def params_from_jax(tree, config: CLIPConfig) -> Dict[str, torch.Tensor]:
     _ln_from_jax(t["ln_final"], "text.ln_final", out)
     _blocks_from_jax(t["transformer"]["blocks"], "text.transformer.blocks",
                      config.text.layers, out)
+    return out
+
+
+def _dense_from_jax(node, name: str, out) -> None:
+    """A float ({kernel, bias}) or int8 ({kernel_q, scale, bias, act_scale})
+    dense node -> (out, in) weights."""
+    if "kernel_q" in node:
+        out[f"{name}.weight_q"] = _t(np.asarray(node["kernel_q"], np.int8).T)
+        out[f"{name}.scale"] = _t(np.asarray(node["scale"], np.float32))
+        out[f"{name}.act_scale"] = _t(np.asarray(node["act_scale"], np.float32).reshape(1))
+    else:
+        out[f"{name}.weight"] = _t(np.asarray(node["kernel"], np.float32).T)
+    out[f"{name}.bias"] = _t(np.asarray(node["bias"], np.float32))
+
+
+def _vector(node, name: str, out) -> None:
+    for key in ("weight", "bias"):
+        out[f"{name}.{key}"] = _t(np.asarray(node[key], np.float32))
+
+
+_FIT_DENSES = ("attn/qkv", "attn/proj", "timeattn/qkv", "timeattn/proj", "mlp_fc1", "mlp_fc2")
+_BERT_DENSES = ("attention_q_lin", "attention_k_lin", "attention_v_lin", "attention_out_lin",
+                "ffn_lin1", "ffn_lin2")
+
+
+def fit_params_from_jax(tree, config: FrozenInTimeConfig) -> Dict[str, torch.Tensor]:
+    """JAX Frozen-in-Time tree ({"video", "text", "vid_proj", "txt_proj"},
+    numpy leaves, the video denses float or int8) ->
+    FrozenInTimeVideoTextEncoder state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    v, t = tree["video"], tree["text"]
+    p, width = config.patch_size, config.embed_dim
+    kernel = np.asarray(v["patch_embed"]["kernel"], np.float32)
+    out["video.patch_embed.weight"] = _t(kernel.reshape(p, p, 3, width).transpose(3, 2, 0, 1))
+    out["video.patch_embed.bias"] = _t(np.asarray(v["patch_embed"]["bias"], np.float32))
+    for name in ("cls_token", "pos_embed", "temporal_embed"):
+        out[f"video.{name}"] = _t(np.asarray(v[name], np.float32))
+    _vector(v["norm"], "video.norm", out)
+    for i in range(config.depth):
+        block, prefix = v[f"blocks_{i}"], f"video.blocks.{i}"
+        for name in ("norm1", "norm2", "norm3"):
+            _vector(block[name], f"{prefix}.{name}", out)
+        for path in _FIT_DENSES:
+            _dense_from_jax(_get(block, path.split("/")), f"{prefix}.{path.replace('/', '.')}",
+                            out)
+    for name in ("word_embeddings", "position_embeddings"):
+        out[f"text.{name}"] = _t(np.asarray(t[name], np.float32))
+    _vector(t["embeddings_layer_norm"], "text.embeddings_layer_norm", out)
+    for i in range(config.text.n_layers):
+        layer, prefix = t[f"layer_{i}"], f"text.layers.{i}"
+        for name in ("sa_layer_norm", "output_layer_norm"):
+            _vector(layer[name], f"{prefix}.{name}", out)
+        for name in _BERT_DENSES:
+            _dense_from_jax(layer[name], f"{prefix}.{name}", out)
+    for name in ("vid_proj", "txt_proj"):
+        _dense_from_jax(tree[name], name, out)
     return out
 
 

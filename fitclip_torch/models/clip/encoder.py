@@ -16,7 +16,6 @@ frozen teacher run them under ``torch.no_grad()``. The fused int8 layer path
 (``fused_block``) is inference only and runs without a graph.
 """
 
-import contextlib
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -24,9 +23,8 @@ import torch
 from torch import nn
 
 from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
-from fitclip_torch.models.clip.model import (CLIPConfig, CLIPModel, QuantDense,
-                                             fold_pixel_normalization)
-from fitclip_torch.ops.quant import act_scale_sites, apply_act_scales
+from fitclip_torch.models.clip.model import CLIPConfig, CLIPModel, fold_pixel_normalization
+from fitclip_torch.ops.quant import apply_act_scales, dynamic_observing, observed_act_amax
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -102,25 +100,6 @@ class ClipVideoTextEncoder(nn.Module):
             return l2_normalize(encode_text_fast(self.model, text))
         return l2_normalize(self.model.encode_text(text))
 
-    @contextlib.contextmanager
-    def _dynamic_observing(self):
-        """Every int8 dense in dynamic-quant mode, recording its input's abs-max."""
-        denses = [m for m in self.model.modules() if isinstance(m, QuantDense)]
-        saved = [(m.dynamic, m.observe) for m in denses]
-        try:
-            for m in denses:
-                m.dynamic, m.observe, m.observed_amax = True, True, None
-            yield
-        finally:
-            for m, (dynamic, observe) in zip(denses, saved):
-                m.dynamic, m.observe = dynamic, observe
-
-    def _observed(self, prefix: str) -> Dict[str, np.ndarray]:
-        return {site: torch.cat([m.observed_amax for m in modules]).reshape(-1, 1)
-                .float().cpu().numpy()
-                for site, modules in act_scale_sites(self.model).items()
-                if site.startswith(prefix)}
-
     @torch.no_grad()
     def collect_act_amax(self, video: torch.Tensor,
                          text: Optional[torch.Tensor] = None) -> Dict[str, np.ndarray]:
@@ -129,12 +108,12 @@ class ClipVideoTextEncoder(nn.Module):
         {site: (layers, 1) abs-max}. Merge several with ops.quant.merge_act_amax."""
         if not self.quantized:
             raise ValueError("calibration requires a quantized encoder")
-        with self._dynamic_observing():
+        with dynamic_observing(self.model):
             self.model.encode_image(self._prepare_frames(video))
-            amax = self._observed("visual/")
+            amax = observed_act_amax(self.model, "visual/")
             if text is not None:
                 self.model.encode_text(text)
-                amax.update(self._observed("text/"))
+                amax.update(observed_act_amax(self.model, "text/"))
         return amax
 
     def calibrate(self, video: torch.Tensor, text: Optional[torch.Tensor] = None,

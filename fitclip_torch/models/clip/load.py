@@ -6,9 +6,11 @@ seed (``model.init_float_params``). ``dtype="int8"`` is the W8A8 inference
 configuration: bf16 activations and int8 block denses, quantized from the
 seeded float weights, so a float and an int8 encoder of one seed share them.
 
-The kernel defaults follow the device: on CUDA ``fused_attention`` is True and
-``fused_block`` follows ``quantized`` (the Hopper kernels); on the CPU both are
-False (the module path, plain PyTorch).
+The encoder runs on CUDA unless the caller asks for another device
+(``device="cpu"``); without a card a CUDA request raises. The kernel defaults
+follow the device: on CUDA ``fused_attention`` is True and ``fused_block``
+follows ``quantized`` (the Hopper kernels); on the CPU both are False (the
+module path, plain PyTorch).
 """
 
 import dataclasses
@@ -35,6 +37,15 @@ _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; CUDA must be present if asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU unless the caller "
+                           "asks for the CPU (device='cpu')")
+    return device
+
+
 @dataclasses.dataclass
 class LoadedEncoder:
     """An encoder with its weights, as the CLI wires it into task modules."""
@@ -48,7 +59,7 @@ class LoadedEncoder:
 
 
 def load_clip_encoder(name: str = "ViT-B/16", dtype: str = "float32",
-                      device="cpu", seed: int = 0, num_frames: int = 4,
+                      device="cuda", seed: int = 0, num_frames: int = 4,
                       fused_attention: Optional[bool] = None,
                       fused_block: Optional[bool] = None,
                       pad_seq: int = 0, remat: Union[bool, str] = False) -> LoadedEncoder:
@@ -58,7 +69,7 @@ def load_clip_encoder(name: str = "ViT-B/16", dtype: str = "float32",
     if not quantized and str(dtype) not in _DTYPES:
         raise ValueError(f"Unknown encoder dtype {dtype!r} — expected one of "
                          f"{sorted(_DTYPES)} or 'int8'")
-    device = torch.device(device)
+    device = resolve_device(device)
     if fused_attention is None:
         fused_attention = device.type == "cuda"
     config = PRESETS[name]()

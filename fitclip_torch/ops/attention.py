@@ -1,9 +1,10 @@
 """Multi-head attention over the unsplit (B, L, 3 * H * D) QKV projection
 output, forward and backward (port of ``fitclip_tpu/ops/attention.py``'s
 ``fused_attention_qkv`` custom VJP and of the per-head core of
-``ops/block.py``).
+``ops/block.py``), and Frozen-in-Time's divided attention (the section at the
+end: K5, K6 and K4's int8 cores, ``csrc/fit_attention.cu``).
 
-Three Hopper kernels serve three wrappers:
+Three Hopper kernels serve the CLIP wrappers:
 
 - ``fused_attention_qkv``: K3, an ``autograd.Function``. Its forward
   (``csrc/attention.cu``, qkv mode) replaces ``attention.py:_packed_kernel``:
@@ -39,8 +40,9 @@ import torch
 from fitclip_torch import _build
 from fitclip_torch.ops.quant import quantize_rint
 
-HEAD_DIM = 64  # the kernels' head_dim: every CLIP preset's
+HEAD_DIM = 64  # the kernels' head_dim: every CLIP preset's and FiT base's
 SMEM_LIMIT = 232448  # shared memory a block can use on an H100
+MAX_FRAMES = 16  # the time kernel keeps each location's frames in registers
 
 
 def attention_core_plain(qkv: torch.Tensor, heads: int, scale: float, causal: bool,
@@ -236,3 +238,256 @@ def attention_int8(qkv: torch.Tensor, heads: int, scale: float, causal: bool,
 
 
 attention_int8.launches = 0
+
+
+# --- Frozen-in-Time: divided attention with a global row (csrc/fit_attention.cu) ---
+#
+# K5 (space, float), K6 (time, float) and the three int8 attention launches of
+# K4's SpaceTimeBlock. The global row is the clip's CLS qkv: a separate (G, 3W)
+# or (B, 3W) gkv for K5 and K6, row 0 of the joint (B, 1 + F * P, 3W) qkv for
+# K4, whose int8 outputs land in the rows of one (B, 1 + F * P, W) buffer.
+
+def _attend_plain(q, k, v, out_mul: Optional[float]) -> torch.Tensor:
+    """q (.., Sq, D), k/v (.., Sk, D) -> fp32 (.., Sq, D): fp32 logits and
+    softmax, weights exps / denom (or exps * (out_mul / denom)) cast to v's
+    dtype, P.V in fp32."""
+    logits = q.float() @ k.float().transpose(-1, -2)
+    peak = logits.amax(dim=-1, keepdim=True)
+    exps = torch.exp(logits - peak)
+    denom = exps.sum(dim=-1, keepdim=True)
+    weights = exps / denom if out_mul is None else exps * (out_mul / denom)
+    return weights.to(v.dtype).float() @ v.float()
+
+
+def attention_gkv_plain(qkv: torch.Tensor, gkv: torch.Tensor, heads: int, scale: float,
+                        out_mul: Optional[float] = None,
+                        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The plain version of the space kernel: each of G groups' L rows attends
+    over [gkv's key/value | the group's L rows] (``_packed_gkv_kernel``; with
+    out_mul, K4's space attention). q is scaled in qkv's dtype."""
+    groups, seq, triple = qkv.shape
+    width = triple // 3
+    head_dim = width // heads
+
+    def split(t):
+        return t.reshape(groups, -1, heads, head_dim).transpose(1, 2)
+
+    kv = torch.cat([gkv.reshape(groups, 1, triple), qkv], dim=1)
+    q = split(qkv[..., :width] * torch.tensor(scale, dtype=qkv.dtype, device=qkv.device))
+    out = _attend_plain(q, split(kv[..., width:2 * width]), split(kv[..., 2 * width:]), out_mul)
+    return out.transpose(1, 2).reshape(groups, seq, width).to(out_dtype or qkv.dtype)
+
+
+def time_attention_plain(qkv: torch.Tensor, gkv: torch.Tensor, heads: int, frames: int,
+                         scale: float, out_mul: Optional[float] = None,
+                         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The plain version of the time kernel (``_time_attention_kernel``; with
+    out_mul, K4's time attention): over (B, F * P, 3W) rows, location p of
+    frame f attends over [gkv | location p of every frame]. q is scaled in
+    fp32 and the weights, exps * (out_mul / denom), stay fp32."""
+    batch, n, triple = qkv.shape
+    width = triple // 3
+    head_dim = width // heads
+
+    def split(t):
+        return t.reshape(batch, frames, n // frames, heads, head_dim).float()
+
+    q = split(qkv[..., :width]) * scale
+    k, v = split(qkv[..., width:2 * width]), split(qkv[..., 2 * width:])
+    g_k, g_v = (gkv[:, None, None, off:off + width].reshape(batch, 1, 1, heads, head_dim).float()
+                for off in (width, 2 * width))
+    logits = torch.cat([(q * g_k).sum(-1, keepdim=True),
+                        torch.einsum("bfphd,bgphd->bfphg", q, k)], dim=-1)
+    exps = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    weights = exps * ((1.0 if out_mul is None else out_mul) / exps.sum(dim=-1, keepdim=True))
+    out = weights[..., :1] * g_v + torch.einsum("bfphg,bgphd->bfphd", weights[..., 1:], v)
+    return out.reshape(batch, n, width).to(out_dtype or qkv.dtype)
+
+
+def cls_attention_plain(qkv: torch.Tensor, heads: int, scale: float,
+                        out_mul: float) -> torch.Tensor:
+    """The plain version of the cls kernel, fp32 (B, 1, W): row 0's attention
+    over all N rows of (B, N, 3W), out_mul folded into the normalizer (K4's
+    global CLS row); q is scaled in qkv's dtype."""
+    batch, n, triple = qkv.shape
+    width = triple // 3
+    head_dim = width // heads
+
+    def split(t):
+        return t.reshape(batch, -1, heads, head_dim).transpose(1, 2)
+
+    q = split(qkv[:, :1, :width] * torch.tensor(scale, dtype=qkv.dtype, device=qkv.device))
+    out = _attend_plain(q, split(qkv[..., width:2 * width]), split(qkv[..., 2 * width:]), out_mul)
+    return out.transpose(1, 2).reshape(batch, 1, width)
+
+
+def _fit_check(qkv, heads, frames=1):
+    _build.check_cuda_operand("qkv", qkv, ndim=3)
+    _check_head_dim(qkv, heads)
+    if not 1 <= frames <= MAX_FRAMES:
+        raise ValueError(f"the time kernel takes 1 to {MAX_FRAMES} frames, got {frames}")
+
+
+def _fit_launch(name, qkv, qkv_row, gkv_ptr, gkv_stride, out, out_row, int8_out, count, frames,
+                patches, heads, scale, out_mul):
+    """Launch the space or time kernel. Clip c's rows start at qkv row qkv_row
+    and out row out_row of clip c; strides are in elements."""
+    _, n, triple = qkv.shape
+    out_n, width = out.shape[1], out.shape[2]
+    _build.call(name, qkv.data_ptr() + qkv_row * triple * qkv.element_size(), n * triple,
+                gkv_ptr, gkv_stride, _build.dtype_code(qkv.dtype),
+                out.data_ptr() + out_row * width * out.element_size(), out_n * width,
+                int(int8_out), count, frames, patches, heads, HEAD_DIM, float(scale),
+                float(out_mul))
+
+
+def _check_space_smem(qkv, patches):
+    smem = _build.library().fitclip_fit_space_smem_bytes(_build.dtype_code(qkv.dtype), patches)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{patches} rows per group need {smem} bytes of shared memory per "
+                         f"block; an H100 block has {SMEM_LIMIT}")
+
+
+def _check_gkv(gkv, qkv):
+    _build.check_cuda_operand("gkv", gkv, qkv.dtype, 2)
+    if gkv.shape != (qkv.shape[0], qkv.shape[2]):
+        raise ValueError(f"gkv must be {(qkv.shape[0], qkv.shape[2])}, got {tuple(gkv.shape)}")
+
+
+def fused_attention_qkv_gkv(qkv: torch.Tensor, gkv: torch.Tensor, heads: int,
+                            scale: float) -> torch.Tensor:
+    """K5: (G, L, 3*H*D) groups and one global (G, 3*H*D) qkv row each ->
+    (G, L, H*D) in qkv's dtype; softmax over [global | group]. Replaces
+    ``fitclip_tpu/ops/attention.py:fused_attention_qkv_gkv``
+    (``_packed_gkv_kernel``). Forward only."""
+    if qkv.device.type == "cpu":
+        return attention_gkv_plain(qkv, gkv, heads, scale)
+    _fit_check(qkv, heads)
+    _check_gkv(gkv, qkv)
+    groups, seq, triple = qkv.shape
+    _check_space_smem(qkv, seq)
+    out = torch.empty(groups, seq, triple // 3, dtype=qkv.dtype, device=qkv.device)
+    _fit_launch("fitclip_fit_space_attention", qkv, 0, gkv.data_ptr(), triple, out, 0, False,
+                groups, 1, seq, heads, scale, 1.0)
+    fused_attention_qkv_gkv.launches += 1
+    return out
+
+
+fused_attention_qkv_gkv.launches = 0
+
+
+def fused_time_attention(qkv: torch.Tensor, gkv: torch.Tensor, heads: int, frames: int,
+                         scale: float) -> torch.Tensor:
+    """K6: divided time attention over (B, F*P, 3*H*D) rows with one global
+    (B, 3*H*D) row per clip -> (B, F*P, H*D) in qkv's dtype. Replaces
+    ``fitclip_tpu/ops/attention.py:fused_time_attention``
+    (``_time_attention_kernel``). Forward only."""
+    if qkv.device.type == "cpu":
+        return time_attention_plain(qkv, gkv, heads, frames, scale)
+    _fit_check(qkv, heads, frames)
+    _check_gkv(gkv, qkv)
+    batch, n, triple = qkv.shape
+    if n % frames:
+        raise ValueError(f"qkv rows {n} are not {frames} frames x P")
+    out = torch.empty(batch, n, triple // 3, dtype=qkv.dtype, device=qkv.device)
+    _fit_launch("fitclip_fit_time_attention", qkv, 0, gkv.data_ptr(), triple, out, 0, False,
+                batch, frames, n // frames, heads, scale, 1.0)
+    fused_time_attention.launches += 1
+    return out
+
+
+fused_time_attention.launches = 0
+
+
+def _joint_out(qkv, out):
+    batch, n, triple = qkv.shape
+    if out is None:
+        out = torch.zeros(batch, n, triple // 3, dtype=torch.int8, device=qkv.device)
+    if out.shape != (batch, n, triple // 3) or out.dtype != torch.int8:
+        raise ValueError(f"out must be int8 {(batch, n, triple // 3)}, got {out.dtype} "
+                         f"{tuple(out.shape)}")
+    return out
+
+
+def fit_rows_attention_int8_plain(qkv, heads, frames, mode, out_mul) -> torch.Tensor:
+    """K4's time or space attention of the patch rows of the joint
+    (B, 1 + F*P, 3W) qkv, fp32 (B, F*P, W) before rounding."""
+    batch, n, triple = qkv.shape
+    patches = (n - 1) // frames
+    scale = (triple // 3 // heads) ** -0.5
+    rows, gkv = qkv[:, 1:], qkv[:, 0]
+    if mode == "time":
+        return time_attention_plain(rows, gkv, heads, frames, scale, out_mul, torch.float32)
+    out = attention_gkv_plain(rows.reshape(batch * frames, patches, triple),
+                              gkv.repeat_interleave(frames, dim=0), heads, scale, out_mul,
+                              torch.float32)
+    return out.reshape(batch, n - 1, triple // 3)
+
+
+def fit_time_attention_int8(qkv: torch.Tensor, heads: int, frames: int, out_mul: float,
+                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4's time attention on the joint (B, 1 + F*P, 3W) qkv (global row 0):
+    writes rows 1.. of the int8 (B, 1 + F*P, W) ``out`` and returns it."""
+    return _fit_rows_int8(qkv, heads, frames, out_mul, out, "time")
+
+
+def fit_space_attention_int8(qkv: torch.Tensor, heads: int, frames: int, out_mul: float,
+                             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4's space attention on the joint (B, 1 + F*P, 3W) qkv (global row 0):
+    writes rows 1.. of the int8 (B, 1 + F*P, W) ``out`` and returns it."""
+    return _fit_rows_int8(qkv, heads, frames, out_mul, out, "space")
+
+
+def _fit_rows_int8(qkv, heads, frames, out_mul, out, mode):
+    wrapper = fit_time_attention_int8 if mode == "time" else fit_space_attention_int8
+    out = _joint_out(qkv, out)
+    if qkv.device.type == "cpu":
+        out[:, 1:] = quantize_rint(fit_rows_attention_int8_plain(qkv, heads, frames, mode,
+                                                                 out_mul))
+        return out
+    _fit_check(qkv, heads, frames if mode == "time" else 1)
+    _build.check_cuda_operand("out", out, torch.int8, 3)
+    batch, n, triple = qkv.shape
+    patches = (n - 1) // frames
+    if patches * frames != n - 1:
+        raise ValueError(f"qkv rows {n} are not 1 + {frames} frames x P")
+    scale = (triple // 3 // heads) ** -0.5
+    if mode == "time":
+        _fit_launch("fitclip_fit_time_attention", qkv, 1, qkv.data_ptr(), n * triple, out, 1,
+                    True, batch, frames, patches, heads, scale, out_mul)
+    else:
+        _check_space_smem(qkv, patches)
+        _fit_launch("fitclip_fit_space_attention", qkv, 1, qkv.data_ptr(), n * triple, out, 1,
+                    True, batch * frames, frames, patches, heads, scale, out_mul)
+    wrapper.launches += 1
+    return out
+
+
+fit_time_attention_int8.launches = 0
+fit_space_attention_int8.launches = 0
+
+
+def fit_cls_attention_int8(qkv: torch.Tensor, heads: int, out_mul: float,
+                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4's global CLS row: row 0 of the joint (B, N, 3W) qkv attends over all
+    N rows; writes row 0 of the int8 (B, N, W) ``out`` and returns it."""
+    out = _joint_out(qkv, out)
+    scale = (qkv.shape[2] // 3 // heads) ** -0.5
+    if qkv.device.type == "cpu":
+        out[:, :1] = quantize_rint(cls_attention_plain(qkv, heads, scale, out_mul))
+        return out
+    _fit_check(qkv, heads)
+    _build.check_cuda_operand("out", out, torch.int8, 3)
+    batch, n, triple = qkv.shape
+    smem = _build.library().fitclip_fit_cls_smem_bytes(n)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{n} keys need {smem} bytes of shared memory per block; an H100 "
+                         f"block has {SMEM_LIMIT}")
+    _build.call("fitclip_fit_cls_attention", qkv.data_ptr(), _build.dtype_code(qkv.dtype),
+                out.data_ptr(), n * (triple // 3), batch, n, heads, HEAD_DIM, float(scale),
+                float(out_mul))
+    fit_cls_attention_int8.launches += 1
+    return out
+
+
+fit_cls_attention_int8.launches = 0

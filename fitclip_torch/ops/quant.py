@@ -20,6 +20,7 @@ These denses are XLA in the JAX package, not Pallas, so on the card they stay
 plain PyTorch; the Hopper int8 GEMM serves the fused layer (``ops/block.py``).
 """
 
+import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -30,6 +31,8 @@ QUANT_EPS = 1e-8
 
 _BLOCK_DENSE_NAMES = ("mlp_fc", "mlp_proj")
 _ATTN_DENSE_NAMES = ("in_proj", "out_proj")
+# Frozen-in-Time's SpaceTimeTransformer: qkv/proj under attn and timeattn.
+FIT_DENSE_NAMES = ("qkv", "proj", "mlp_fc1", "mlp_fc2")
 
 
 def quantize_weight(kernel: np.ndarray) -> Dict[str, np.ndarray]:
@@ -52,7 +55,8 @@ def _quantize_dense_node(node):
 
 def quantize_clip_params(params, names: Optional[tuple] = None):
     """Float numpy CLIP tree (JAX layout) -> the int8-dense tree. act_scale
-    leaves start at the all-ones "uncalibrated" sentinel."""
+    leaves start at the all-ones "uncalibrated" sentinel. ``names`` picks the
+    dense nodes to quantize (FIT_DENSE_NAMES for a FiT video tree)."""
     if names is None:
         names = _BLOCK_DENSE_NAMES + _ATTN_DENSE_NAMES
 
@@ -115,6 +119,28 @@ def act_scale_sites(model: nn.Module) -> Dict[str, List[nn.Module]]:
             path = "/".join(part for part in name.split(".") if not part.isdigit())
             sites.setdefault(path, []).append(module)
     return sites
+
+
+@contextlib.contextmanager
+def dynamic_observing(model: nn.Module):
+    """Every int8 dense of ``model`` in dynamic-quant mode, recording its
+    input's abs-max in ``observed_amax``: the calibration pass."""
+    denses = [m for modules in act_scale_sites(model).values() for m in modules]
+    saved = [(m.dynamic, m.observe) for m in denses]
+    try:
+        for m in denses:
+            m.dynamic, m.observe, m.observed_amax = True, True, None
+        yield
+    finally:
+        for m, (dynamic, observe) in zip(denses, saved):
+            m.dynamic, m.observe = dynamic, observe
+
+
+def observed_act_amax(model: nn.Module, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{site: (layers, 1) abs-max} that the sites under ``prefix`` observed."""
+    return {site: torch.cat([m.observed_amax for m in modules]).reshape(-1, 1)
+            .float().cpu().numpy()
+            for site, modules in act_scale_sites(model).items() if site.startswith(prefix)}
 
 
 def merge_act_amax(a, b):

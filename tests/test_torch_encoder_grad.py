@@ -101,5 +101,5 @@ def test_remat_is_off_without_grad_and_checked():
 
 
 def test_load_clip_encoder_passes_remat():
-    enc = load_clip_encoder("ViT-B/32", dtype="float32", remat="dots").encoder
+    enc = load_clip_encoder("ViT-B/32", dtype="float32", device="cpu", remat="dots").encoder
     assert enc.model.visual.transformer.remat == enc.model.text.transformer.remat == "dots"

@@ -13,6 +13,7 @@ import torch
 from fitclip_torch import _build
 from fitclip_torch.ops import attention as A
 from fitclip_torch.ops import block as K
+from fitclip_torch.ops import fit_block as FB
 
 INT8_MAX_FLIPPED = 1e-3  # share of int8 elements allowed one step off
 FLOAT_TOL = 2e-2          # bf16 output against the plain version in fp32
@@ -236,3 +237,84 @@ def test_remat_on_the_kernels_gives_the_same_gradients(cuda, remat):
     assert launches == ((2 * layers if remat is True else layers), layers)
     for name, value in ref.items():
         torch.testing.assert_close(got[name], value, msg=name)
+
+
+# --- Frozen-in-Time: csrc/fit_attention.cu and K4's composition ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("groups,seq,heads", [(8, 196, 12), (6, 9, 2), (3, 49, 4)])
+def test_gkv_attention_kernel_matches_plain(cuda, dtype, groups, seq, heads):
+    gen = torch.Generator().manual_seed(8)
+    width, scale = heads * 64, 64 ** -0.5
+    qkv = (1.5 * torch.randn(groups, seq, 3 * width, generator=gen)).to(cuda, dtype)
+    gkv = (1.5 * torch.randn(groups, 3 * width, generator=gen)).to(cuda, dtype)
+    before = A.fused_attention_qkv_gkv.launches
+    out = A.fused_attention_qkv_gkv(qkv, gkv, heads, scale)
+    ref = A.attention_gkv_plain(qkv.float(), gkv.float(), heads, scale)
+    assert out.dtype == dtype and out.shape == (groups, seq, width)
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    assert torch.equal(out, A.fused_attention_qkv_gkv(qkv, gkv, heads, scale))
+    assert A.fused_attention_qkv_gkv.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,frames,patches,heads", [(2, 4, 196, 12), (3, 1, 7, 2),
+                                                        (2, 16, 5, 4)])
+def test_time_attention_kernel_matches_plain(cuda, dtype, batch, frames, patches, heads):
+    gen = torch.Generator().manual_seed(9)
+    width, scale = heads * 64, 64 ** -0.5
+    qkv = (1.5 * torch.randn(batch, frames * patches, 3 * width, generator=gen)).to(cuda, dtype)
+    gkv = (1.5 * torch.randn(batch, 3 * width, generator=gen)).to(cuda, dtype)
+    before = A.fused_time_attention.launches
+    out = A.fused_time_attention(qkv, gkv, heads, frames, scale)
+    ref = A.time_attention_plain(qkv.float(), gkv.float(), heads, frames, scale)
+    assert out.dtype == dtype and out.shape == (batch, frames * patches, width)
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    assert torch.equal(out, A.fused_time_attention(qkv, gkv, heads, frames, scale))
+    assert A.fused_time_attention.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["time", "space"])
+@pytest.mark.parametrize("frames,patches,heads", [(4, 196, 12), (2, 5, 2), (1, 9, 4)])
+def test_fit_int8_attention_kernels_match_plain(cuda, mode, frames, patches, heads):
+    gen = torch.Generator().manual_seed(10)
+    width = heads * 64
+    qkv = (1.5 * torch.randn(3, 1 + frames * patches, 3 * width, generator=gen)).to(
+        cuda, torch.bfloat16)
+    counts = (A.fit_cls_attention_int8.launches, A.fit_time_attention_int8.launches,
+              A.fit_space_attention_int8.launches)
+    out = FB.fit_attention_int8(qkv, heads, frames, mode, 127.0 / 2.5)
+    _assert_int8_close(out, FB.fit_attention_int8_plain(qkv, heads, frames, mode, 127.0 / 2.5))
+    assert torch.equal(out, FB.fit_attention_int8(qkv, heads, frames, mode, 127.0 / 2.5))
+    time = int(mode == "time")
+    assert (A.fit_cls_attention_int8.launches, A.fit_time_attention_int8.launches,
+            A.fit_space_attention_int8.launches) == (counts[0] + 2, counts[1] + 2 * time,
+                                                     counts[2] + 2 * (1 - time))
+
+
+def _fit_operands(width, gen, device):
+    """Random operands of one FiT block: the time half from one K1 layer's,
+    the space half and the MLP (exact GELU) from another's."""
+    a = _layer_operands(width, gen, device, quick_gelu=False)
+    b = _layer_operands(width, gen, device, quick_gelu=False)
+    return FB.FitLayerOperands(
+        a.ln1_weight, a.ln1_bias, a.wq, a.qs, a.qb, a.wo, a.os, a.ob,
+        b.ln1_weight, b.ln1_bias, b.wq, b.qs, b.qb, b.wo, b.os, b.ob,
+        a.ln2_weight, a.ln2_bias, a.wf, a.fs2, a.fb2, a.wp, a.ps, a.pb,
+        a.inv_q, a.inv_o, b.inv_q, b.inv_o, a.inv_f, a.kv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [4, 1])
+def test_fused_fit_int8_layer_kernels_match_plain(cuda, frames):
+    gen = torch.Generator().manual_seed(11)
+    width, heads = 768, 12
+    ops = _fit_operands(width, gen, cuda)
+    x = torch.randn(2, 1 + frames * 196, width, generator=gen).to(cuda, torch.bfloat16)
+    out = FB.fused_fit_int8_layer(x, ops, heads, frames)
+    ref = FB.fused_fit_int8_layer_plain(x, ops, heads, frames)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=FLOAT_TOL, rtol=FLOAT_TOL)
