@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives three paths at full width, with weights initialized from a seed: int8
+Drives four paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
-teacher-student, through ``run_train``), and Frozen-in-Time base zero-shot
-encoding (int8 and bf16). It fails (non-zero exit) if any phase fails:
+teacher-student, through ``run_train``), Frozen-in-Time base zero-shot
+encoding (int8 and bf16), and the S3D-G family (MIL-NCE bf16 and int8,
+VideoCLIP bf16). It fails (non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
@@ -15,10 +16,12 @@ encoding (int8 and bf16). It fails (non-zero exit) if any phase fails:
    text: 8 x 77 x 512; the attention backward at the training shapes, 128
    frames x 197 x 2304 and 32 x 77 x 1536 causal, in bf16 and fp32; FiT base:
    K4's int8 attention cores on the joint 32 x 785 x 2304 qkv, K5 on 128 frame
-   groups of 196 rows, K6 on 32 x 784 x 2304). int8 outputs may differ by one
-   step on at most 0.1% of the elements; float outputs stay within atol/rtol
-   2e-2 of the plain version run in fp32; two launches of the attention
-   backward and of each FiT kernel give the same bits. Each timed kernel gets
+   groups of 196 rows, K6 on 32 x 784 x 2304; the S3D-G stem, K7, on 32 clips x
+   16 frames of 224^2). int8 outputs may differ by one step on at most 0.1% of
+   the elements; float outputs stay within atol/rtol 2e-2 of the plain version
+   run in fp32, the stem's within one bf16 ulp on all but 0.1%; two launches of
+   the attention backward, of each FiT kernel and of the stem give the same
+   bits. Each timed kernel gets
    its plain time, its bound (bytes over 3.35 TB/s or operations over the
    peak of their type) and, where one PyTorch call computes the same function
    (scaled_dot_product_attention; torch._int_mm for the GEMMs' product only),
@@ -53,7 +56,18 @@ encoding (int8 and bf16). It fails (non-zero exit) if any phase fails:
    path against the same model through the plain versions on the card, (ii)
    int8 against bf16, both > 0.999; finite text embeddings. Timings: int8 and
    bf16 clips/s, text rows/s, peak memory, and a torch.profiler breakdown of
-   the int8 encode by kernel with the device's busy share.
+   the int8 encode by kernel with the device's busy share;
+8. the S3D-G family, from seed 0 with device="cuda": MIL-NCE (Miech et al.,
+   CVPR 2020: S3D-G on 16 frames of 224^2, 512-d, word-embedding text tower)
+   bf16 and int8 (calibrated on 8 clips), 32 clips and 256 rows x 20 ids;
+   VideoCLIP (Xu et al., EMNLP 2021: BertConfig(), 6 video and 12 text layers)
+   bf16, 8 videos x 32 frames and 256 rows x 64 ids. Launch counts per path: one
+   stem launch per encode and per calibration, 15 int8 GEMMs in the int8
+   encode, none for text. Gates, min-row cosine over the video embeddings: (i)
+   each kernel path against the plain versions on the card > 0.999, (ii)
+   MIL-NCE int8 against bf16 > 0.99; finite text embeddings; mean row norms.
+   Timings: clips/s, videos/s, text rows/s, peak memory, and a profiler table
+   of the bf16 MIL-NCE encode by kernel with the device's busy share.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 The last two lines are the kernels' JSON record and the card line from
@@ -84,6 +98,13 @@ FIT_INT8_LAUNCHES_PER_LAYER = {"ln_quant": 3, "int8_gemm_bias": 2, "int8_gemm_re
                                "int8_gemm_gelu": 1, "fit_cls_attention_int8": 2,
                                "fit_time_attention_int8": 1, "fit_space_attention_int8": 1}
 FIT_BF16_LAUNCHES_PER_LAYER = {"fused_attention_qkv_gkv": 1, "fused_time_attention": 1}
+# S3D-G: MIL-NCE (Miech et al., CVPR 2020: S3D-G over 16 frames of 224^2, 512-d; text:
+# 300-d word embeddings over 66,250 words, fc 2048, 20 tokens) and VideoCLIP (Xu et al.,
+# EMNLP 2021: BertConfig(), 6 video and 12 text layers, 32-frame clips).
+MIL_NCE = dict(clips=32, frames=16, size=224, calib=8, text_rows=256, tokens=20, vocab=66250)
+VIDEOCLIP = dict(videos=8, frames=32, text_rows=256, tokens=64)
+S3DG_INT8_SITES = 15  # 7 blocks from mixed_4b x (merged, b3) + fc
+S3DG_GATE_INT8 = 0.99  # int8 against bf16, tests/test_s3dg_fast.py:127
 INT8_MAX_FLIPPED = 1e-3  # share of int8 elements allowed one step off
 FLOAT_TOL = 2e-2
 GATE_COSINE = 0.999
@@ -186,6 +207,22 @@ class KernelChecks:
         require(err <= 1 and flipped <= INT8_MAX_FLIPPED,
                 f"{name} {what}: int8 output off by {err} LSB on {flipped:.2e} of elements")
         self._record(name, float(err))
+
+    def bf16_ulp(self, name, what, kernel_out, plain_fp32):
+        """A bf16 output within one bf16 ulp of the plain fp32 result on all but
+        INT8_MAX_FLIPPED of its elements."""
+        import torch
+
+        torch.cuda.synchronize()
+        k = kernel_out.float()
+        diff = (k - plain_fp32).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(plain_fp32.abs().clamp_min(1e-38))) - 7)
+        over, err = float((diff > ulp).float().mean()), float(diff.max())
+        print(f"  {name} {what}: max |diff| {err:.3e}, {over:.2e} of elements beyond one bf16 "
+              f"ulp of the plain version in fp32")
+        require(bool(torch.isfinite(k).all()), f"{name} {what}: non-finite output")
+        require(over <= INT8_MAX_FLIPPED, f"{name} {what}: {over:.2e} of elements beyond one ulp")
+        self._record(name, err)
 
     def float(self, name, what, kernel_out, plain_fp32):
         import torch
@@ -419,6 +456,40 @@ def fit_kernel_phase(torch, checks: KernelChecks):
                 torch.cat([g_v, v], 2).contiguous(), scale),
         bound(b * (f * p + 1) * 3 * w * 2 + b * f * p * w * 2,
               4 * b * p * heads * f * (f + 1) * d, "bf16"))
+    return times
+
+
+def s3dg_kernel_phase(torch, checks: KernelChecks):
+    """Phase 3, S3D-G: the stem kernel (K7) against its plain version at the MIL-NCE
+    shape, 32 clips x 16 frames of 224^2 bf16, launched twice for bit-identity.
+    Returns {name: timing(...)}; no single PyTorch call computes conv + ReLU + pool,
+    so the library time is null (cuDNN's bf16 conv3d alone is printed beside it)."""
+    import torch.nn.functional as F
+
+    from fitclip_torch.ops import s3dg_stem as S
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, t, size = MIL_NCE["clips"], MIL_NCE["frames"], MIL_NCE["size"]
+    x = torch.rand(b, t, size, size, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    kernel = (0.05 * torch.randn(2, 4, 4, 24, 64, generator=gen, device="cuda")).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(64, generator=gen, device="cuda")).to(torch.bfloat16)
+    what = f"{b} x {t} x {size}^2 bf16"
+    out = S.s3dg_stem(x, kernel, bias)
+    require(torch.equal(out, S.s3dg_stem(x, kernel, bias)), f"s3dg_stem {what}: two launches differ")
+    print(f"  s3dg_stem {what}: two launches bit-identical")
+    checks.bf16_ulp("s3dg_stem", what, out, S.s3dg_stem_plain(x.float(), kernel, bias))
+    del out
+    positions = b * (t // 2) * (size // 2) ** 2
+    times = {"s3dg_stem": timing(
+        cuda_ms(lambda: S.s3dg_stem(x, kernel, bias)),
+        cuda_ms(lambda: S.s3dg_stem_plain(x, kernel, bias), iters=5), None,
+        bound(x.numel() * 2 + positions // 4 * 64 * 2 + 768 * 64 * 2 + 64 * 4,
+              2 * positions * 768 * 64, "bf16"))}
+    s = S.space_to_depth(x).contiguous().permute(0, 4, 1, 2, 3)
+    weight = kernel.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    conv_ms = cuda_ms(lambda: F.conv3d(s, weight, padding=(1, 2, 2)), iters=10)
+    print(f"  s3dg_stem: for information, cuDNN's bf16 conv3d alone (no bias, ReLU or pool, "
+          f"unpooled output) {conv_ms:.4f} ms")
     return times
 
 
@@ -806,6 +877,144 @@ def fit_phase(torch, wrappers):
     return paths, timings
 
 
+def s3dg_phase(torch, wrappers):
+    """Phase 8: the S3D-G family from seed 0 on the card: MIL-NCE bf16 and int8 (the
+    stem on K7, the int8 sites on int8_gemm_bias) and VideoCLIP bf16. Returns
+    ({path: launches}, timings)."""
+    from fitclip_torch.models.mil_nce import load_mil_nce_encoder
+    from fitclip_torch.models.s3dg_fast import s3dg_fast_apply
+    from fitclip_torch.models.videoclip import load_videoclip_encoder
+
+    def counters():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def expect(**counts):
+        return {k: counts.get(k, 0) for k in wrappers}
+
+    start = time.perf_counter()
+    bf16_enc = load_mil_nce_encoder(dtype="bfloat16", device="cuda", seed=0).encoder
+    int8_enc = load_mil_nce_encoder(dtype="int8", device="cuda", seed=0).encoder
+    vc_enc = load_videoclip_encoder(dtype="bfloat16", device="cuda", seed=0).encoder
+    print(f"s3dg: loaded MIL-NCE bf16 and int8 and VideoCLIP bf16 in "
+          f"{time.perf_counter() - start:.1f} s (fast {bf16_enc.fast} / {int8_enc.fast} / "
+          f"{vc_enc.fast})")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rng = np.random.default_rng(9)
+    m, v = MIL_NCE, VIDEOCLIP
+
+    def uint8_video(n, frames):
+        return torch.randint(0, 256, (n, frames, m["size"], m["size"], 3), generator=gen,
+                             device="cuda", dtype=torch.uint8)
+
+    calib, video, vc_video = (uint8_video(m["calib"], m["frames"]),
+                              uint8_video(m["clips"], m["frames"]),
+                              uint8_video(v["videos"], v["frames"]))
+    words = rng.integers(1, m["vocab"], (m["text_rows"], m["tokens"]))
+    words[np.arange(m["tokens"]) >= rng.integers(3, m["tokens"], (m["text_rows"], 1))] = 0
+    mil_text = torch.from_numpy(words).cuda()
+    vc_ids = wordpiece_ids(v["text_rows"], rng, context=v["tokens"] - 1)
+    vc_text = torch.from_numpy(np.concatenate([vc_ids[:, :1], np.full((len(vc_ids), 1), 102),
+                                               vc_ids[:, 1:]], axis=1)).cuda()  # [CLS] [SEP] ...
+
+    paths = {}
+    zero()
+    int8_enc.calibrate(calib)
+    paths["mil_nce_calibrate"] = counters()
+    zero()
+    int8_emb = int8_enc.encode_video(video)
+    paths["mil_nce_int8_encode"] = counters()
+    zero()
+    bf16_emb = bf16_enc.encode_video(video)
+    paths["mil_nce_bf16_encode"] = counters()
+    zero()
+    mil_text_emb = bf16_enc.encode_text(mil_text)
+    paths["mil_nce_text_encode"] = counters()
+    zero()
+    vc_emb = vc_enc.encode_video(vc_video)
+    paths["videoclip_encode"] = counters()
+    zero()
+    vc_text_emb = vc_enc.encode_text(vc_text)
+    paths["videoclip_text_encode"] = counters()
+    print(f"s3dg: launches per path (nonzero counts) "
+          f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
+    stem = expect(s3dg_stem=1)
+    for path, want in (("mil_nce_calibrate", stem), ("mil_nce_bf16_encode", stem),
+                       ("mil_nce_int8_encode", expect(s3dg_stem=1,
+                                                      int8_gemm_bias=S3DG_INT8_SITES)),
+                       ("videoclip_encode", stem), ("mil_nce_text_encode", expect()),
+                       ("videoclip_text_encode", expect())):
+        require(paths[path] == want, f"{path} launches {paths[path]}, expected {want}")
+
+    # Gate (i): each kernel path against the same model through the plain versions.
+    zero()
+    plain = {"MIL-NCE bf16": s3dg_fast_apply(bf16_enc.video, bf16_enc._prepare_video(video),
+                                             torch.bfloat16, plain=True),
+             "MIL-NCE int8": s3dg_fast_apply(int8_enc.video, int8_enc._prepare_video(video),
+                                             torch.bfloat16, int8=True, plain=True)}
+    clips = vc_enc._clips(vc_video)
+    features = s3dg_fast_apply(vc_enc.s3dg, clips, torch.bfloat16, plain=True)
+    plain["VideoCLIP bf16"] = vc_enc.model.forward_video(
+        features.reshape(v["videos"], -1, features.shape[-1]),
+        torch.ones(v["videos"], 1, dtype=torch.int64, device="cuda"), vc_enc.CLS_ID,
+        vc_enc.SEP_ID)
+    require(counters() == expect(), "the plain S3D-G paths launched a kernel")
+    for tag, emb in (("MIL-NCE bf16", bf16_emb), ("MIL-NCE int8", int8_emb),
+                     ("VideoCLIP bf16", vc_emb)):
+        cos = min_cosine(emb, plain[tag])
+        print(f"s3dg gate (i) {tag} video: kernels vs plain on the card, min cosine {cos:.6f}")
+        require(cos > GATE_COSINE, f"{tag}: kernel path vs plain path cosine {cos}")
+    cos = min_cosine(int8_emb, bf16_emb)
+    print(f"s3dg gate (ii) MIL-NCE video: int8 vs bf16, min cosine {cos:.6f}")
+    require(cos > S3DG_GATE_INT8, f"MIL-NCE int8 vs bf16 cosine {cos}")
+    for tag, emb, shape in (("MIL-NCE bf16 video", bf16_emb, (m["clips"], 512)),
+                            ("MIL-NCE int8 video", int8_emb, (m["clips"], 512)),
+                            ("MIL-NCE text", mil_text_emb, (m["text_rows"], 512)),
+                            ("VideoCLIP video", vc_emb, (v["videos"], 768)),
+                            ("VideoCLIP text", vc_text_emb, (v["text_rows"], 768))):
+        require(emb.shape == shape and bool(torch.isfinite(emb).all()),
+                f"{tag} embeddings {tuple(emb.shape)} not finite {shape}")
+        print(f"s3dg: {tag} embeddings {tuple(emb.shape)}, all finite, mean row norm "
+              f"{float(emb.float().norm(dim=-1).mean()):.4f}")
+    del plain, features, clips
+
+    timings = {}
+    torch.cuda.empty_cache()
+    for tag, fn in (("mil_nce_bf16", lambda: bf16_enc.encode_video(video)),
+                    ("mil_nce_int8", lambda: int8_enc.encode_video(video)),
+                    ("videoclip", lambda: vc_enc.encode_video(vc_video))):
+        torch.cuda.reset_peak_memory_stats()
+        timings[f"{tag}_ms"] = cuda_ms(fn, iters=10)
+        timings[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    timings["mil_nce_text_ms"] = cuda_ms(lambda: bf16_enc.encode_text(mil_text), iters=10)
+    timings["videoclip_text_ms"] = cuda_ms(lambda: vc_enc.encode_text(vc_text), iters=10)
+    print(f"s3dg: MIL-NCE encode_video, {m['clips']} clips x {m['frames']} frames: bf16 "
+          f"{timings['mil_nce_bf16_ms']:.3f} ms, "
+          f"{m['clips'] * 1e3 / timings['mil_nce_bf16_ms']:.1f} clips/s, peak "
+          f"{timings['mil_nce_bf16_peak_gib']:.2f} GiB; int8 {timings['mil_nce_int8_ms']:.3f} ms, "
+          f"{m['clips'] * 1e3 / timings['mil_nce_int8_ms']:.1f} clips/s, peak "
+          f"{timings['mil_nce_int8_peak_gib']:.2f} GiB; encode_text, {m['text_rows']} rows x "
+          f"{m['tokens']}: {timings['mil_nce_text_ms']:.3f} ms, "
+          f"{m['text_rows'] * 1e3 / timings['mil_nce_text_ms']:.1f} rows/s")
+    print(f"s3dg: VideoCLIP encode_video, {v['videos']} videos x {v['frames']} frames: "
+          f"{timings['videoclip_ms']:.3f} ms, {v['videos'] * 1e3 / timings['videoclip_ms']:.1f} "
+          f"videos/s, peak {timings['videoclip_peak_gib']:.2f} GiB; encode_text, "
+          f"{v['text_rows']} rows x {v['tokens']}: {timings['videoclip_text_ms']:.3f} ms, "
+          f"{v['text_rows'] * 1e3 / timings['videoclip_text_ms']:.1f} rows/s")
+
+    per_kernel, busy = profile_ms(torch, lambda: bf16_enc.encode_video(video))
+    total = sum(per_kernel.values())
+    print(f"s3dg: MIL-NCE bf16 encode_video profile, device {total:.3f} ms per call, busy share "
+          f"{busy:.3f} of the host window; top kernels (ms per call, share):")
+    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
+    return paths, timings
+
+
 def main() -> int:
     import torch
 
@@ -819,6 +1028,7 @@ def main() -> int:
     from fitclip_torch.models.clip.load import LoadedEncoder, load_clip_encoder
     from fitclip_torch.ops import attention as A
     from fitclip_torch.ops import block as K
+    from fitclip_torch.ops.s3dg_stem import s3dg_stem
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -840,6 +1050,7 @@ def main() -> int:
     checks = KernelChecks()
     times = kernel_phase(torch, checks)
     times.update(fit_kernel_phase(torch, checks))
+    times.update(s3dg_kernel_phase(torch, checks))
 
     # Phase 4: the slice. Encoding is inference: no autograd graph.
     torch.set_grad_enabled(False)
@@ -865,7 +1076,8 @@ def main() -> int:
                 "fused_time_attention": A.fused_time_attention,
                 "fit_cls_attention_int8": A.fit_cls_attention_int8,
                 "fit_time_attention_int8": A.fit_time_attention_int8,
-                "fit_space_attention_int8": A.fit_space_attention_int8}
+                "fit_space_attention_int8": A.fit_space_attention_int8,
+                "s3dg_stem": s3dg_stem}
     for fn in wrappers.values():
         fn.launches = 0
     int8_enc.calibrate(video, calib_text)
@@ -927,7 +1139,11 @@ def main() -> int:
     del student
     torch.cuda.empty_cache()
     fit_paths, fit_times = fit_phase(torch, wrappers)
-    paths = {"encode": launches, **paths, **fit_paths}
+
+    # Phase 8: the S3D-G family (MIL-NCE, VideoCLIP).
+    torch.cuda.empty_cache()
+    s3dg_paths, s3dg_times = s3dg_phase(torch, wrappers)
+    paths = {"encode": launches, **paths, **fit_paths, **s3dg_paths}
     print(f"launches per path: {paths}")
     for name in wrappers:
         require(any(counts[name] for counts in paths.values()),
@@ -940,10 +1156,11 @@ def main() -> int:
                 "fused_attention_qkv_backward": "fitclip_tpu/ops/attention.py:349",
                 "fused_attention_qkv_gkv": "fitclip_tpu/ops/attention.py:85",
                 "fused_time_attention": "fitclip_tpu/ops/attention.py:168",
+                "s3dg_stem": "fitclip_tpu/ops/s3dg_stem.py:322",
                 **{name: "fitclip_tpu/ops/fit_block.py:748" for name in fit_attention[2:]}}
     sources = {"ln_quant": "ln_quant.cu", "attention_int8": "attention.cu",
                "fused_attention_qkv": "attention.cu",
-               "fused_attention_qkv_backward": "attention_bwd.cu",
+               "fused_attention_qkv_backward": "attention_bwd.cu", "s3dg_stem": "s3dg_stem.cu",
                **{name: "fit_attention.cu" for name in fit_attention}}
     record = [{"name": name, "route": "cuda",
                "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",

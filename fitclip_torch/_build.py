@@ -54,6 +54,8 @@ _SIGNATURES = {
                                    _P),
     # qkv, dtype, out, out_clip_stride, clips, seq, heads, head_dim, scale, out_mul, stream
     "fitclip_fit_cls_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # x, packed weights, bias, out, batch, frames, height, width, stream
+    "fitclip_s3dg_stem": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -120,8 +122,9 @@ def library() -> ctypes.CDLL:
                  "fitclip_fit_space_smem_bytes"):
         getattr(lib, name).argtypes = (ctypes.c_int, ctypes.c_int)
         getattr(lib, name).restype = ctypes.c_size_t
-    lib.fitclip_fit_cls_smem_bytes.argtypes = (ctypes.c_int,)
-    lib.fitclip_fit_cls_smem_bytes.restype = ctypes.c_size_t
+    for name in ("fitclip_fit_cls_smem_bytes", "fitclip_s3dg_stem_smem_bytes"):
+        getattr(lib, name).argtypes = (ctypes.c_int,)
+        getattr(lib, name).restype = ctypes.c_size_t
     return lib
 
 

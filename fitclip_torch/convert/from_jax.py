@@ -17,6 +17,12 @@ model through the one numpy ``quantize_clip_params``.
 are not stacked (``blocks_{i}``, ``layer_{i}``) and whose LayerNorms are
 ``{"weight", "bias"}``.
 
+``s3dg_params_from_jax``, ``mil_nce_params_from_jax`` and
+``videoclip_params_from_jax`` map the S3D-G family's trees. The S3DG and
+MIL-NCE text modules keep the JAX names and layouts, so their float leaves only
+rename; an ``int8`` subtree (``quantize_s3dg_fast``) maps as the int8 denses do.
+The VideoCLIP BERT towers take (out, in) dense weights, as DistilBERT's.
+
 ``load_train_state_from_jax`` and ``train_state_to_jax`` carry a whole
 training state across: the encoder params, the logit scales, the clamp, the
 step and the fused AdamW state (``count``, ``mu``, ``nu``), whose moment trees
@@ -264,3 +270,66 @@ def train_state_to_jax(state: TrainState, config: CLIPConfig) -> Dict[str, Any]:
             "opt_state": {"count": np.int32(state.opt_state["count"]), "mu": moments("mu"),
                           "nu": moments("nu")},
             "max_logit_scale": _np({"m": state.max_logit_scale}, "m")}
+
+
+def _flatten(tree, prefix: str = ""):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def _int8_nodes(tree, prefix: str = ""):
+    for key, value in tree.items():
+        if "kernel_q" in value:
+            yield f"{prefix}{key}", value
+        else:
+            yield from _int8_nodes(value, f"{prefix}{key}.")
+
+
+def s3dg_params_from_jax(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX S3DG tree (numpy leaves, optionally with "int8") -> S3DG state dict.
+    A torch checkpoint's ``num_batches_tracked`` counters are dropped."""
+    out = {f"{prefix}{name}": _t(np.asarray(value, np.float32))
+           for name, value in _flatten({k: v for k, v in tree.items() if k != "int8"})
+           if not name.endswith("num_batches_tracked")}
+    for path, node in _int8_nodes(tree.get("int8", {})):
+        _dense_from_jax(node, f"{prefix}int8.{path}", out)
+    return out
+
+
+def mil_nce_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX MIL-NCE tree ({"video", "text"}) -> MilNceVideoTextEncoder state dict."""
+    out = s3dg_params_from_jax(tree["video"], "video.")
+    out.update((f"text.{name}", _t(np.asarray(value, np.float32)))
+               for name, value in _flatten(tree["text"]))
+    return out
+
+
+def _bert_from_jax(tree, prefix: str, out) -> None:
+    for name in ("position_embeddings", "token_type_embeddings"):
+        out[f"{prefix}.{name}"] = _t(np.asarray(tree[name], np.float32))
+    _vector(tree["embeddings_layernorm"], f"{prefix}.embeddings_layernorm", out)
+    layers = sorted(int(k[len("layer_"):]) for k in tree if k.startswith("layer_"))
+    for i in layers:
+        for name, node in tree[f"layer_{i}"].items():
+            if name.endswith("layernorm"):
+                _vector(node, f"{prefix}.layers.{i}.{name}", out)
+            else:
+                _dense_from_jax(node, f"{prefix}.layers.{i}.{name}", out)
+
+
+def videoclip_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX VideoCLIP tree ({"s3dg", "model"}) -> VideoClipVideoTextEncoder state dict."""
+    out = s3dg_params_from_jax(tree["s3dg"], "s3dg.")
+    model = tree["model"]
+    for name in ("video_word_embeddings", "text_word_embeddings"):
+        out[f"model.{name}"] = _t(np.asarray(model[name], np.float32))
+    mlp = model["videomlp"]
+    _dense_from_jax(mlp["linear1"], "model.videomlp.linear1", out)
+    _vector(mlp["layernorm"], "model.videomlp.layernorm", out)
+    _dense_from_jax(mlp["linear2"], "model.videomlp.linear2", out)
+    _bert_from_jax(model["video_bert"], "model.video_bert", out)
+    _bert_from_jax(model["text_bert"], "model.text_bert", out)
+    return out

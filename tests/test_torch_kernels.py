@@ -14,6 +14,7 @@ from fitclip_torch import _build
 from fitclip_torch.ops import attention as A
 from fitclip_torch.ops import block as K
 from fitclip_torch.ops import fit_block as FB
+from fitclip_torch.ops import s3dg_stem as S
 
 INT8_MAX_FLIPPED = 1e-3  # share of int8 elements allowed one step off
 FLOAT_TOL = 2e-2          # bf16 output against the plain version in fp32
@@ -318,3 +319,75 @@ def test_fused_fit_int8_layer_kernels_match_plain(cuda, frames):
     ref = FB.fused_fit_int8_layer_plain(x, ops, heads, frames)
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
     torch.testing.assert_close(out.float(), ref.float(), atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+
+# --- S3D-G: csrc/s3dg_stem.cu (K7) and the int8 sites of the fast forward ------
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(torch.finfo(torch.float32).tiny)))
+                      - 7)
+
+
+def _stem_operands(shape, gen, device):
+    x = torch.rand(*shape, generator=gen).to(device, torch.bfloat16)
+    kernel = (0.05 * torch.randn(2, 4, 4, 24, 64, generator=gen)).to(device, torch.bfloat16)
+    bias = (0.1 * torch.randn(64, generator=gen)).to(device, torch.bfloat16)
+    return x, kernel, bias
+
+
+def test_stem_on_a_cpu_tensor_takes_the_plain_version():
+    x, kernel, bias = _stem_operands((1, 2, 8, 8, 3), torch.Generator().manual_seed(12), "cpu")
+    before = S.s3dg_stem.launches
+    torch.testing.assert_close(S.s3dg_stem(x, kernel, bias), S.s3dg_stem_plain(x, kernel, bias),
+                               rtol=0, atol=0)
+    assert S.s3dg_stem.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 32, 32, 3), (1, 6, 36, 44, 3), (1, 2, 224, 224, 3)])
+def test_stem_kernel_matches_plain(cuda, shape):
+    """Within one bf16 ulp of the plain fp32 result on all but 1e-3 of the outputs,
+    and the same bits on a second launch."""
+    x, kernel, bias = _stem_operands(shape, torch.Generator().manual_seed(13), cuda)
+    before = S.s3dg_stem.launches
+    out = S.s3dg_stem(x, kernel, bias)
+    ref = S.s3dg_stem_plain(x, kernel, bias).float()
+    b, t, h, w, _ = shape
+    assert out.dtype == torch.bfloat16 and out.shape == (b, t // 2, h // 4, w // 4, 64)
+    diff = (out.float() - ref).abs()
+    assert float((diff > _bf16_ulp(ref)).float().mean()) <= INT8_MAX_FLIPPED
+    assert torch.equal(out, S.s3dg_stem(x, kernel, bias))
+    assert S.s3dg_stem.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 5, 32, 32, 3), (1, 4, 30, 32, 3), (1, 4, 32, 34, 3),
+                                   (1, 4, 32, 248, 3)])
+def test_stem_kernel_rejects_shapes_it_does_not_take(cuda, shape):
+    x, kernel, bias = _stem_operands((1, 2, 8, 8, 3), torch.Generator().manual_seed(14), cuda)
+    before = S.s3dg_stem.launches
+    with pytest.raises(ValueError):
+        S.s3dg_stem(torch.zeros(shape, dtype=torch.bfloat16, device=cuda), kernel, bias)
+    assert S.s3dg_stem.launches == before
+
+
+@pytest.mark.cuda
+def test_mil_nce_int8_encode_runs_the_stem_and_int8_gemm_kernels(cuda):
+    """The int8 MIL-NCE encode on the card: one stem launch, 15 int8 GEMM launches
+    (7 blocks x (merged, b3) + fc), and the plain versions' embedding."""
+    from fitclip_torch.models.mil_nce import load_mil_nce_encoder
+    from fitclip_torch.models.s3dg_fast import s3dg_fast_apply
+
+    enc = load_mil_nce_encoder(dtype="int8", device="cuda", seed=0).encoder
+    video = torch.randint(0, 256, (2, 16, 224, 224, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(15)).to(cuda)
+    with torch.no_grad():
+        enc.calibrate(video)
+        counts = (S.s3dg_stem.launches, K.int8_gemm_bias.launches)
+        out = enc.encode_video(video)
+        torch.cuda.synchronize()
+        assert (S.s3dg_stem.launches - counts[0], K.int8_gemm_bias.launches - counts[1]) == (1, 15)
+        plain = s3dg_fast_apply(enc.video, enc._prepare_video(video), torch.bfloat16, int8=True,
+                                plain=True)
+    cos = torch.nn.functional.cosine_similarity(out.float(), plain.float(), dim=-1)
+    assert out.shape == (2, 512) and float(cos.min()) > 0.999
