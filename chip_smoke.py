@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives four paths at full width, with weights initialized from a seed: int8
+Drives six paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
 teacher-student, through ``run_train``), Frozen-in-Time base zero-shot
-encoding (int8 and bf16), and the S3D-G family (MIL-NCE bf16 and int8,
-VideoCLIP bf16). It fails (non-zero exit) if any phase fails:
+encoding (int8 and bf16), the S3D-G family (MIL-NCE bf16 and int8, VideoCLIP
+bf16), CLIP ViT-B/16 bf16 on the float layer kernels (K2) and SLIP ViT-B/16 in
+four configurations. It fails (non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
@@ -17,15 +18,19 @@ VideoCLIP bf16). It fails (non-zero exit) if any phase fails:
    frames x 197 x 2304 and 32 x 77 x 1536 causal, in bf16 and fp32; FiT base:
    K4's int8 attention cores on the joint 32 x 785 x 2304 qkv, K5 on 128 frame
    groups of 196 rows, K6 on 32 x 784 x 2304; the S3D-G stem, K7, on 32 clips x
-   16 frames of 224^2). int8 outputs may differ by one step on at most 0.1% of
+   16 frames of 224^2; the float layer's kernels, K2, at 32 x 197 x 768 with its
+   GEMMs at M = 6304 and (N, K) = (2304, 768), (768, 768), (3072, 768),
+   (768, 3072), its attention also at 8 x 77 causal; K8 at 32 x 197 x 768).
+   int8 outputs may differ by one step on at most 0.1% of
    the elements; float outputs stay within atol/rtol 2e-2 of the plain version
    run in fp32, the stem's within one bf16 ulp on all but 0.1%; two launches of
    the attention backward, of each FiT kernel and of the stem give the same
    bits. Each timed kernel gets
    its plain time, its bound (bytes over 3.35 TB/s or operations over the
    peak of their type) and, where one PyTorch call computes the same function
-   (scaled_dot_product_attention; torch._int_mm for the GEMMs' product only),
-   that call's time;
+   (scaled_dot_product_attention; torch._int_mm for the int8 GEMMs' product
+   only; torch.addmm for the bf16 bias GEMM; F.layer_norm for ln_cast), that
+   call's time;
 4. the CLIP slice: load, fold the pixel normalization, calibrate on 8 clips and
    32 token rows, encode 8 clips and 8 token rows. The launch counters, zeroed
    just before and read just after, must show calibration through the qkv-mode
@@ -67,13 +72,29 @@ VideoCLIP bf16). It fails (non-zero exit) if any phase fails:
    each kernel path against the plain versions on the card > 0.999, (ii)
    MIL-NCE int8 against bf16 > 0.99; finite text embeddings; mean row norms.
    Timings: clips/s, videos/s, text rows/s, peak memory, and a profiler table
-   of the bf16 MIL-NCE encode by kernel with the device's busy share.
+   of the bf16 MIL-NCE encode by kernel with the device's busy share;
+9. the float layer and SLIP (run after phase 5, on phase 4's inputs):
+   (a) CLIP ViT-B/16 bf16 loaded with fused_block=True: K2's seven launches
+       per layer on 12 layers of each tower and nothing else; gates, min-row
+       cosine > 0.999: (i) K2 against fused_bf16_layer_plain on the card,
+       (ii) K2 against the bf16 module path (bench.py's gate 3); clips/s at 32
+       clips;
+   (b) SLIP ViT-B/16 (Mu et al., ECCV 2022) from seed 0: int8 calibrated on 8
+       clips and 32 rows, then four paths on 8 clips and 8 rows: int8
+       fused_block (K1, exact GELU in the vision tower), bf16 fused_block
+       (K2), the bf16 module path (K3f) and the int8 module path with fused
+       attention (K8 once per layer, the static denses on int8_gemm_bias).
+       Launch counts per path; gates > 0.999: (i) each path against its plain
+       versions on the card, (ii) int8 against bf16, both towers
+       (scripts/bench_families.py's gate), (iii) K8's path against K1's;
+       clips/s at 32 clips, text rows/s at 256 x 77, peak memory per path.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 The last two lines are the kernels' JSON record and the card line from
 nvidia-smi before the final {"ok": true, "device": {...}} line.
 """
 
+import contextlib
 import copy
 import json
 import shutil
@@ -112,6 +133,8 @@ LOSS_RTOL = 2e-2  # kernel path vs plain attention, per training step
 LAYERS = 12  # of each ViT-B/16 tower
 INT8_LAUNCHES_PER_LAYER = {"ln_quant": 2, "int8_gemm_bias": 1, "int8_gemm_residual": 2,
                            "int8_gemm_gelu": 1, "attention_int8": 1}
+K2_LAUNCHES_PER_LAYER = {"ln_cast": 2, "bf16_gemm_bias": 1, "bf16_gemm_residual": 2,
+                         "bf16_gemm_gelu": 1, "attention_block": 1}
 
 
 def require(condition: bool, message: str) -> None:
@@ -150,10 +173,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
-def bound(bytes_moved: float, ops: float, kind: str):
-    """(bound_ms, "bytes" or "operations")."""
+def bound(bytes_moved: float, ops, kind: str = None):
+    """(bound_ms, "bytes" or "operations"). ops is a count of one kind, or
+    {kind: count} for work of several types (K8's int8 GEMM and bf16 attention)."""
+    ops = ops if isinstance(ops, dict) else {kind: ops}
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    by_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -179,6 +204,19 @@ def heads_first(qkv, heads):
     b, seq, triple = qkv.shape
     return [t.reshape(b, seq, heads, -1).transpose(1, 2).contiguous()
             for t in qkv.split(triple // 3, dim=-1)]
+
+
+@contextlib.contextmanager
+def swapped(module, **replacements):
+    """Module attributes replaced for the duration (a plain version for a kernel)."""
+    saved = {name: getattr(module, name) for name in replacements}
+    for name, value in replacements.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
 
 
 def min_cosine(a, b) -> float:
@@ -369,6 +407,115 @@ def kernel_phase(torch, checks: KernelChecks):
                     bound(b * seq * 3 * w * 2 * 2 + b * seq * w * 2,
                           10 * b * heads * seq * seq * (w // heads), "bf16"))
             del out, again
+    return times
+
+
+def float_layer_kernel_phase(torch, checks: KernelChecks):
+    """Phase 3, the float layer (K2) and K8 at ViT-B/16 shapes: ln_cast on the
+    32 x 197 x 768 rows, the bf16 GEMM's three epilogues at M = 6304 and (N, K) =
+    (2304, 768), (768, 768), (3072, 768), (768, 3072), the block-mode attention
+    at 32 x 197 (and with seq_valid) and 8 x 77 causal, K8 at 32 x 197. Each is
+    held against its plain version in fp32 on the same inputs. Returns
+    {name: timing(...)}."""
+    import torch.nn.functional as F
+
+    from fitclip_torch.ops import attention as A
+    from fitclip_torch.ops import block as K
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    dev = "cuda"
+
+    def normal(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    times = {}
+    b, seq, w, heads = (VISION[k] for k in ("batch", "seq", "width", "heads"))
+    m, d = b * seq, w // heads
+
+    # ln_cast: the bf16 layer input and the fp32 mid-layer residual, eps 1e-6.
+    gamma, beta = 1 + normal(w, std=0.1), normal(w, std=0.1)
+    x_bf16 = normal(m, w, dtype=torch.bfloat16)
+    for what, x in (("bf16 input", x_bf16), ("fp32 residual", normal(m, w, std=3.0))):
+        checks.float("ln_cast", f"vision {what}", K.ln_cast(x, gamma, beta, torch.bfloat16, 1e-6),
+                     K.layer_norm_plain(x, gamma, beta, 1e-6))
+    g16, b16 = gamma.bfloat16(), beta.bfloat16()
+    times["ln_cast"] = timing(
+        cuda_ms(lambda: K.ln_cast(x_bf16, gamma, beta, torch.bfloat16, 1e-6)),
+        cuda_ms(lambda: K.ln_cast_plain(x_bf16, gamma, beta, torch.bfloat16, 1e-6)),
+        cuda_ms(lambda: F.layer_norm(x_bf16, (w,), g16, b16, 1e-6)),
+        bound(m * w * 2 * 2 + 2 * w * 4, 9 * m * w, "fp32"))
+
+    # The bf16 GEMM: weights ~ N(0, 1/K), as LeCun-normal weights are.
+    def weight(n, k):
+        return normal(n, k, std=k ** -0.5, dtype=torch.bfloat16)
+
+    wq, wo, wf, wp = weight(3 * w, w), weight(w, w), weight(4 * w, w), weight(w, 4 * w)
+    qb, ob, fb, pb = (normal(n, std=0.1) for n in (3 * w, w, 4 * w, w))
+    a_w, a_4w = normal(m, w, dtype=torch.bfloat16), normal(m, 4 * w, dtype=torch.bfloat16)
+    checks.float("bf16_gemm_bias", "vision qkv (6304 x 2304 x 768)", K.bf16_gemm_bias(a_w, wq, qb),
+                 K._dense_plain(a_w, wq, qb))
+    qb16 = qb.bfloat16()
+    times["bf16_gemm_bias"] = timing(
+        cuda_ms(lambda: K.bf16_gemm_bias(a_w, wq, qb)),
+        cuda_ms(lambda: K.bf16_gemm_bias_plain(a_w, wq, qb)),
+        cuda_ms(lambda: torch.addmm(qb16, a_w, wq.t())),
+        bound(m * w * 2 + 3 * w * w * 2 + 3 * w * 4 + m * 3 * w * 2, 2 * m * 3 * w * w, "bf16"))
+    out = K.bf16_gemm_residual(a_w, wo, ob, x_bf16, torch.float32)
+    checks.float("bf16_gemm_residual", "vision out-proj (bf16 -> fp32)", out,
+                 K.bf16_gemm_residual_plain(a_w, wo, ob, x_bf16, torch.float32))
+    x32 = normal(m, w)
+    checks.float("bf16_gemm_residual", "vision proj (fp32 -> bf16, K = 3072)",
+                 K.bf16_gemm_residual(a_4w, wp, pb, x32, torch.bfloat16),
+                 K.bf16_gemm_residual_plain(a_4w, wp, pb, x32, torch.float32))
+    times["bf16_gemm_residual"] = timing(
+        cuda_ms(lambda: K.bf16_gemm_residual(a_4w, wp, pb, x32, torch.bfloat16)),
+        cuda_ms(lambda: K.bf16_gemm_residual_plain(a_4w, wp, pb, x32, torch.bfloat16)), None,
+        bound(m * 4 * w * 2 + 4 * w * w * 2 + w * 4 + m * w * 4 + m * w * 2, 2 * m * w * 4 * w,
+              "bf16"))
+    for quick in (True, False):
+        h = K._dense_plain(a_w, wf, fb)
+        ref = h * torch.sigmoid(1.702 * h) if quick else K.exact_gelu_plain(h)
+        checks.float("bf16_gemm_gelu", f"vision fc ({'quick' if quick else 'exact'} GELU)",
+                      K.bf16_gemm_gelu(a_w, wf, fb, quick), ref)
+        del h, ref
+    times["bf16_gemm_gelu"] = timing(
+        cuda_ms(lambda: K.bf16_gemm_gelu(a_w, wf, fb, False)),
+        cuda_ms(lambda: K.bf16_gemm_gelu_plain(a_w, wf, fb, False)), None,
+        bound(m * w * 2 + 4 * w * w * 2 + 4 * w * 4 + m * 4 * w * 2, 2 * m * 4 * w * w, "bf16"))
+    del a_4w, x32
+
+    # The block-mode attention: vision full (and with seq_valid), text causal.
+    scale_q = d ** -0.5
+    qkv = normal(b, seq, 3 * w, std=1.5, dtype=torch.bfloat16)
+    for what, s, valid in (("vision full", VISION, None), ("vision full, seq_valid 150", VISION, 150),
+                           ("text causal", TEXT, None)):
+        causal = s is TEXT
+        x = qkv if s is VISION else normal(s["batch"], s["seq"], 3 * s["width"], std=1.5,
+                                           dtype=torch.bfloat16)
+        checks.float("attention_block", what,
+                     A.attention_block(x, s["heads"], scale_q, causal, valid),
+                     A.attention_core_plain(x.float(), s["heads"], scale_q, causal, 1.0, valid))
+    times["attention_block"] = timing(
+        cuda_ms(lambda: A.attention_block(qkv, heads, scale_q, False)),
+        cuda_ms(lambda: A.attention_block_plain(qkv, heads, scale_q, False)),
+        sdpa_ms(torch, *heads_first(qkv, heads), scale_q),
+        bound(b * seq * 3 * w * 2 + b * seq * w * 2, 4 * b * heads * seq * seq * d, "bf16"))
+
+    # K8: the int8 QKV projection and the attention, 32 x 197 x 768.
+    x_q = torch.randint(-127, 128, (b, seq, w), generator=gen, device=dev, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (3 * w, w), generator=gen, device=dev, dtype=torch.int8)
+    k8_scale = (torch.rand(3 * w, generator=gen, device=dev) + 0.5) * 1.5 / (73.0 * 73.0 * w ** 0.5)
+    k8_bias = normal(3 * w, std=0.1)
+    qkv_k8 = K.int8_gemm_bias_plain(x_q.view(m, w), w_q, k8_scale, k8_bias, torch.bfloat16)
+    checks.float("fused_int8_qkv_attention", "vision 32 x 197 x 768",
+                 A.fused_int8_qkv_attention(x_q, w_q, k8_scale, k8_bias, heads, scale_q),
+                 A.attention_core_plain(qkv_k8.float().view(b, seq, 3 * w), heads, scale_q, False))
+    times["fused_int8_qkv_attention"] = timing(
+        cuda_ms(lambda: A.fused_int8_qkv_attention(x_q, w_q, k8_scale, k8_bias, heads, scale_q)),
+        cuda_ms(lambda: A.fused_int8_qkv_attention_plain(x_q, w_q, k8_scale, k8_bias, heads,
+                                                         scale_q)), None,
+        bound(m * w + 3 * w * w + 3 * w * 8 + m * w * 2,
+              {"int8": 2 * m * 3 * w * w, "bf16": 4 * b * heads * seq * seq * d}))
     return times
 
 
@@ -664,12 +811,10 @@ def training_phase(torch, student_template, teacher, wrappers, workdir: Path):
     del resumed
 
     # (a) again with the plain attention forward and backward.
-    fused = model_module.fused_attention_qkv
-    model_module.fused_attention_qkv = plain_attention_function(torch)
     zero()
-    _, plain_losses, plain_launches = train(torch, student(), batches, contrastive_cfg,
-                                            counters, workdir / "contrastive_plain")
-    model_module.fused_attention_qkv = fused
+    with swapped(model_module, fused_attention_qkv=plain_attention_function(torch)):
+        _, plain_losses, plain_launches = train(torch, student(), batches, contrastive_cfg,
+                                                counters, workdir / "contrastive_plain")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
     print(f"train (a) plain attention: losses {plain_losses}; relative differences {rel}")
     require(not any(any(step.values()) for step in plain_launches),
@@ -768,6 +913,15 @@ def profile_ms(torch, fn, calls: int = 3):
     return per_kernel, sum(per_kernel.values()) * calls / window_ms
 
 
+def print_profile(torch, what, fn, top=10):
+    per_kernel, busy = profile_ms(torch, fn)
+    total = sum(per_kernel.values())
+    print(f"{what} profile, device {total:.3f} ms per call, busy share {busy:.3f} of the host "
+          f"window; top kernels (ms per call, share):")
+    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
+
+
 def fit_phase(torch, wrappers):
     """Phase 7: Frozen-in-Time base, int8 (K4's kernels) and bf16 (K5/K6),
     from seed 0; returns ({path: launches}, timings)."""
@@ -819,7 +973,8 @@ def fit_phase(torch, wrappers):
     zero()
     text_emb = bf16_enc.encode_text(text)
     paths["fit_text_encode"] = counters()
-    print(f"fit: launches per path {paths}")
+    print(f"fit: launches per path (nonzero counts) "
+          f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     nothing = expect({})
     require(paths["fit_calibrate"] == nothing, "FiT calibration launched a kernel")
     require(paths["fit_int8_encode"] == expect(FIT_INT8_LAUNCHES_PER_LAYER),
@@ -833,11 +988,9 @@ def fit_phase(torch, wrappers):
     features = encode_video_features_fast(int8_enc.video, int8_enc._prepare_video(video),
                                           layer_fn=fused_fit_int8_layer_plain)
     plain = {"int8": l2_normalize(int8_enc.vid_proj(features.float()), eps=EMBED_EPS)}
-    kernels = (vt.fused_attention_qkv_gkv, vt.fused_time_attention)
-    vt.fused_attention_qkv_gkv, vt.fused_time_attention = (A.attention_gkv_plain,
-                                                           A.time_attention_plain)
-    plain["bf16"] = bf16_enc.encode_video(video)
-    vt.fused_attention_qkv_gkv, vt.fused_time_attention = kernels
+    with swapped(vt, fused_attention_qkv_gkv=A.attention_gkv_plain,
+                 fused_time_attention=A.time_attention_plain):
+        plain["bf16"] = bf16_enc.encode_video(video)
     require(counters() == nothing, "the plain FiT paths launched a kernel")
     for tag, emb in (("int8", int8_emb), ("bf16", bf16_emb)):
         cos = min_cosine(emb, plain[tag])
@@ -868,12 +1021,7 @@ def fit_phase(torch, wrappers):
           f"clips/s, peak {timings['bf16_peak_gib']:.2f} GiB; encode_text, 256 rows x 77: "
           f"{timings['text_ms']:.3f} ms, {256e3 / timings['text_ms']:.1f} rows/s")
 
-    per_kernel, busy = profile_ms(torch, lambda: int8_enc.encode_video(video))
-    total = sum(per_kernel.values())
-    print(f"fit: int8 encode_video profile, device {total:.3f} ms per call, busy share "
-          f"{busy:.3f} of the host window; top kernels (ms per call, share):")
-    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
+    print_profile(torch, "fit: int8 encode_video", lambda: int8_enc.encode_video(video), top=12)
     return paths, timings
 
 
@@ -1006,12 +1154,179 @@ def s3dg_phase(torch, wrappers):
           f"{v['text_rows']} rows x {v['tokens']}: {timings['videoclip_text_ms']:.3f} ms, "
           f"{v['text_rows'] * 1e3 / timings['videoclip_text_ms']:.1f} rows/s")
 
-    per_kernel, busy = profile_ms(torch, lambda: bf16_enc.encode_video(video))
-    total = sum(per_kernel.values())
-    print(f"s3dg: MIL-NCE bf16 encode_video profile, device {total:.3f} ms per call, busy share "
-          f"{busy:.3f} of the host window; top kernels (ms per call, share):")
-    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
+    print_profile(torch, "s3dg: MIL-NCE bf16 encode_video", lambda: bf16_enc.encode_video(video),
+                  top=15)
+    return paths, timings
+
+
+def k2_launches(layers: int, towers: int = 2) -> dict:
+    """K2's seven launches per layer, over both towers."""
+    return {name: n * layers * towers for name, n in K2_LAUNCHES_PER_LAYER.items()}
+
+
+def tower_cosines(a, b):
+    return {tower: min_cosine(x, y) for tower, x, y in zip(("vision", "text"), a, b)}
+
+
+def clip_bf16_fused_phase(torch, wrappers, module_enc, video, text, video32):
+    """Phase 9 (a): CLIP ViT-B/16 bf16 with fused_block=True (K2), against the
+    plain layer and the bf16 module path of the same seed (``module_enc``, phase
+    4's encoder). Returns ({path: launches}, timings)."""
+    from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.ops import block as K
+
+    def counters():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    enc = load_clip_encoder("ViT-B/16", dtype="bfloat16", device="cuda", seed=0,
+                            fused_block=True).encoder
+    enc.fold_pixel_normalization()
+    for fn in wrappers.values():
+        fn.launches = 0
+    video_emb, text_emb = enc.encode_video(video), enc.encode_text(text)
+    launches = counters()
+    expected = {name: 0 for name in wrappers}
+    expected.update(k2_launches(LAYERS))
+    print(f"clip bf16 fused_block: launches {({k: n for k, n in launches.items() if n})}")
+    require(launches == expected, f"CLIP bf16 fused_block launches {launches}, expected {expected}")
+
+    frames = enc._prepare_frames(video)
+    kernel = (encode_frames_fast(enc.model, frames), encode_text_fast(enc.model, text))
+    plain = (encode_frames_fast(enc.model, frames, layer_fn=K.fused_bf16_layer_plain),
+             encode_text_fast(enc.model, text, layer_fn=K.fused_bf16_layer_plain))
+    for tower, cos in tower_cosines(kernel, plain).items():
+        print(f"clip bf16 gate (i) {tower}: K2 vs fused_bf16_layer_plain on the card, "
+              f"min cosine {cos:.6f}")
+        require(cos > GATE_COSINE, f"CLIP K2 {tower}: kernel vs plain cosine {cos}")
+    module = (module_enc.encode_video(video), module_enc.encode_text(text))
+    for tower, cos in tower_cosines((video_emb, text_emb), module).items():
+        print(f"clip bf16 gate (ii) {tower}: K2 vs the bf16 module path, min cosine {cos:.6f}")
+        require(cos > GATE_COSINE, f"CLIP K2 {tower}: K2 vs module path cosine {cos}")
+    del kernel, plain, module
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: enc.encode_video(video32), iters=10)
+    timings = {"clip_bf16_fused_ms": ms,
+               "clip_bf16_fused_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"clip bf16 fused_block encode_video, 32 clips x 4 frames: {ms:.3f} ms, "
+          f"{32e3 / ms:.1f} clips/s, peak {timings['clip_bf16_fused_peak_gib']:.2f} GiB")
+    print_profile(torch, "clip bf16 fused_block encode_video", lambda: enc.encode_video(video32))
+    return {"clip_bf16_fused_encode": launches}, timings
+
+
+def slip_phase(torch, wrappers, video, calib_text, text, video32):
+    """Phase 9 (b): SLIP ViT-B/16 (Mu et al., ECCV 2022; SlipConfig.vit_b16) from
+    seed 0 on the card, four paths: int8 fused_block (K1, exact GELU in the
+    vision tower), bf16 fused_block (K2), the bf16 module path (K3f) and the
+    int8 module path with fused attention (K8 and the static denses on K1's
+    GEMM). Returns ({path: launches}, timings)."""
+    import fitclip_torch.models.clip.model as model_module
+    from fitclip_torch.models import slip_fast
+    from fitclip_torch.models.slip import load_slip_encoder
+    from fitclip_torch.ops import attention as A
+    from fitclip_torch.ops import block as K
+
+    def counters():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def expect(**counts):
+        return {name: counts.get(name, 0) for name in wrappers}
+
+    start = time.perf_counter()
+    int8_enc = load_slip_encoder(dtype="int8", device="cuda", seed=0).encoder
+    bf16_enc = load_slip_encoder(dtype="bfloat16", device="cuda", seed=0,
+                                 fused_block=True).encoder
+    print(f"slip: loaded int8 and bf16 SLIP ViT-B/16 in {time.perf_counter() - start:.1f} s "
+          f"(fused_block {int8_enc.fused_block} / {bf16_enc.fused_block}, fused_attention "
+          f"{int8_enc.fused_attention} / {bf16_enc.fused_attention})")
+
+    def encode(enc, fused_block):
+        """Both towers through the encoder with fused_block set (the module
+        path when False)."""
+        enc.fused_block = fused_block
+        return enc.encode_video(video), enc.encode_text(text)
+
+    paths, emb = {}, {}
+    zero()
+    int8_enc.calibrate(video, calib_text)
+    paths["slip_calibrate"] = counters()
+    for tag, enc, fused_block in (("int8_fused", int8_enc, True), ("bf16_fused", bf16_enc, True),
+                                  ("bf16_module", bf16_enc, False),
+                                  ("int8_module", int8_enc, False)):
+        zero()
+        emb[tag] = encode(enc, fused_block)
+        paths[f"slip_{tag}_encode"] = counters()
+    print(f"slip: launches per path (nonzero counts) "
+          f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
+    per_tower = 2 * LAYERS
+    for path, want in (
+            ("slip_calibrate", expect(fused_attention_qkv=per_tower)),
+            ("slip_int8_fused_encode", expect(**{k: n * per_tower
+                                                 for k, n in INT8_LAUNCHES_PER_LAYER.items()})),
+            ("slip_bf16_fused_encode", expect(**k2_launches(LAYERS))),
+            ("slip_bf16_module_encode", expect(fused_attention_qkv=per_tower)),
+            ("slip_int8_module_encode", expect(fused_int8_qkv_attention=per_tower,
+                                               int8_gemm_bias=3 * per_tower))):
+        require(paths[path] == want, f"{path} launches {paths[path]}, expected {want}")
+
+    # Gate (i): each kernel path against the same model through the plain versions
+    # (the fused paths per frame, through slip_fast, as phase 4 compares K1).
+    frames = int8_enc._prepare_frames(video)
+    kernel, plain = dict(emb), {}
+    for tag, enc, layer in (("int8_fused", int8_enc, K.fused_int8_layer_plain),
+                            ("bf16_fused", bf16_enc, K.fused_bf16_layer_plain)):
+        kernel[tag] = (slip_fast.encode_frames_fast(enc.model, frames),
+                       slip_fast.encode_text_fast(enc.model, text))
+        plain[tag] = (slip_fast.encode_frames_fast(enc.model, frames, layer_fn=layer),
+                      slip_fast.encode_text_fast(enc.model, text, layer_fn=layer))
+    zero()
+    with swapped(model_module, fused_attention_qkv=A.attention_core_plain):
+        plain["bf16_module"] = encode(bf16_enc, False)
+    with swapped(model_module, fused_int8_qkv_attention=A.fused_int8_qkv_attention_plain), \
+            swapped(K, int8_gemm_bias=K.int8_gemm_bias_plain):
+        plain["int8_module"] = encode(int8_enc, False)
+    require(counters() == expect(), "the plain SLIP paths launched a kernel")
+    for tag in plain:
+        for tower, cos in tower_cosines(kernel[tag], plain[tag]).items():
+            print(f"slip gate (i) {tag} {tower}: kernels vs plain on the card, "
+                  f"min cosine {cos:.6f}")
+            require(cos > GATE_COSINE, f"SLIP {tag} {tower}: kernel vs plain cosine {cos}")
+    # Gate (ii): int8 against bf16 (scripts/bench_families.py's gate); (iii) K8 against K1.
+    for gate, (a, b) in (("(ii) int8 fused_block vs bf16 module path", ("int8_fused", "bf16_module")),
+                         ("(iii) int8 module path (K8) vs int8 fused_block (K1)",
+                          ("int8_module", "int8_fused"))):
+        for tower, cos in tower_cosines(emb[a], emb[b]).items():
+            print(f"slip gate {gate} {tower}: min cosine {cos:.6f}")
+            require(cos > GATE_COSINE, f"SLIP gate {gate} {tower}: cosine {cos}")
+    for tag, (v, t) in emb.items():
+        require(v.shape == (video.shape[0], 512) and t.shape == (text.shape[0], 512)
+                and bool(torch.isfinite(v).all()) and bool(torch.isfinite(t).all()),
+                f"SLIP {tag} embeddings {tuple(v.shape)} / {tuple(t.shape)} not finite")
+    del kernel, plain, emb, frames
+
+    rows = torch.from_numpy(token_ids(256, np.random.default_rng(12))).cuda()
+    timings = {}
+    torch.cuda.empty_cache()
+    for tag, enc, fused_block in (("int8_fused", int8_enc, True), ("bf16_fused", bf16_enc, True),
+                                  ("bf16_module", bf16_enc, False),
+                                  ("int8_module", int8_enc, False)):
+        enc.fused_block = fused_block
+        torch.cuda.reset_peak_memory_stats()
+        timings[f"{tag}_ms"] = cuda_ms(lambda: enc.encode_video(video32), iters=10)
+        timings[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        timings[f"{tag}_text_ms"] = cuda_ms(lambda: enc.encode_text(rows), iters=5)
+        print(f"slip {tag}: encode_video, 32 clips x 4 frames: {timings[f'{tag}_ms']:.3f} ms, "
+              f"{32e3 / timings[f'{tag}_ms']:.1f} clips/s, peak {timings[f'{tag}_peak_gib']:.2f} "
+              f"GiB; encode_text, 256 rows x 77: {timings[f'{tag}_text_ms']:.3f} ms, "
+              f"{256e3 / timings[f'{tag}_text_ms']:.1f} rows/s")
+    print_profile(torch, "slip int8 module path (K8) encode_video",
+                  lambda: int8_enc.encode_video(video32))
     return paths, timings
 
 
@@ -1049,6 +1364,7 @@ def main() -> int:
     print("kernels against their plain versions:")
     checks = KernelChecks()
     times = kernel_phase(torch, checks)
+    times.update(float_layer_kernel_phase(torch, checks))
     times.update(fit_kernel_phase(torch, checks))
     times.update(s3dg_kernel_phase(torch, checks))
 
@@ -1077,7 +1393,10 @@ def main() -> int:
                 "fit_cls_attention_int8": A.fit_cls_attention_int8,
                 "fit_time_attention_int8": A.fit_time_attention_int8,
                 "fit_space_attention_int8": A.fit_space_attention_int8,
-                "s3dg_stem": s3dg_stem}
+                "s3dg_stem": s3dg_stem, "ln_cast": K.ln_cast, "bf16_gemm_bias": K.bf16_gemm_bias,
+                "bf16_gemm_residual": K.bf16_gemm_residual, "bf16_gemm_gelu": K.bf16_gemm_gelu,
+                "attention_block": A.attention_block,
+                "fused_int8_qkv_attention": A.fused_int8_qkv_attention}
     for fn in wrappers.values():
         fn.launches = 0
     int8_enc.calibrate(video, calib_text)
@@ -1128,6 +1447,13 @@ def main() -> int:
           f"{32e3 / int8_ms:.1f} clips/s, peak {peak_gib:.2f} GiB; "
           f"bf16 float model: {float_ms:.3f} ms, {32e3 / float_ms:.1f} clips/s")
 
+    # Phase 9 runs here, while phase 4's inputs and bf16 encoder are at hand.
+    # (a) CLIP ViT-B/16 bf16 with fused_block=True (K2); (b) SLIP ViT-B/16.
+    clip_k2_paths, clip_k2_times = clip_bf16_fused_phase(torch, wrappers, float_enc, video, text,
+                                                         video32)
+    slip_paths, slip_times = slip_phase(torch, wrappers, video, calib_text, text, video32)
+    torch.cuda.empty_cache()
+
     # Phase 6: training.
     torch.set_grad_enabled(True)
     student = load_clip_encoder("ViT-B/16", dtype="bfloat16", device="cuda", seed=0)
@@ -1143,8 +1469,10 @@ def main() -> int:
     # Phase 8: the S3D-G family (MIL-NCE, VideoCLIP).
     torch.cuda.empty_cache()
     s3dg_paths, s3dg_times = s3dg_phase(torch, wrappers)
-    paths = {"encode": launches, **paths, **fit_paths, **s3dg_paths}
-    print(f"launches per path: {paths}")
+    paths = {"encode": launches, **paths, **fit_paths, **s3dg_paths, **clip_k2_paths,
+             **slip_paths}
+    print(f"launches per path (nonzero counts): "
+          f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:
         require(any(counts[name] for counts in paths.values()),
                 f"{name} was launched in no path")
@@ -1157,9 +1485,13 @@ def main() -> int:
                 "fused_attention_qkv_gkv": "fitclip_tpu/ops/attention.py:85",
                 "fused_time_attention": "fitclip_tpu/ops/attention.py:168",
                 "s3dg_stem": "fitclip_tpu/ops/s3dg_stem.py:322",
+                "fused_int8_qkv_attention": "fitclip_tpu/ops/attention.py:495",
+                **{name: "fitclip_tpu/ops/block.py:210" for name in K2_LAUNCHES_PER_LAYER},
                 **{name: "fitclip_tpu/ops/fit_block.py:748" for name in fit_attention[2:]}}
     sources = {"ln_quant": "ln_quant.cu", "attention_int8": "attention.cu",
-               "fused_attention_qkv": "attention.cu",
+               "fused_attention_qkv": "attention.cu", "ln_cast": "ln_quant.cu",
+               "attention_block": "attention.cu", "fused_int8_qkv_attention": "attention.cu",
+               **{name: "bf16_gemm.cu" for name in K2_LAUNCHES_PER_LAYER if "gemm" in name},
                "fused_attention_qkv_backward": "attention_bwd.cu", "s3dg_stem": "s3dg_stem.cu",
                **{name: "fit_attention.cu" for name in fit_attention}}
     record = [{"name": name, "route": "cuda",

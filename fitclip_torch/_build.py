@@ -39,9 +39,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, x_dtype, gamma, beta, out, rows, width, inv, eps, stream
     "fitclip_ln_quant": (_P, _I, _P, _P, _P, _I, _I, _F, _F, _P),
+    # x, x_dtype, gamma, beta, out (bf16), rows, width, eps, stream
+    "fitclip_ln_cast": (_P, _I, _P, _P, _P, _I, _I, _F, _P),
     # a, w, m, n, k, epilogue, scale, bias, residual, res_dtype, out, out_dtype, kv, quick, stream
     "fitclip_int8_gemm": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _F, _I, _P),
-    # qkv, dtype, out, int8_out, batch, seq, heads, head_dim, scale, causal,
+    # a, w, m, n, k, epilogue, bias, residual, res_dtype, out, out_dtype, quick, stream
+    "fitclip_bf16_gemm": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P),
+    # qkv, dtype, out, mode, batch, seq, heads, head_dim, scale, causal,
     # seq_valid, out_mul, stream
     "fitclip_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P),
     # qkv, grad, dtype, dqkv, stats, batch, seq, heads, head_dim, scale, causal, stream

@@ -13,6 +13,12 @@ weights as (out, in), and the patch embedding as a (width, 3, p, p) conv.
 function in the tests, and carry the quantization of a torch-initialized
 model through the one numpy ``quantize_clip_params``.
 
+``slip_params_from_jax`` and ``slip_params_to_jax`` do the same for a SLIP
+tree (``fitclip_tpu/models/slip.py``): the vision tower's blocks under
+``visual/blocks/blocks``, its patch embedding a (p*p*3, width) Dense kernel
+kept as the port's (width, p*p*3) Dense weight, the text tower's blocks under
+``transformer/blocks``.
+
 ``fit_params_from_jax`` does the same for a Frozen-in-Time tree, whose blocks
 are not stacked (``blocks_{i}``, ``layer_{i}``) and whose LayerNorms are
 ``{"weight", "bias"}``.
@@ -88,6 +94,25 @@ def params_from_jax(tree, config: CLIPConfig) -> Dict[str, torch.Tensor]:
     _ln_from_jax(t["ln_final"], "text.ln_final", out)
     _blocks_from_jax(t["transformer"]["blocks"], "text.transformer.blocks",
                      config.text.layers, out)
+    return out
+
+
+def slip_params_from_jax(tree, config) -> Dict[str, torch.Tensor]:
+    """JAX SLIP tree (float or int8, numpy leaves) -> SlipModel state dict;
+    ``config`` is a ``models/slip.SlipConfig``."""
+    out: Dict[str, torch.Tensor] = {}
+    v = tree["visual"]
+    out["visual.patch_embed.weight"] = _t(np.asarray(v["patch_embed"]["kernel"], np.float32).T)
+    out["visual.patch_embed.bias"] = _t(np.asarray(v["patch_embed"]["bias"], np.float32))
+    for name in ("cls_token", "pos_embed"):
+        out[f"visual.{name}"] = _t(np.asarray(v[name], np.float32))
+    _blocks_from_jax(v["blocks"]["blocks"], "visual.blocks.blocks", config.vision_layers, out)
+    _ln_from_jax(v["norm"], "visual.norm", out)
+    _blocks_from_jax(tree["transformer"]["blocks"], "transformer.blocks", config.text.layers, out)
+    _ln_from_jax(tree["ln_final"], "ln_final", out)
+    for name in ("token_embedding", "positional_embedding", "image_projection",
+                 "text_projection"):
+        out[name] = _t(np.asarray(tree[name], np.float32))
     return out
 
 
@@ -200,6 +225,29 @@ def params_to_jax(state: Dict[str, torch.Tensor], config: CLIPConfig):
                                                  config.text.layers)},
     }
     return {"visual": visual, "text": text}
+
+
+def slip_params_to_jax(state: Dict[str, torch.Tensor], config):
+    """SlipModel state dict -> JAX SLIP tree with numpy leaves."""
+    def ln(name):
+        return {"ln": {"scale": _np(state, f"{name}.weight"), "bias": _np(state, f"{name}.bias")}}
+
+    visual = {
+        "patch_embed": {"kernel": _np(state, "visual.patch_embed.weight").T,
+                        "bias": _np(state, "visual.patch_embed.bias")},
+        "cls_token": _np(state, "visual.cls_token"),
+        "pos_embed": _np(state, "visual.pos_embed"),
+        "blocks": {"blocks": _blocks_to_jax(state, "visual.blocks.blocks",
+                                            config.vision_layers)},
+        "norm": ln("visual.norm"),
+    }
+    tree = {"visual": visual, "ln_final": ln("ln_final"),
+            "transformer": {"blocks": _blocks_to_jax(state, "transformer.blocks",
+                                                     config.text.layers)}}
+    for name in ("token_embedding", "positional_embedding", "image_projection",
+                 "text_projection"):
+        tree[name] = _np(state, name)
+    return tree
 
 
 def _fill_placeholders(moments, params):

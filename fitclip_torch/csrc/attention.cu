@@ -1,13 +1,17 @@
 // attention: multi-head self-attention over the unsplit (B, L, 3 * H * D) QKV
 // projection output, head_dim D = 64, one block per (query tile, head, batch row).
 //
-// Replaces two TPU kernels' attention:
-//   int8 mode  the per-head core of fitclip_tpu/ops/block.py:_layer_kernel
-//              (_attention_core with out_mul): weights = exps * (out_mul / denom),
-//              fp32 output rounded and clipped to int8, the out-projection's input;
-//   qkv mode   fitclip_tpu/ops/attention.py:_packed_kernel (fused_attention_qkv,
-//              forward): weights = exps / denom, output in qkv's dtype.
-// Both scale q in qkv's dtype before QK^T, keep logits and softmax in fp32,
+// Replaces the attention of four TPU kernels:
+//   int8 mode   the per-head core of fitclip_tpu/ops/block.py:_layer_kernel
+//               (_attention_core with out_mul): weights = exps * (out_mul / denom),
+//               fp32 output rounded and clipped to int8, the out-projection's input;
+//   qkv mode    fitclip_tpu/ops/attention.py:_packed_kernel (fused_attention_qkv,
+//               forward) and the attention of _int8_qkv_attention_kernel (K8):
+//               weights = exps / denom, output in qkv's dtype;
+//   block mode  the core of fitclip_tpu/ops/block.py:_bf16_layer_kernel (K2,
+//               _attention_core without out_mul): weights = exps * (1 / denom), the
+//               fp32 output rounded to qkv's dtype, as the out-projection casts it.
+// All scale q in qkv's dtype before QK^T, keep logits and softmax in fp32,
 // cast the weights to v's dtype before P.V, and skip keys that the causal mask
 // (finfo.min) or the seq_valid key mask (-1e30) would zero: exp() of either
 // is exactly 0, so skipping them gives the same sums.
@@ -28,6 +32,7 @@ namespace {
 constexpr int kHeadDim = 64;
 constexpr int kWarps = 8;
 constexpr int kQueryTile = 64;
+enum Mode : int { kQkv = 0, kInt8 = 1, kBlock = 2 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
 
@@ -38,7 +43,7 @@ size_t smem_bytes(int seq, int lp) {
          sizeof(float) * kWarps * lp;
 }
 
-template <typename T, bool kInt8Out>
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_kernel(const T* __restrict__ qkv, void* __restrict__ out, int seq, int lp, int heads,
                  float scale, int causal, int seq_valid, float out_mul) {
@@ -89,9 +94,10 @@ attention_kernel(const T* __restrict__ qkv, void* __restrict__ out, int seq, int
       denom += e;
     }
     denom = warp_sum(denom);
-    const float norm = kInt8Out ? div(out_mul, denom) : 0.f;
+    // int8: out_mul / denom; block: 1 / denom (out_mul is 1); qkv divides each weight.
+    const float norm = kMode == kQkv ? 0.f : div(out_mul, denom);
     for (int j = lane; j < nk; j += 32) {
-      const float wgt = kInt8Out ? mul(p[j], norm) : div(p[j], denom);
+      const float wgt = kMode == kQkv ? div(p[j], denom) : mul(p[j], norm);
       p[j] = to_float(from_float<T>(wgt));
     }
     __syncwarp();
@@ -103,7 +109,7 @@ attention_kernel(const T* __restrict__ qkv, void* __restrict__ out, int seq, int
       o1 = fmaf(wgt, to_float(vs[j * kHeadDim + lane + 32]), o1);
     }
     const size_t o = (static_cast<size_t>(b) * seq + i) * width + h * kHeadDim + lane;
-    if (kInt8Out) {
+    if (kMode == kInt8) {
       int8_t* dst = static_cast<int8_t*>(out);
       dst[o] = quant_rint(o0);
       dst[o + 32] = quant_rint(o1);
@@ -116,12 +122,12 @@ attention_kernel(const T* __restrict__ qkv, void* __restrict__ out, int seq, int
   }
 }
 
-template <typename T, bool kInt8Out>
+template <typename T, int kMode>
 int launch(const void* qkv, void* out, int batch, int seq, int heads, float scale, int causal,
            int seq_valid, float out_mul, cudaStream_t s) {
   const int lp = seq + (seq & 1);
   const size_t smem = smem_bytes<T>(seq, lp);
-  auto kernel = attention_kernel<T, kInt8Out>;
+  auto kernel = attention_kernel<T, kMode>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -140,21 +146,31 @@ extern "C" size_t fitclip_attention_smem_bytes(int dtype, int seq) {
   return dtype == kBFloat16 ? smem_bytes<__nv_bfloat16>(seq, lp) : smem_bytes<float>(seq, lp);
 }
 
-// int8_out = 1: int8 mode (out_mul folded into the normalizer, int8 output);
-// int8_out = 0: qkv mode (output in qkv's dtype, out_mul unused).
-extern "C" int fitclip_attention(const void* qkv, int dtype, void* out, int int8_out, int batch,
+template <typename T>
+int dispatch_mode(int mode, const void* qkv, void* out, int batch, int seq, int heads, float scale,
+                  int causal, int seq_valid, float out_mul, cudaStream_t s) {
+  switch (mode) {
+    case kQkv: return launch<T, kQkv>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    case kInt8: return launch<T, kInt8>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    case kBlock: return launch<T, kBlock>(qkv, out, batch, seq, heads, scale, causal, seq_valid, 1.f, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// mode: kQkv (output in qkv's dtype, out_mul unused), kInt8 (out_mul folded into the
+// normalizer, int8 output) or kBlock (1 / denom in the normalizer, output in qkv's dtype).
+extern "C" int fitclip_attention(const void* qkv, int dtype, void* out, int mode, int batch,
                                  int seq, int heads, int head_dim, float scale, int causal,
                                  int seq_valid, float out_mul, void* stream) {
   if (head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
   if (dtype == kBFloat16) {
-    return int8_out ? launch<bf16, true>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s)
-                    : launch<bf16, false>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    return dispatch_mode<__nv_bfloat16>(mode, qkv, out, batch, seq, heads, scale, causal,
+                                        seq_valid, out_mul, s);
   }
   if (dtype == kFloat32) {
-    return int8_out ? launch<float, true>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s)
-                    : launch<float, false>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    return dispatch_mode<float>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid,
+                                out_mul, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

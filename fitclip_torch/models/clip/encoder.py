@@ -12,8 +12,9 @@ token carries the largest id of its row, as CLIP's BPE gives them.
 
 ``encode_video`` and ``encode_text`` are differentiable through the module
 path (the train steps differentiate through them); eval callers and the
-frozen teacher run them under ``torch.no_grad()``. The fused int8 layer path
-(``fused_block``) is inference only and runs without a graph.
+frozen teacher run them under ``torch.no_grad()``. The fused layer path
+(``fused_block``: K1 for int8, K2 for a float encoder) is inference only and
+runs without a graph.
 """
 
 from typing import Dict, Optional, Union
@@ -30,6 +31,22 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
+def prepare_frames(video: torch.Tensor, dtype: torch.dtype, mean, std,
+                   normalization_folded: bool = False) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B*T, H, W, C) in dtype. uint8 video is normalized
+    on the device with mean/std (in [0, 1] units), or only cast when the
+    normalization is folded into the patch embedding."""
+    if video.dtype == torch.uint8:
+        if normalization_folded:
+            video = video.to(dtype)
+        else:
+            mean = torch.tensor(mean, dtype=dtype, device=video.device) * 255.0
+            inv_std = 1.0 / (torch.tensor(std, dtype=dtype, device=video.device) * 255.0)
+            video = (video.to(dtype) - mean) * inv_std
+    b, t = video.shape[0], video.shape[1]
+    return video.reshape(b * t, *video.shape[2:])
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
     x32 = x.float()
     norm = torch.linalg.vector_norm(x32, dim=dim, keepdim=True)
@@ -39,8 +56,9 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tens
 class ClipVideoTextEncoder(nn.Module):
     """``quantized`` selects int8 W8A8 block denses (the model's weights must
     then come from ``quantize_clip_params``). ``fused_block`` (default:
-    quantized and fused_attention) runs each int8 layer through the fused
-    layer kernels (``fast_eval``); otherwise the module path runs.
+    quantized and fused_attention) runs each layer through the fused layer
+    kernels (``fast_eval``: K1 for int8, K2 in bf16 for a float encoder);
+    otherwise the module path runs.
     ``pad_seq`` pads the vision sequence of the fused path with masked rows.
     ``remat`` (False, True or "dots") checkpoints each residual block in
     training (``model.py``)."""
@@ -74,16 +92,8 @@ class ClipVideoTextEncoder(nn.Module):
 
     def _prepare_frames(self, video: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, C) -> (B*T, H, W, C) in the compute dtype."""
-        if video.dtype == torch.uint8:
-            dtype = self.dtype
-            if self.pixel_normalization_folded:
-                video = video.to(dtype)
-            else:
-                mean = torch.tensor(self.mean, dtype=dtype, device=video.device) * 255.0
-                inv_std = 1.0 / (torch.tensor(self.std, dtype=dtype, device=video.device) * 255.0)
-                video = (video.to(dtype) - mean) * inv_std
-        b, t = video.shape[0], video.shape[1]
-        return video.reshape(b * t, *video.shape[2:])
+        return prepare_frames(video, self.dtype, self.mean, self.std,
+                              self.pixel_normalization_folded)
 
     def encode_video(self, video: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, C) -> (B, D): the mean of the L2-normalized frame embeddings."""

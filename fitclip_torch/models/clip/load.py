@@ -10,7 +10,8 @@ The encoder runs on CUDA unless the caller asks for another device
 (``device="cpu"``); without a card a CUDA request raises. The kernel defaults
 follow the device: on CUDA ``fused_attention`` is True and ``fused_block``
 follows ``quantized`` (the Hopper kernels); on the CPU both are False (the
-module path, plain PyTorch).
+module path, plain PyTorch). ``fused_block=True`` with ``dtype="bfloat16"``
+runs the float layer kernels (K2).
 """
 
 import dataclasses

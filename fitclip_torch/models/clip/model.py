@@ -29,9 +29,9 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from fitclip_torch.ops.attention import fused_attention_qkv
-from fitclip_torch.ops.block import prepare_int8_layer
-from fitclip_torch.ops.quant import int8_dense, int8_dense_static
+from fitclip_torch.ops.attention import fused_attention_qkv, fused_int8_qkv_attention
+from fitclip_torch.ops.block import prepare_bf16_layer, prepare_int8_layer
+from fitclip_torch.ops.quant import QUANT_EPS, int8_dense, int8_dense_static, quantize_rint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +191,9 @@ def _einsum_attention(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tens
 class MultiHeadAttention(nn.Module):
     """Self-attention with one fused QKV projection (OpenAI's in_proj
     layout). With ``fused`` the core is ``ops/attention.fused_attention_qkv``
-    (the Hopper kernel on the card)."""
+    (the Hopper kernel on the card); with ``fused`` and static int8 the QKV
+    projection and the attention are ``ops/attention.fused_int8_qkv_attention``
+    (K8), on the in_proj's weights and static act scale."""
 
     def __init__(self, width: int, heads: int, causal: bool, dtype: torch.dtype,
                  fused: bool = False, quantized=False, device=None):
@@ -203,10 +205,7 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         static_int8 = self.quantized is True and not getattr(self.in_proj, "dynamic", False)
         if self.fused and static_int8:
-            raise NotImplementedError(
-                "static int8 with fused attention is the TPU kernel "
-                "fused_int8_qkv_attention (K8), which is not ported yet: use "
-                "fused_block=True (the int8 layer kernels) or fused_attention=False")
+            return self.out_proj(self._int8_qkv_attention(x))
         qkv = self.in_proj(x)
         head_dim = qkv.shape[-1] // 3 // self.heads
         if self.fused:
@@ -214,6 +213,20 @@ class MultiHeadAttention(nn.Module):
         else:
             out = _einsum_attention(qkv, self.heads, self.causal)
         return self.out_proj(out)
+
+    def _int8_qkv_attention(self, x: torch.Tensor) -> torch.Tensor:
+        """model.py:_FusedInProjAttention: quantize x with the in_proj's static
+        act scale, then K8. The in_proj still records its input's abs-max."""
+        dense = self.in_proj
+        if dense.observe:
+            dense.observed_amax = x.float().abs().amax().reshape(1)
+        act = dense.act_scale.float()
+        x_q = quantize_rint(x.float() * (127.0 / torch.clamp_min(act, QUANT_EPS)))
+        out_scale = (act / 127.0) * dense.scale.float()
+        head_dim = x.shape[-1] // self.heads
+        return fused_int8_qkv_attention(x_q, dense.weight_q, out_scale, dense.bias.float(),
+                                        self.heads, head_dim ** -0.5, self.causal,
+                                        out_dtype=dense.dtype)
 
 
 class ResidualBlock(nn.Module):
@@ -228,7 +241,7 @@ class ResidualBlock(nn.Module):
         self.ln_2 = LayerNormFp32(width, dtype, ln_eps, device)
         self.mlp_fc = _dense(quantized, width, 4 * width, dtype, device)
         self.mlp_proj = _dense(quantized, 4 * width, width, dtype, device)
-        self._int8_cache = None
+        self._fold_cache = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x))
@@ -236,18 +249,28 @@ class ResidualBlock(nn.Module):
         h = quick_gelu(h) if self.quick_gelu else F.gelu(h)
         return x + self.mlp_proj(h)
 
-    def int8_operands(self):
-        """The layer's folded int8 operands (ops/block.prepare_int8_layer).
-        Folded once and kept while every source tensor is unchanged: the key
-        is each tensor's identity, storage and in-place version counter, so
+    def _folded(self, kind: str, leaves, fold):
+        """fold() of the layer, kept while every source tensor is unchanged: the
+        key is each tensor's identity, storage and in-place version counter, so
         calibration, load_act_scales, load_state_dict and .to() all refold."""
         sources = [self.ln_1.weight, self.ln_1.bias, self.ln_2.weight, self.ln_2.bias]
         for dense in (self.attn.in_proj, self.attn.out_proj, self.mlp_fc, self.mlp_proj):
-            sources += [dense.weight_q, dense.scale, dense.bias, dense.act_scale]
-        key = tuple((id(t), t.data_ptr(), t._version) for t in sources)
-        if self._int8_cache is None or self._int8_cache[0] != key:
-            self._int8_cache = (key, prepare_int8_layer(self, self.quick_gelu))
-        return self._int8_cache[1]
+            sources += [getattr(dense, leaf) for leaf in leaves]
+        key = (kind,) + tuple((id(t), t.data_ptr(), t._version) for t in sources)
+        if self._fold_cache is None or self._fold_cache[0] != key:
+            self._fold_cache = (key, fold())
+        return self._fold_cache[1]
+
+    def int8_operands(self):
+        """The layer's folded int8 operands (ops/block.prepare_int8_layer), cached."""
+        return self._folded("int8", ("weight_q", "scale", "bias", "act_scale"),
+                            functools.partial(prepare_int8_layer, self, self.quick_gelu))
+
+    def bf16_operands(self):
+        """The float layer's operands (ops/block.prepare_bf16_layer): weights in
+        the compute dtype, cached as int8_operands is."""
+        return self._folded("bf16", ("weight", "bias"),
+                            functools.partial(prepare_bf16_layer, self))
 
 
 # Ops whose outputs remat="dots" keeps: the dense products (no batch dims, as

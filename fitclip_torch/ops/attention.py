@@ -4,7 +4,7 @@ output, forward and backward (port of ``fitclip_tpu/ops/attention.py``'s
 ``ops/block.py``), and Frozen-in-Time's divided attention (the section at the
 end: K5, K6 and K4's int8 cores, ``csrc/fit_attention.cu``).
 
-Three Hopper kernels serve the CLIP wrappers:
+Three Hopper kernels serve the CLIP wrappers, and K8 is composed of two:
 
 - ``fused_attention_qkv``: K3, an ``autograd.Function``. Its forward
   (``csrc/attention.cu``, qkv mode) replaces ``attention.py:_packed_kernel``:
@@ -17,6 +17,13 @@ Three Hopper kernels serve the CLIP wrappers:
   (K1). The out-projection's requant multiplier rides the softmax normalizer
   (weights = exps * (out_mul / denom)), and the fp32 output is rounded and
   clipped to int8.
+- ``attention_block``: replaces the attention core of
+  ``block.py:_bf16_layer_kernel`` (K2): weights = exps * (1 / denom), the fp32
+  output rounded to qkv's dtype, as K2's out-projection casts it.
+- ``fused_int8_qkv_attention``: K8, ``attention.py:_int8_qkv_attention_kernel``:
+  the int8 QKV projection (K1's int8 GEMM, bias epilogue) then the qkv mode of
+  the attention kernel. On Hopper the (B, L, 3W) qkv makes one round trip
+  through device memory between the two launches.
 
 On the H100 the kernels are bound by latency and shared-memory bandwidth: at
 L <= 577 one head's two (L, 64) operands fit in shared memory, so a block reads
@@ -39,6 +46,8 @@ import torch
 
 from fitclip_torch import _build
 from fitclip_torch.ops.quant import quantize_rint
+
+_QKV, _INT8, _BLOCK = 0, 1, 2  # csrc/attention.cu modes
 
 HEAD_DIM = 64  # the kernels' head_dim: every CLIP preset's and FiT base's
 SMEM_LIMIT = 232448  # shared memory a block can use on an H100
@@ -83,7 +92,7 @@ def attention_int8_plain(qkv, heads, scale, causal, out_mul, seq_valid=None):
                                               seq_valid, torch.float32))
 
 
-def _launch(qkv, heads, scale, causal, seq_valid, out, int8_out, out_mul):
+def _launch(qkv, heads, scale, causal, seq_valid, out, mode, out_mul):
     _build.check_cuda_operand("qkv", qkv, ndim=3)
     _build.check_cuda_operand("out", out, ndim=3)
     batch, seq, _ = qkv.shape
@@ -96,7 +105,7 @@ def _launch(qkv, heads, scale, causal, seq_valid, out, int8_out, out_mul):
     valid = seq if seq_valid is None else min(int(seq_valid), seq)
     if valid < 1:
         raise ValueError(f"seq_valid must be >= 1, got {seq_valid}")
-    _build.call("fitclip_attention", qkv.data_ptr(), code, out.data_ptr(), int(int8_out),
+    _build.call("fitclip_attention", qkv.data_ptr(), code, out.data_ptr(), mode,
                 batch, seq, heads, head_dim, float(scale), int(causal), valid,
                 float(out_mul))
 
@@ -157,7 +166,7 @@ def _forward_op(qkv: torch.Tensor, heads: int, scale: float, causal: bool) -> to
         return attention_core_plain(qkv, heads, scale, causal)
     batch, seq, triple = qkv.shape
     out = torch.empty(batch, seq, triple // 3, dtype=qkv.dtype, device=qkv.device)
-    _launch(qkv, heads, scale, causal, None, out, False, 0.0)
+    _launch(qkv, heads, scale, causal, None, out, _QKV, 0.0)
     fused_attention_qkv.launches += 1
     return out
 
@@ -232,12 +241,71 @@ def attention_int8(qkv: torch.Tensor, heads: int, scale: float, causal: bool,
         return attention_int8_plain(qkv, heads, scale, causal, out_mul, seq_valid)
     batch, seq, triple = qkv.shape
     out = torch.empty(batch, seq, triple // 3, dtype=torch.int8, device=qkv.device)
-    _launch(qkv, heads, scale, causal, seq_valid, out, True, out_mul)
+    _launch(qkv, heads, scale, causal, seq_valid, out, _INT8, out_mul)
     attention_int8.launches += 1
     return out
 
 
 attention_int8.launches = 0
+
+
+def attention_block_plain(qkv, heads, scale, causal, seq_valid=None):
+    return attention_core_plain(qkv, heads, scale, causal, 1.0, seq_valid)
+
+
+def attention_block(qkv: torch.Tensor, heads: int, scale: float, causal: bool,
+                    seq_valid: Optional[int] = None) -> torch.Tensor:
+    """(B, L, 3*H*D) -> (B, L, H*D) in qkv's dtype: the attention core of
+    ``fitclip_tpu/ops/block.py:_bf16_layer_kernel`` (K2), weights
+    exps * (1 / denom). seq_valid masks the keys at and past it."""
+    if qkv.device.type == "cpu":
+        return attention_block_plain(qkv, heads, scale, causal, seq_valid)
+    batch, seq, triple = qkv.shape
+    out = torch.empty(batch, seq, triple // 3, dtype=qkv.dtype, device=qkv.device)
+    _launch(qkv, heads, scale, causal, seq_valid, out, _BLOCK, 1.0)
+    attention_block.launches += 1
+    return out
+
+
+attention_block.launches = 0
+
+
+def fused_int8_qkv_attention_plain(x_q, weight_q, out_scale, bias, heads, scale, causal=False,
+                                   out_dtype=torch.bfloat16):
+    from fitclip_torch.ops.block import int8_gemm_bias_plain  # block.py imports this module
+
+    batch, seq, width = x_q.shape
+    qkv = int8_gemm_bias_plain(x_q.reshape(batch * seq, width), weight_q, out_scale, bias,
+                               out_dtype)
+    return attention_core_plain(qkv.view(batch, seq, -1), heads, scale, causal)
+
+
+def fused_int8_qkv_attention(x_q: torch.Tensor, weight_q: torch.Tensor, out_scale: torch.Tensor,
+                             bias: torch.Tensor, heads: int, scale: float, causal: bool = False,
+                             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """K8: int8 x_q (B, L, W), int8 weight_q (3W, W), fp32 out_scale and bias
+    (3W,) -> the attention output (B, L, W) in out_dtype. qkv = (acc * out_scale
+    + bias) cast to out_dtype, then the qkv-mode softmax (weights exps / denom).
+    Replaces ``fitclip_tpu/ops/attention.py:fused_int8_qkv_attention``
+    (``_int8_qkv_attention_kernel``); one launch count per call."""
+    if x_q.device.type == "cpu":
+        return fused_int8_qkv_attention_plain(x_q, weight_q, out_scale, bias, heads, scale,
+                                              causal, out_dtype)
+    from fitclip_torch.ops import block  # block.py imports this module
+
+    _build.check_cuda_operand("x_q", x_q, torch.int8, 3)
+    batch, seq, width = x_q.shape
+    qkv = torch.empty(batch, seq, weight_q.shape[0], dtype=out_dtype, device=x_q.device)
+    # K1's GEMM with the bias epilogue, counted under K8 alone.
+    block._gemm(x_q.view(batch * seq, width), weight_q, out_scale, bias, block._BIAS,
+                qkv.view(batch * seq, -1))
+    out = torch.empty(batch, seq, width, dtype=out_dtype, device=x_q.device)
+    _launch(qkv, heads, scale, causal, None, out, _QKV, 0.0)
+    fused_int8_qkv_attention.launches += 1
+    return out
+
+
+fused_int8_qkv_attention.launches = 0
 
 
 # --- Frozen-in-Time: divided attention with a global row (csrc/fit_attention.cu) ---

@@ -1,5 +1,6 @@
-"""The int8 W8A8 transformer layer for inference (port of
-``fitclip_tpu/ops/block.py:fused_int8_layer``).
+"""The transformer layers for inference: int8 W8A8 (port of
+``fitclip_tpu/ops/block.py:fused_int8_layer``, K1) and its float twin (port of
+``fused_bf16_layer``, K2).
 
 The TPU kernel ``_layer_kernel`` (K1) runs a whole pre-LN residual block in
 one call, with the layer's weights resident in 100 MB of VMEM. An H100 SM has
@@ -20,6 +21,18 @@ The mid-layer residual stays fp32 from the out-projection to the final add
 and is rounded to x's dtype once, as in the TPU kernel. Divides are exact:
 the CPU interpret reference of the TPU kernel divides exactly too.
 
+The float layer (``fused_bf16_layer``) replaces ``_bf16_layer_kernel`` with
+the same seven launches per layer, in bf16 on the card:
+
+1. ``ln_cast`` (``csrc/ln_quant.cu``): fp32 LayerNorm rounded to x's dtype.
+2. ``bf16_gemm_*`` (``csrc/bf16_gemm.cu``): bf16 x bf16 -> fp32 on the tensor
+   cores (mma.sync), bias added after the accumulate, with the bias epilogue
+   (QKV, bf16), the residual epilogue (out-projection into the fp32 residual,
+   MLP projection back to x's dtype) or the GELU epilogue (QuickGELU or the
+   exact GELU of ``block.py:_exact_gelu``, bf16).
+3. ``attention_block`` (``ops/attention.py``): the per-head core with weights
+   exps * (1 / denom), output in qkv's dtype.
+
 Each wrapper takes its plain PyTorch version for a tensor on the CPU only;
 for a CUDA tensor it launches its kernel or raises. ``fused_int8_layer_plain``
 runs the same composition through the plain versions on any device.
@@ -31,7 +44,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from fitclip_torch import _build
-from fitclip_torch.ops.attention import attention_int8, attention_int8_plain
+from fitclip_torch.ops.attention import (attention_block, attention_block_plain,
+                                         attention_int8, attention_int8_plain)
 from fitclip_torch.ops.quant import QUANT_EPS, int_matmul, quantize_rint
 
 LN_EPS = 1e-5
@@ -42,13 +56,17 @@ _BIAS, _RESIDUAL, _GELU = 0, 1, 2  # csrc/int8_gemm.cu epilogues
 
 # --- ln_quant -------------------------------------------------------------
 
-def ln_quant_plain(x, weight, bias, inv: float, eps: float = LN_EPS):
+def layer_norm_plain(x, weight, bias, eps: float = LN_EPS) -> torch.Tensor:
+    """fp32 LayerNorm statistics and arithmetic (block.py:_ln), fp32 output."""
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     centered = x32 - mean
     var = (centered * centered).mean(dim=-1, keepdim=True)
-    y = centered * torch.rsqrt(var + eps) * weight + bias
-    return quantize_rint(y * inv)
+    return centered * torch.rsqrt(var + eps) * weight + bias
+
+
+def ln_quant_plain(x, weight, bias, inv: float, eps: float = LN_EPS):
+    return quantize_rint(layer_norm_plain(x, weight, bias, eps) * inv)
 
 
 def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, inv: float,
@@ -269,3 +287,210 @@ def fused_int8_layer_plain(x: torch.Tensor, ops: Int8LayerOperands, heads: int,
                            seq_valid: Optional[int] = None) -> torch.Tensor:
     """The same layer through the plain PyTorch versions, on any device."""
     return _layer(x, ops, heads, causal, ln_eps, seq_valid, _PLAIN)
+
+
+# --- the float layer (K2) --------------------------------------------------
+
+def ln_cast_plain(x, weight, bias, out_dtype, eps: float = LN_EPS):
+    return layer_norm_plain(x, weight, bias, eps).to(out_dtype)
+
+
+def ln_cast(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, out_dtype: torch.dtype,
+            eps: float = LN_EPS) -> torch.Tensor:
+    """(rows, W) bf16/fp32 -> (rows, W) in out_dtype: fp32 LN(x) rounded once.
+    Replaces the _ln prologues of block.py:_bf16_layer_kernel."""
+    if x.device.type == "cpu":
+        return ln_cast_plain(x, weight, bias, out_dtype, eps)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"ln_cast writes bfloat16 on the card (K2's compute dtype), not {out_dtype}")
+    rows, width = x.shape
+    _build.check_cuda_operand("x", x, ndim=2)
+    for name, t in (("weight", weight), ("bias", bias)):
+        _build.check_cuda_operand(name, t, torch.float32, 1)
+    out = torch.empty(rows, width, dtype=out_dtype, device=x.device)
+    _build.call("fitclip_ln_cast", x.data_ptr(), _build.dtype_code(x.dtype), weight.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), rows, width, float(eps))
+    ln_cast.launches += 1
+    return out
+
+
+ln_cast.launches = 0
+
+
+def _dense_plain(a, w, bias):
+    """acc + bias in fp32 (block.py:_bf16_layer_kernel's dense). On the card,
+    call it with TF32 matmuls disabled."""
+    return a.float() @ w.float().T + bias
+
+
+def exact_gelu_plain(h):
+    """block.py:_exact_gelu: x * Phi(x), erf by the A&S 7.1.26 polynomial."""
+    z = h * 0.7071067811865475
+    az = z.abs()
+    t = 1.0 / (1.0 + 0.3275911 * az)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    erf_abs = 1.0 - poly * torch.exp(-az * az)
+    erf = torch.where(z < 0.0, -erf_abs, erf_abs)
+    return h * 0.5 * (1.0 + erf)
+
+
+def bf16_gemm_bias_plain(a, w, bias):
+    return _dense_plain(a, w, bias).to(a.dtype)
+
+
+def bf16_gemm_residual_plain(a, w, bias, residual, out_dtype):
+    return (residual.float() + _dense_plain(a, w, bias)).to(out_dtype)
+
+
+def bf16_gemm_gelu_plain(a, w, bias, quick_gelu: bool):
+    h = _dense_plain(a, w, bias)
+    g = h * torch.sigmoid(1.702 * h) if quick_gelu else exact_gelu_plain(h)
+    return g.to(a.dtype)
+
+
+def _bf16_gemm(a, w, bias, epilogue, out, residual=None, quick_gelu=False):
+    _build.check_cuda_operand("a", a, torch.bfloat16, 2)
+    _build.check_cuda_operand("w", w, torch.bfloat16, 2)
+    _build.check_cuda_operand("bias", bias, torch.float32, 1)
+    (m, k), n = a.shape, w.shape[0]
+    if w.shape[1] != k or k % 8 or bias.numel() != n:
+        raise ValueError(f"bf16_gemm: a {tuple(a.shape)}, w {tuple(w.shape)}, {bias.numel()} "
+                         "biases (w is (N, K) with K a multiple of 8)")
+    _build.check_cuda_operand("out", out, ndim=2)
+    res_ptr, res_code = 0, 0
+    if residual is not None:
+        _build.check_cuda_operand("residual", residual, ndim=2)
+        if residual.shape != (m, n):
+            raise ValueError(f"residual {tuple(residual.shape)} must be ({m}, {n})")
+        res_ptr, res_code = residual.data_ptr(), _build.dtype_code(residual.dtype)
+    _build.call("fitclip_bf16_gemm", a.data_ptr(), w.data_ptr(), m, n, k, epilogue,
+                bias.data_ptr(), res_ptr, res_code, out.data_ptr(), _build.dtype_code(out.dtype),
+                int(quick_gelu))
+
+
+def bf16_gemm_bias(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """a (M, K) x w (N, K)^T -> acc + bias, fp32 accumulate, in a's dtype."""
+    if a.device.type == "cpu":
+        return bf16_gemm_bias_plain(a, w, bias)
+    out = torch.empty(a.shape[0], w.shape[0], dtype=a.dtype, device=a.device)
+    _bf16_gemm(a, w, bias, _BIAS, out)
+    bf16_gemm_bias.launches += 1
+    return out
+
+
+bf16_gemm_bias.launches = 0
+
+
+def bf16_gemm_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       residual: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """residual + (acc + bias), added in fp32, in out_dtype."""
+    if a.device.type == "cpu":
+        return bf16_gemm_residual_plain(a, w, bias, residual, out_dtype)
+    out = torch.empty(a.shape[0], w.shape[0], dtype=out_dtype, device=a.device)
+    _bf16_gemm(a, w, bias, _RESIDUAL, out, residual=residual)
+    bf16_gemm_residual.launches += 1
+    return out
+
+
+bf16_gemm_residual.launches = 0
+
+
+def bf16_gemm_gelu(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   quick_gelu: bool) -> torch.Tensor:
+    """GELU(acc + bias) in fp32 (QuickGELU, or the exact GELU's A&S erf), in a's dtype."""
+    if a.device.type == "cpu":
+        return bf16_gemm_gelu_plain(a, w, bias, quick_gelu)
+    out = torch.empty(a.shape[0], w.shape[0], dtype=a.dtype, device=a.device)
+    _bf16_gemm(a, w, bias, _GELU, out, quick_gelu=quick_gelu)
+    bf16_gemm_gelu.launches += 1
+    return out
+
+
+bf16_gemm_gelu.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16LayerOperands:
+    """One float layer's operands (fused_bf16_layer's): weights cast once to
+    the compute dtype, (N, K) with K contiguous; biases and LN vectors fp32."""
+    ln1_weight: torch.Tensor
+    ln1_bias: torch.Tensor
+    wq: torch.Tensor
+    qb: torch.Tensor
+    wo: torch.Tensor
+    ob: torch.Tensor
+    ln2_weight: torch.Tensor
+    ln2_bias: torch.Tensor
+    wf: torch.Tensor
+    fb: torch.Tensor
+    wp: torch.Tensor
+    pb: torch.Tensor
+
+
+def prepare_bf16_layer(block) -> Bf16LayerOperands:
+    """A float residual block's parameters (ln_1, attn.in_proj, attn.out_proj,
+    ln_2, mlp_fc, mlp_proj) as the float layer's operands."""
+    with torch.no_grad():
+        def dense(d):
+            return d.weight.detach().to(d.dtype).contiguous(), d.bias.detach().float()
+
+        def ln(norm):
+            return norm.weight.detach().float(), norm.bias.detach().float()
+
+        return Bf16LayerOperands(*ln(block.ln_1), *dense(block.attn.in_proj),
+                                 *dense(block.attn.out_proj), *ln(block.ln_2),
+                                 *dense(block.mlp_fc), *dense(block.mlp_proj))
+
+
+class _FloatSteps(NamedTuple):
+    ln_cast: object
+    gemm_bias: object
+    attention: object
+    gemm_residual: object
+    gemm_gelu: object
+
+
+_FLOAT_KERNELS = _FloatSteps(ln_cast, bf16_gemm_bias, attention_block, bf16_gemm_residual,
+                             bf16_gemm_gelu)
+_FLOAT_PLAIN = _FloatSteps(ln_cast_plain, bf16_gemm_bias_plain, attention_block_plain,
+                           bf16_gemm_residual_plain, bf16_gemm_gelu_plain)
+
+
+def _float_layer(x, ops: Bf16LayerOperands, heads, causal, quick_gelu, ln_eps, seq_valid,
+                 steps: _FloatSteps):
+    batch, seq, width = x.shape
+    x2 = x.reshape(batch * seq, width)
+    # --- attention half: qkv in x's dtype, the residual sum in fp32 ---
+    h1 = steps.ln_cast(x2, ops.ln1_weight, ops.ln1_bias, x.dtype, ln_eps)
+    qkv = steps.gemm_bias(h1, ops.wq, ops.qb)
+    att = steps.attention(qkv.view(batch, seq, 3 * width), heads, (width // heads) ** -0.5,
+                          causal, seq_valid)
+    x32 = steps.gemm_residual(att.view(batch * seq, width), ops.wo, ops.ob, x2, torch.float32)
+    # --- MLP half: y is rounded to x's dtype once ---
+    h2 = steps.ln_cast(x32, ops.ln2_weight, ops.ln2_bias, x.dtype, ln_eps)
+    h = steps.gemm_gelu(h2, ops.wf, ops.fb, quick_gelu)
+    y = steps.gemm_residual(h, ops.wp, ops.pb, x32, x.dtype)
+    return y.view(batch, seq, width)
+
+
+def fused_bf16_layer(x: torch.Tensor, ops: Bf16LayerOperands, heads: int,
+                     causal: bool = False, quick_gelu: bool = True, ln_eps: float = LN_EPS,
+                     seq_valid: Optional[int] = None) -> torch.Tensor:
+    """x (B, L, W) + one float layer's operands -> (B, L, W) in x's dtype,
+    through the Hopper kernels (their plain versions for CPU tensors). Replaces
+    fitclip_tpu/ops/block.py:fused_bf16_layer (_bf16_layer_kernel, K2). On the
+    card x and the weights are bf16: the kernels take no other float type."""
+    if x.device.type == "cuda" and (x.dtype != torch.bfloat16 or ops.wq.dtype != torch.bfloat16):
+        raise TypeError(f"fused_bf16_layer (K2) runs in bfloat16 on the card; got x "
+                        f"{x.dtype}, weights {ops.wq.dtype}")
+    return _float_layer(x.contiguous(), ops, heads, causal, quick_gelu, ln_eps, seq_valid,
+                        _FLOAT_KERNELS)
+
+
+def fused_bf16_layer_plain(x: torch.Tensor, ops: Bf16LayerOperands, heads: int,
+                           causal: bool = False, quick_gelu: bool = True,
+                           ln_eps: float = LN_EPS,
+                           seq_valid: Optional[int] = None) -> torch.Tensor:
+    """The same layer through the plain PyTorch versions, on any device."""
+    return _float_layer(x, ops, heads, causal, quick_gelu, ln_eps, seq_valid, _FLOAT_PLAIN)

@@ -21,9 +21,10 @@ from fitclip_tpu.models.clip.model import fold_pixel_normalization as jax_fold
 from fitclip_tpu.ops import quant as jax_quant
 from fitclip_torch.convert.from_jax import params_from_jax, params_to_jax
 from fitclip_torch.models.clip import fast_eval
-from fitclip_torch.models.clip.encoder import ClipVideoTextEncoder
+from fitclip_torch.models.clip.encoder import ClipVideoTextEncoder, l2_normalize
 from fitclip_torch.models.clip.load import load_clip_encoder
-from fitclip_torch.models.clip.model import CLIPConfig, CLIPModel, TextConfig, VisionConfig
+from fitclip_torch.models.clip.model import (CLIPConfig, CLIPModel, TextConfig, VisionConfig,
+                                             init_float_params)
 
 NARROW = dict(embed_dim=32, vision=dict(image_size=32, patch_size=16, width=128, layers=2,
                                         heads=2),
@@ -117,12 +118,21 @@ def test_encoder_on_folded_uint8_clips_matches_jax(setup):
 
 
 def test_float_model_has_no_fast_path_yet():
-    model = CLIPModel(CLIPConfig.tiny_test())
-    with pytest.raises(NotImplementedError, match="K2"):
-        fast_eval.encode_frames_fast(model, torch.zeros(1, 32, 32, 3))
-    enc = ClipVideoTextEncoder(CLIPConfig.tiny_test(), fused_block=True)
-    with pytest.raises(NotImplementedError, match="fused_bf16_layer"):
-        enc.encode_text(torch.ones(1, 16, dtype=torch.long))
+    """The name predates the float layer: a float model's fast path now runs K2
+    (ops/block.fused_bf16_layer, its plain versions on the CPU) and agrees with
+    the module path; the encoder with fused_block=True takes it."""
+    cfg = CLIPConfig.tiny_test()
+    model = init_float_params(CLIPModel(cfg), seed=0)
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.normal(size=(2, 32, 32, 3)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(1, 60, size=(2, 16)))
+    with torch.no_grad():
+        torch.testing.assert_close(fast_eval.encode_frames_fast(model, images),
+                                   model.encode_image(images), atol=2e-4, rtol=2e-4)
+        enc = ClipVideoTextEncoder(cfg, fused_block=True)
+        enc.model.load_state_dict(model.state_dict())
+        torch.testing.assert_close(enc.encode_text(ids), l2_normalize(model.encode_text(ids)),
+                                   atol=2e-4, rtol=2e-4)
 
 
 def test_load_clip_encoder_cpu_defaults():

@@ -391,3 +391,149 @@ def test_mil_nce_int8_encode_runs_the_stem_and_int8_gemm_kernels(cuda):
                                 plain=True)
     cos = torch.nn.functional.cosine_similarity(out.float(), plain.float(), dim=-1)
     assert out.shape == (2, 512) and float(cos.min()) > 0.999
+
+
+# --- the float layer (K2), K8 and the static int8 dense ---------------------
+
+def _float_operands(width, gen, device):
+    """Random bf16 operands of one float layer, shaped as prepare_bf16_layer makes them."""
+    def vec(n, std=0.1, mean=0.0):
+        return (torch.randn(n, generator=gen) * std + mean).to(device)
+
+    def weight(n, k):
+        return (torch.randn(n, k, generator=gen) * k ** -0.5).to(device, torch.bfloat16)
+
+    return K.Bf16LayerOperands(
+        vec(width, mean=1.0), vec(width), weight(3 * width, width), vec(3 * width),
+        weight(width, width), vec(width), vec(width, mean=1.0), vec(width),
+        weight(4 * width, width), vec(4 * width), weight(width, 4 * width), vec(width))
+
+
+def test_cpu_tensors_take_the_plain_float_layer():
+    gen = torch.Generator().manual_seed(5)
+    ops = _float_operands(64, gen, "cpu")
+    x = torch.randn(2, 5, 64, generator=gen).bfloat16()
+    wrappers = (K.ln_cast, K.bf16_gemm_bias, K.bf16_gemm_residual, K.bf16_gemm_gelu,
+                A.attention_block)
+    counts = [fn.launches for fn in wrappers]
+    out = K.fused_bf16_layer(x, ops, heads=1, quick_gelu=False)
+    torch.testing.assert_close(out, K.fused_bf16_layer_plain(x, ops, heads=1, quick_gelu=False),
+                               rtol=0, atol=0)
+    assert counts == [fn.launches for fn in wrappers]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", SHAPES)
+def test_ln_cast_kernel_matches_plain(cuda, rows, width):
+    gen = torch.Generator().manual_seed(6)
+    gamma = (1 + 0.1 * torch.randn(width, generator=gen)).to(cuda)
+    beta = (0.1 * torch.randn(width, generator=gen)).to(cuda)
+    for x in (torch.randn(rows, width, generator=gen).to(cuda, torch.bfloat16),
+              (3 * torch.randn(rows, width, generator=gen)).to(cuda)):
+        before = K.ln_cast.launches
+        out = K.ln_cast(x, gamma, beta, torch.bfloat16, 1e-6)
+        assert out.dtype == torch.bfloat16 and K.ln_cast.launches == before + 1
+        ref = K.layer_norm_plain(x, gamma, beta, 1e-6)
+        torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", SHAPES)
+def test_bf16_gemm_epilogues_match_plain(cuda, rows, width):
+    gen = torch.Generator().manual_seed(7)
+    ops = _float_operands(width, gen, cuda)
+    a = torch.randn(rows, width, generator=gen).to(cuda, torch.bfloat16)
+    a4 = torch.randn(rows, 4 * width, generator=gen).to(cuda, torch.bfloat16)
+
+    def close(out, ref):
+        torch.testing.assert_close(out.float(), ref.float(), atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+    close(K.bf16_gemm_bias(a, ops.wq, ops.qb), K._dense_plain(a, ops.wq, ops.qb))
+    x = torch.randn(rows, width, generator=gen).to(cuda, torch.bfloat16)
+    out = K.bf16_gemm_residual(a, ops.wo, ops.ob, x, torch.float32)
+    assert out.dtype == torch.float32
+    close(out, K.bf16_gemm_residual_plain(a, ops.wo, ops.ob, x, torch.float32))
+    x32 = torch.randn(rows, width, generator=gen).to(cuda)
+    close(K.bf16_gemm_residual(a4, ops.wp, ops.pb, x32, torch.bfloat16),
+          K.bf16_gemm_residual_plain(a4, ops.wp, ops.pb, x32, torch.float32))
+    for quick in (True, False):
+        h = K._dense_plain(a, ops.wf, ops.fb)
+        ref = h * torch.sigmoid(1.702 * h) if quick else K.exact_gelu_plain(h)
+        close(K.bf16_gemm_gelu(a, ops.wf, ops.fb, quick), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,causal,seq_valid", [(197, False, None), (77, True, None),
+                                                  (197, False, 150), (77, True, 60)])
+def test_block_attention_kernel_matches_plain(cuda, seq, causal, seq_valid):
+    gen = torch.Generator().manual_seed(8)
+    heads = 12
+    qkv = (1.5 * torch.randn(2, seq, 3 * heads * 64, generator=gen)).to(cuda, torch.bfloat16)
+    before = A.attention_block.launches
+    out = A.attention_block(qkv, heads, 0.125, causal, seq_valid)
+    assert out.dtype == torch.bfloat16 and A.attention_block.launches == before + 1
+    ref = A.attention_core_plain(qkv.float(), heads, 0.125, causal, 1.0, seq_valid)
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quick_gelu,causal,seq_valid", [(True, False, None), (True, True, None),
+                                                         (False, False, None), (False, False, 150)])
+def test_fused_bf16_layer_kernels_match_plain(cuda, quick_gelu, causal, seq_valid):
+    gen = torch.Generator().manual_seed(9)
+    width, heads = 768, 12
+    ops = _float_operands(width, gen, cuda)
+    x = torch.randn(4, 197, width, generator=gen).to(cuda, torch.bfloat16)
+    out = K.fused_bf16_layer(x, ops, heads, causal, quick_gelu, 1e-6, seq_valid)
+    ref = K.fused_bf16_layer_plain(x, ops, heads, causal, quick_gelu, 1e-6, seq_valid)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_bf16_layer_refuses_fp32_on_the_card(cuda):
+    gen = torch.Generator().manual_seed(10)
+    ops = _float_operands(128, gen, cuda)
+    with pytest.raises(TypeError, match="K2"):
+        K.fused_bf16_layer(torch.zeros(1, 5, 128, device=cuda), ops, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,seq,width,heads,causal", [(2, 197, 768, 12, False),
+                                                         (3, 77, 512, 8, True)])
+def test_k8_matches_plain(cuda, batch, seq, width, heads, causal):
+    gen = torch.Generator().manual_seed(11)
+    x_q = _int8(gen, batch, seq, width, device=cuda)
+    w_q = _int8(gen, 3 * width, width, device=cuda)
+    scale = ((torch.rand(3 * width, generator=gen) + 0.5) * 1.5 / (73.0 * 73.0 * width ** 0.5)).to(
+        cuda)
+    bias = (0.1 * torch.randn(3 * width, generator=gen)).to(cuda)
+    counts = (A.fused_int8_qkv_attention.launches, K.int8_gemm_bias.launches,
+              A.fused_attention_qkv.launches)
+    out = A.fused_int8_qkv_attention(x_q, w_q, scale, bias, heads, 0.125, causal)
+    assert (A.fused_int8_qkv_attention.launches, K.int8_gemm_bias.launches,
+            A.fused_attention_qkv.launches) == (counts[0] + 1, counts[1], counts[2])
+    # The plain version in fp32 from the same bf16 qkv (K8 rounds qkv to out_dtype).
+    qkv = K.int8_gemm_bias_plain(x_q.view(-1, width), w_q, scale, bias, torch.bfloat16)
+    ref = A.attention_core_plain(qkv.float().view(batch, seq, -1), heads, 0.125, causal)
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    torch.testing.assert_close(out, A.fused_int8_qkv_attention_plain(
+        x_q, w_q, scale, bias, heads, 0.125, causal), atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+
+@pytest.mark.cuda
+def test_static_int8_dense_takes_the_int8_gemm_on_the_card(cuda):
+    from fitclip_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(12)
+    x = (2 * torch.randn(3, 197, 768, generator=gen)).to(cuda, torch.bfloat16)
+    w_q = _int8(gen, 3072, 768, device=cuda)
+    scale = (torch.rand(3072, generator=gen) / 100).to(cuda)
+    bias, act = torch.randn(3072, generator=gen).to(cuda), torch.tensor([6.0], device=cuda)
+    before = K.int8_gemm_bias.launches
+    out = quant.int8_dense_static(x, w_q, scale, bias, act)
+    assert K.int8_gemm_bias.launches == before + 1 and out.dtype == torch.bfloat16
+    x_q = quant.quantize_rint(x.float() * (127.0 / 6.0)).view(-1, 768)
+    ref = quant.int_matmul(x_q, w_q) * ((act / 127.0) * scale) + bias
+    torch.testing.assert_close(out.float(), ref.view(3, 197, 3072), atol=FLOAT_TOL,
+                               rtol=FLOAT_TOL)
