@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives six paths at full width, with weights initialized from a seed: int8
+Drives seven paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
 teacher-student, through ``run_train``), Frozen-in-Time base zero-shot
 encoding (int8 and bf16), the S3D-G family (MIL-NCE bf16 and int8, VideoCLIP
-bf16), CLIP ViT-B/16 bf16 on the float layer kernels (K2) and SLIP ViT-B/16 in
-four configurations. It fails (non-zero exit) if any phase fails:
+bf16), CLIP ViT-B/16 bf16 on the float layer kernels (K2), SLIP ViT-B/16 in
+four configurations, and the port's benchmarks (``python -m
+fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
+(non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
@@ -20,7 +22,13 @@ four configurations. It fails (non-zero exit) if any phase fails:
    groups of 196 rows, K6 on 32 x 784 x 2304; the S3D-G stem, K7, on 32 clips x
    16 frames of 224^2; the float layer's kernels, K2, at 32 x 197 x 768 with its
    GEMMs at M = 6304 and (N, K) = (2304, 768), (768, 768), (3072, 768),
-   (768, 3072), its attention also at 8 x 77 causal; K8 at 32 x 197 x 768).
+   (768, 3072), its attention also at 8 x 77 causal; K8 at 32 x 197 x 768;
+   the repaired shapes: fp32 attention at L = 577 (forward and backward on
+   their global variants, V and g read through L2) and every attention mode and the backward at head_dim 32 (ViT-S/16, 32 x
+   197 x 384, 6 heads); the bench kernels at the benches' production shapes:
+   S1's LN, attention and fc-epilogue modes on 512 frames x 197 x 768, S2's
+   modes, amax pass and s8 attention on 512 x 197 x 2304, slice-requant on 32 x
+   785 x 2304).
    int8 outputs may differ by one step on at most 0.1% of
    the elements; float outputs stay within atol/rtol 2e-2 of the plain version
    run in fp32, the stem's within one bf16 ulp on all but 0.1%; two launches of
@@ -87,7 +95,23 @@ four configurations. It fails (non-zero exit) if any phase fails:
        Launch counts per path; gates > 0.999: (i) each path against its plain
        versions on the card, (ii) int8 against bf16, both towers
        (scripts/bench_families.py's gate), (iii) K8's path against K1's;
-       clips/s at 32 clips, text rows/s at 256 x 77, peak memory per path.
+       clips/s at 32 clips, text rows/s at 256 x 77, peak memory per path;
+10. the bench path (fitclip_torch/bench), after phase 8: (a) every arm of S1
+    (scripts/bench_block_layer.py), S2 (bench_attn_int8.py) and S3
+    (bench_fit_block.py) against its plain twin on the card at 32 frames (S3:
+    8 clips of the seeded, calibrated FiT base block 0): S1's arms and S2's
+    cores under the float rule (`i8qkav`'s int8 weights under the int8 rule: an
+    output may move by one weight step on at most 0.1% of its elements), S3's
+    whole int8 blocks at most 0.5% of outputs past the float rule and each
+    row's update (output - input) at cosine > 0.999, with a planted wrong arm
+    (`nocls` held as `full`) that this rule must reject, and S1s (two CUDA
+    streams) bit for bit against `full`; (b) with the launch counts zeroed,
+    every arm of the three benches, once, at its script's production shape
+    through the benches' own ``run`` (ms, cos_vs_full or min cosine against
+    the fp32 oracle, TFLOP/s; SDPA beside S2's `bf16`; the cases that only
+    rename an arm print ``same_function_as``), then one encode reading each
+    for int8 and bf16 at 128 clips with bench.py's gates; every bench kernel
+    must show launches there.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 The last two lines are the kernels' JSON record and the card line from
@@ -129,6 +153,10 @@ S3DG_GATE_INT8 = 0.99  # int8 against bf16, tests/test_s3dg_fast.py:127
 INT8_MAX_FLIPPED = 1e-3  # share of int8 elements allowed one step off
 FLOAT_TOL = 2e-2
 GATE_COSINE = 0.999
+# Share of a whole int8 FiT block's outputs allowed past the float rule: an
+# int8 activation that rounds the other way before the MLP moves many outputs
+# by a few fc2 steps (0.14% seen on the H100 at 8 clips).
+LAYER_MAX_OVER = 5e-3
 LOSS_RTOL = 2e-2  # kernel path vs plain attention, per training step
 LAYERS = 12  # of each ViT-B/16 tower
 INT8_LAUNCHES_PER_LAYER = {"ln_quant": 2, "int8_gemm_bias": 1, "int8_gemm_residual": 2,
@@ -260,6 +288,49 @@ class KernelChecks:
               f"ulp of the plain version in fp32")
         require(bool(torch.isfinite(k).all()), f"{name} {what}: non-finite output")
         require(over <= INT8_MAX_FLIPPED, f"{name} {what}: {over:.2e} of elements beyond one ulp")
+        self._record(name, err)
+
+    def s8(self, name, what, kernel_out, plain_fp32, step):
+        """The float rule, with S2's int8 attention weights under the int8 rule:
+        a weight rint(w * 127) may round the other way (its softmax sums in
+        another order), moving an output by up to ``step`` (v_amax / 127), on
+        at most INT8_MAX_FLIPPED of the elements."""
+        import torch
+
+        torch.cuda.synchronize()
+        k = kernel_out.float()
+        diff = (k - plain_fp32).abs()
+        err = float(diff.max())
+        over = float((diff > FLOAT_TOL + FLOAT_TOL * plain_fp32.abs()).float().mean())
+        print(f"  {name} {what}: max |diff| {err:.3e}, {over:.2e} of elements beyond the float "
+              f"rule (one weight step {step:.3e})")
+        require(bool(torch.isfinite(k).all()), f"{name} {what}: non-finite output")
+        require(over <= INT8_MAX_FLIPPED and err <= FLOAT_TOL + step,
+                f"{name} {what}: max |diff| {err}, {over:.2e} of elements beyond the float rule")
+        self._record(name, err)
+
+    def layer(self, name, what, kernel_out, plain_fp32, x):
+        """A whole int8 FiT block on input x against its plain twin. Its
+        kernels meet the int8 and float rules one by one (above), but an int8
+        activation that rounds the other way carries whole steps through the
+        later GEMMs: at most LAYER_MAX_OVER of the outputs may be past the
+        float rule, and each row's update (output - x, what the block adds to
+        the residual stream, which x would dominate) keeps a cosine above
+        GATE_COSINE."""
+        import torch
+
+        torch.cuda.synchronize()
+        k = kernel_out.float()
+        diff = (k - plain_fp32).abs()
+        err = float(diff.max())
+        over = float((diff > FLOAT_TOL + FLOAT_TOL * plain_fp32.abs()).float().mean())
+        cos = min_cosine((k - x.float()).flatten(0, -2), (plain_fp32 - x.float()).flatten(0, -2))
+        print(f"  {name} {what}: min row cosine of the update {cos:.6f}; max |diff| {err:.3e}, "
+              f"{over:.2e} of elements beyond the float rule")
+        require(bool(torch.isfinite(k).all()), f"{name} {what}: non-finite output")
+        require(cos > GATE_COSINE and over <= LAYER_MAX_OVER,
+                f"{name} {what}: min row cosine of the update {cos}, {over:.2e} of elements "
+                f"beyond the float rule")
         self._record(name, err)
 
     def float(self, name, what, kernel_out, plain_fp32):
@@ -638,6 +709,295 @@ def s3dg_kernel_phase(torch, checks: KernelChecks):
     print(f"  s3dg_stem: for information, cuDNN's bf16 conv3d alone (no bias, ReLU or pool, "
           f"unpooled output) {conv_ms:.4f} ms")
     return times
+
+
+def fault_kernel_phase(torch, checks: KernelChecks):
+    """Phase 3, the repaired shapes: the fp32 attention at L = 577 (ViT-L/14@336;
+    the forward reads V through L2, the backward V and g; the function's
+    gradient runs through both kernels) and every attention mode and the
+    backward at head_dim 32 (SLIP ViT-S/16: 32 x 197 x 384, 6 heads)."""
+    from fitclip_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, seq, heads, d = 2, 577, 16, 64
+    qkv = (1.5 * torch.randn(b, seq, 3 * heads * d, generator=gen, device="cuda"))
+    scale, out_mul = d ** -0.5, 127.0 / 2.5
+    what = f"fp32 {b} x {seq} x {3 * heads * d} (V through L2)"
+    checks.float("fused_attention_qkv", what, A.fused_attention_qkv(qkv, heads, scale),
+                 A.attention_core_plain(qkv, heads, scale, False))
+    checks.int8("attention_int8", what, A.attention_int8(qkv, heads, scale, False, out_mul),
+                A.attention_int8_plain(qkv, heads, scale, False, out_mul))
+    leaf = qkv.clone().requires_grad_()
+    grad = torch.randn(b, seq, heads * d, generator=gen, device="cuda")
+    before = A.fused_attention_qkv_backward.launches
+    with torch.enable_grad():
+        A.fused_attention_qkv(leaf, heads, scale).backward(grad)
+    launched = A.fused_attention_qkv_backward.launches - before
+    require(launched == 1, f"fp32 L = 577 backward: {launched} kernel launches, not 1")
+    checks.float("fused_attention_qkv_backward", f"{what}: through the function", leaf.grad,
+                 A.attention_backward_plain(qkv, grad, heads, scale, False))
+    again = A.fused_attention_qkv_backward(qkv, grad, heads, scale)
+    require(torch.equal(again, leaf.grad), "fp32 L = 577 backward: two launches differ")
+    print(f"  fused_attention_qkv_backward: fp32 L = 577 on the global variant, "
+          f"{launched} launch through the function, two launches bit-identical")
+    kernel_ms = cuda_ms(lambda: A.fused_attention_qkv_backward(qkv, grad, heads, scale), iters=5)
+    plain_ms = cuda_ms(lambda: A.attention_backward_plain(qkv, grad, heads, scale, False), iters=5)
+    print(f"  fused_attention_qkv_backward {what}, global variant: {kernel_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+
+    b, seq, heads, d = 32, 197, 6, 32
+    what = f"head_dim 32, {b} x {seq} x {3 * heads * d}"
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = (1.5 * torch.randn(b, seq, 3 * heads * d, generator=gen, device="cuda")).to(dtype)
+        tag = f"{what} {str(dtype)[6:]}"
+        checks.float("fused_attention_qkv", tag, A.fused_attention_qkv(qkv, heads, d ** -0.5),
+                     A.attention_core_plain(qkv.float(), heads, d ** -0.5, False))
+        checks.float("attention_block", tag, A.attention_block(qkv, heads, d ** -0.5, False),
+                     A.attention_core_plain(qkv.float(), heads, d ** -0.5, False, 1.0))
+        checks.int8("attention_int8", tag, A.attention_int8(qkv, heads, d ** -0.5, False, out_mul),
+                    A.attention_int8_plain(qkv, heads, d ** -0.5, False, out_mul))
+        grad = torch.randn(b, seq, heads * d, generator=gen, device="cuda").to(dtype)
+        # The plain version with the kernel's casts on the same inputs: the scale
+        # 32^-1/2 magnifies the bf16 rounding of dL against an fp32 reference.
+        checks.float("fused_attention_qkv_backward", tag,
+                     A.fused_attention_qkv_backward(qkv, grad, heads, d ** -0.5),
+                     A.attention_backward_plain(qkv, grad, heads, d ** -0.5, False).float())
+
+
+# The ablation benches (fitclip_torch/bench): each new kernel, the TPU kernel
+# it replaces (the pallas_call of the script's arm) and its source.
+S1_SITE = "scripts/bench_block_layer.py:545"
+BENCH_KERNELS = {
+    **{f"ln_quant_{m}": (S1_SITE, "csrc/ln_quant.cu") for m in ("one", "fold", "cast")},
+    **{f"attention_{m}": (S1_SITE, "csrc/attention.cu")
+       for m in ("div", "fold2", "sm2", "sm2div", "nomax", "cast")},
+    **{f"int8_gemm_{m}": (S1_SITE, "csrc/int8_gemm.cu")
+       for m in ("sigmoid", "bf16", "fold", "fold16", "sigmoid_cast")},
+    # S1s: `full`'s kernels on two CUDA streams (no kernel of its own).
+    "block_layer_skew": ("scripts/bench_block_layer.py:149", "bench/block_layer.py"),
+    **{f"attention_{m}": ("scripts/bench_attn_int8.py:200", "csrc/attention.cu")
+       for m in ("head0", "bf16logits", "nosoftmax")},
+    **{m: ("scripts/bench_attn_int8.py:200", "csrc/bench_arms.cu")
+       for m in ("attn_amax", "attention_i8qk", "attention_i8qkav")},
+    "slice_requant": ("scripts/bench_fit_block.py:159", "csrc/bench_arms.cu"),
+}
+
+
+def bench_kernel_phase(torch, checks: KernelChecks):
+    """Phase 3, the bench kernels at the benches' production shapes: S1's
+    pieces on 512 frames x 197 x 768 (M = 100,864 rows), S2's on 512 x 197 x
+    2304 bf16, slice-requant on S3's 32 x 785 x 2304. Returns {name: timing}."""
+    from fitclip_torch.bench import attn_int8 as S2
+    from fitclip_torch.bench import kernels as P
+    from fitclip_torch.ops import block as K
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    frames, seq, w, heads = S2.FRAMES, S2.SEQ, S2.WIDTH, S2.HEADS
+    m, d = frames * seq, w // heads
+    times = {}
+
+    def rand_int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    # S1's LN prologues on the bf16 layer input.
+    x = torch.randn(m, w, generator=gen, device="cuda").to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(w, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(w, generator=gen, device="cuda")
+    inv = 127.0 / 4.0
+    for mode in ("one", "fold", "cast"):
+        name = f"ln_quant_{mode}"
+        wrapper = getattr(P, name)
+        checks.int8(name, f"{m} x {w} bf16", wrapper(x, gamma, beta, inv),
+                    P.ln_quant_variant_plain(x, gamma, beta, inv, K.LN_EPS, mode))
+        times[name] = timing(
+            cuda_ms(lambda: wrapper(x, gamma, beta, inv)),
+            cuda_ms(lambda: P.ln_quant_variant_plain(x, gamma, beta, inv, K.LN_EPS, mode), iters=5),
+            None, bound(m * w * 2 + m * w + 2 * w * 4, 9 * m * w, "fp32"))
+    del x
+
+    # S1's fc epilogues at (M, 4W, W).
+    a, wf = rand_int8(m, w), rand_int8(4 * w, w)
+    unit = (torch.rand(4 * w, generator=gen, device="cuda") + 0.5) / (73.0 * 73.0 * w ** 0.5)
+    folded = (unit * 20.0, 2.0 * torch.randn(4 * w, generator=gen, device="cuda"),
+              -1.702 * K.LOG2E / (127.0 / 6.0))
+    unfolded = (unit, 0.1 * torch.randn(4 * w, generator=gen, device="cuda"), 127.0 / 6.0)
+    for act in ("sigmoid", "bf16", "fold", "fold16", "sigmoid_cast"):
+        name = f"int8_gemm_{act}"
+        wrapper = getattr(P, name)
+        scale, bias, kv = folded if act in ("fold", "fold16") else unfolded
+        checks.int8(name, f"{m} x {4 * w} x {w}", wrapper(a, wf, scale, bias, kv),
+                    P.int8_gemm_act_plain(a, wf, scale, bias, kv, act=act))
+        times[name] = timing(
+            cuda_ms(lambda: wrapper(a, wf, scale, bias, kv)),
+            cuda_ms(lambda: P.int8_gemm_act_plain(a, wf, scale, bias, kv, act=act), iters=3),
+            cuda_ms(lambda: torch._int_mm(a, wf.t())),
+            bound(m * w + 4 * w * w + 4 * w * 8 + m * 4 * w, 2 * m * 4 * w * w, "int8"))
+    del a, wf
+
+    # S1's attention cores (int8 out) and S2's float modes, on S2's input.
+    qkv = S2.make_qkv(frames)
+    core_ops = 4 * frames * heads * seq * seq * d
+    qkv_bytes = frames * seq * 3 * w * 2
+    out_mul = 127.0 / 2.5
+    for mode in ("div", "fold2", "sm2", "sm2div", "nomax", "cast", "head0", "bf16logits",
+                 "nosoftmax"):
+        name = f"attention_{mode}"
+        wrapper = getattr(P, name)
+        mul = 127.0 / 0.5 if mode == "cast" else out_mul  # cast: att itself in int8's range
+        out = wrapper(qkv, heads, d ** -0.5, False, mul)
+        ref = P.attention_variant_plain(qkv, heads, d ** -0.5, False, mul, None, mode)
+        if out.dtype == torch.int8:
+            checks.int8(name, f"{frames} x {seq} x {3 * w}", out, ref)
+        else:  # the plain version's casts (weights to bf16) on the same inputs
+            checks.float(name, f"{frames} x {seq} x {3 * w}", out, ref.float())
+        del out, ref
+        read = frames * seq * 3 * d * 2 if mode == "head0" else qkv_bytes
+        times[name] = timing(
+            cuda_ms(lambda: wrapper(qkv, heads, d ** -0.5, False, mul), iters=5),
+            cuda_ms(lambda: P.attention_variant_plain(qkv, heads, d ** -0.5, False, mul, None,
+                                                      mode), iters=3), None,
+            bound(read + frames * seq * w * (1 if mode in ("div", "fold2", "sm2", "sm2div",
+                                                           "nomax", "cast") else 2),
+                  core_ops, "bf16"))
+
+    # S2's amax pass and s8 attention.
+    scales = P.attn_amax(qkv, 1)
+    checks.float("attn_amax", f"{frames} x {seq} x {3 * w}", scales, P.attn_amax_plain(qkv, 1))
+    parts = qkv.view(frames, seq, 3, w)
+    times["attn_amax"] = timing(
+        cuda_ms(lambda: P.attn_amax(qkv, 1)), cuda_ms(lambda: P.attn_amax_plain(qkv, 1)),
+        cuda_ms(lambda: torch.linalg.vector_norm(parts, float("inf"), dim=(1, 3))),
+        bound(qkv_bytes + frames * 3 * 4, frames * seq * 3 * w, "fp32"))
+    half = core_ops // 2
+    v_step = float(scales[:, 2].max()) / 127.0
+    for name, av8 in (("attention_i8qk", False), ("attention_i8qkav", True)):
+        wrapper = getattr(P, name)
+        out = wrapper(qkv, scales, heads, d ** -0.5)
+        ref = P.attention_s8_plain(qkv, heads, d ** -0.5, 1, av8).float()
+        if av8:
+            checks.s8(name, f"{frames} x {seq} x {3 * w}", out, ref, v_step)
+        else:
+            checks.float(name, f"{frames} x {seq} x {3 * w}", out, ref)
+        del out, ref
+        times[name] = timing(
+            cuda_ms(lambda: wrapper(qkv, scales, heads, d ** -0.5), iters=5),
+            cuda_ms(lambda: P.attention_s8_plain(qkv, heads, d ** -0.5, 1, av8), iters=3), None,
+            bound(qkv_bytes + frames * 3 * 4 + frames * seq * w * 2,
+                  {"int8": core_ops} if av8 else {"int8": half, "bf16": half}))
+    del qkv, parts
+
+    # slice-requant on S3's joint qkv.
+    clips, n = 32, 785
+    joint = torch.randn(clips, n, 3 * w, generator=gen, device="cuda").to(torch.bfloat16)
+    checks.int8("slice_requant", f"{clips} x {n} x {3 * w}", P.slice_requant(joint, inv),
+                P.slice_requant_plain(joint, inv))
+    times["slice_requant"] = timing(
+        cuda_ms(lambda: P.slice_requant(joint, inv)),
+        cuda_ms(lambda: P.slice_requant_plain(joint, inv)), None,
+        bound(clips * n * w * 3, clips * n * w * 2, "fp32"))
+    return times
+
+
+def bench_phase(torch, checks: KernelChecks, wrappers, steps=(2, 7, 1)):
+    """Phase 10, the port's bench path (fitclip_torch/bench, the entry points
+    of ``python -m fitclip_torch.bench``): (a) every S1, S2 and S3 arm against
+    its plain twin at 32 frames (S3: 8 clips), the two-stream S1s bit for bit
+    against `full`; (b) with the launch counts zeroed, every case of the three
+    ablation benches at its script's production shape, with the kernels'
+    agreement with `full` (cos_vs_full); (c) one encode reading each for int8
+    and bf16 at 128 clips with bench.py's gates. Returns ({path: launches},
+    {"skew": timing}, records)."""
+    from fitclip_torch.bench import attn_int8 as S2
+    from fitclip_torch.bench import block_layer as S1
+    from fitclip_torch.bench import encode
+    from fitclip_torch.bench import fit_block as S3
+    from fitclip_torch.bench import kernels as P
+    from fitclip_torch.bench.kernels import WRAPPERS
+
+    start = time.perf_counter()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(32, S1.SEQ, S1.WIDTH)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    layer = S1.layer_block(S1.make_layer_params(rng))
+    missed = []
+
+    def arm_check(check, *args):  # every arm is checked; the phase fails after
+        try:
+            check(*args)
+        except RuntimeError as error:
+            missed.append(str(error))
+
+    for mode in S1.ARMS:
+        ops = S1.arm_operands(layer, mode)
+        arm_check(checks.float, "bench arms", f"S1 {mode}", S1.run_arm(x.clone(), ops, mode),
+                  S1.run_arm(x, ops, mode, plain=True).float())
+    ops = S1.arm_operands(layer, "full")
+    full = S1.run_arm(x, ops, "full")
+    skew = S1.SkewSchedule()(x, ops)
+    require(torch.equal(skew, full), "S1s (two streams) is not bit-identical to `full`")
+    checks._record("block_layer_skew", 0.0)
+    print("  bench arms S1s: two streams over 8 chunks, bit-identical to `full`")
+    qkv = S2.make_qkv(32)
+    v_step = float(P.attn_amax_plain(qkv, 1)[:, 2].max()) / 127.0
+    for mode in S2.ARMS:
+        out, ref = S2.run_arm(qkv, mode), S2.run_arm(qkv, mode, plain=True).float()
+        if mode == "i8qkav":
+            arm_check(checks.s8, "bench arms", f"S2 {mode}", out, ref, v_step)
+        else:
+            arm_check(checks.float, "bench arms", f"S2 {mode}", out, ref)
+    fit_layer = S3.load_layer()
+    cfg, fit_ops = fit_layer
+    fx = S3.layer_input(cfg, 8)
+    fit_plain = {}
+    for mode in S3.ARMS:
+        fit_plain[mode] = S3.run_arm(fx, fit_ops, mode, cfg.num_heads, cfg.num_frames,
+                                     plain=True).float()
+        arm_check(checks.layer, "bench arms", f"S3 {mode}",
+                  S3.run_arm(fx, fit_ops, mode, cfg.num_heads, cfg.num_frames), fit_plain[mode],
+                  fx)
+    require(not missed, "bench arms against their plain twins: " + "; ".join(missed))
+    # A planted wrong arm: `nocls` (only the CLS row differs) held as `full`
+    # must miss the block rule.
+    try:
+        checks.layer("planted", "bench arms: S3 nocls held as full",
+                     S3.run_arm(fx, fit_ops, "nocls", cfg.num_heads, cfg.num_frames),
+                     fit_plain["full"], fx)
+    except RuntimeError:
+        print("  bench arms: the block rule rejects `nocls` held as `full`")
+    else:
+        require(False, "the block rule does not tell S3's `nocls` from `full`")
+    del x, qkv, fx, full, skew
+    print(f"bench arms against their plain twins: {time.perf_counter() - start:.1f} s")
+
+    counted = {**wrappers, **{w.__name__: w for w in WRAPPERS}, "block_layer_skew": S1.SkewSchedule}
+    for fn in counted.values():
+        fn.launches = 0
+    records = []
+    s1_cases = ",".join(sorted(S1.ARMS) + sorted(S1.RENAMES) + ["b2", "skew"])
+    records += list(S1.run(s1_cases, check=True, steps=steps))
+    records += list(S2.run(",".join(f"core_{m}" for m in S2.MODES), check=True, steps=steps))
+    records += list(S3.run(",".join(list(S3.ARMS) + ["b2", "pad8", "split2"]), check=True,
+                           steps=steps, layer=fit_layer))
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    for dtype in ("int8", "bf16"):
+        records.append(encode.run(dtype, 128, steps=steps))
+    for record in records:
+        print(f"  {json.dumps(record)}")
+
+    # S1s's entry: the layer on two streams at 512 frames, its plain twin, and
+    # the layer's bound (int8 GEMMs and the bf16-equivalent attention core).
+    frames, seq, w, heads = S1.FRAMES, S1.SEQ, S1.WIDTH, S1.HEADS
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(frames, seq, w)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    m = frames * seq
+    skew = timing(next(r["ms"] for r in records if r.get("case") == "skew"),
+                  cuda_ms(lambda: S1.run_arm(x, ops, "full", plain=True), iters=1, warmup=1),
+                  None, bound(m * w * 2 * 2 + 12 * w * w + 20 * w * 4,
+                              {"int8": 2 * m * 12 * w * w,
+                               "bf16": 4 * frames * heads * seq * seq * (w // heads)}))
+    print(f"bench phase: {time.perf_counter() - start:.1f} s")
+    return {"bench": launches}, {"block_layer_skew": skew}, records
 
 
 def token_ids(rows: int, rng: np.random.Generator, context: int = 77, vocab: int = 49408):
@@ -1367,6 +1727,9 @@ def main() -> int:
     times.update(float_layer_kernel_phase(torch, checks))
     times.update(fit_kernel_phase(torch, checks))
     times.update(s3dg_kernel_phase(torch, checks))
+    fault_kernel_phase(torch, checks)
+    times.update(bench_kernel_phase(torch, checks))
+    torch.cuda.empty_cache()
 
     # Phase 4: the slice. Encoding is inference: no autograd graph.
     torch.set_grad_enabled(False)
@@ -1469,13 +1832,20 @@ def main() -> int:
     # Phase 8: the S3D-G family (MIL-NCE, VideoCLIP).
     torch.cuda.empty_cache()
     s3dg_paths, s3dg_times = s3dg_phase(torch, wrappers)
+
+    # Phase 10: the bench path (python -m fitclip_torch.bench's arms and encode).
+    torch.cuda.empty_cache()
+    bench_paths, bench_times, _ = bench_phase(torch, checks, wrappers)
+    times.update(bench_times)
     paths = {"encode": launches, **paths, **fit_paths, **s3dg_paths, **clip_k2_paths,
-             **slip_paths}
+             **slip_paths, **bench_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:
         require(any(counts[name] for counts in paths.values()),
                 f"{name} was launched in no path")
+    for name in BENCH_KERNELS:
+        require(bench_paths["bench"][name] > 0, f"{name} was not launched on the bench path")
 
     fit_attention = ("fused_attention_qkv_gkv", "fused_time_attention",
                      "fit_cls_attention_int8", "fit_time_attention_int8",
@@ -1500,6 +1870,10 @@ def main() -> int:
                "launches": sum(counts[name] for counts in paths.values()),
                "max_abs_err": checks.max_abs_err[name], **times[name]}
               for name in wrappers]
+    record += [{"name": name, "route": "cuda", "source": f"fitclip_torch/{source}",
+                "replaces": site, "launches": bench_paths["bench"][name],
+                "max_abs_err": checks.max_abs_err[name], **times[name]}
+               for name, (site, source) in BENCH_KERNELS.items()]
     for entry in record:
         library = entry["library_ms"]
         print(f"  {entry['name']}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "

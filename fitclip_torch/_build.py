@@ -37,19 +37,20 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, x_dtype, gamma, beta, out, rows, width, inv, eps, stream
-    "fitclip_ln_quant": (_P, _I, _P, _P, _P, _I, _I, _F, _F, _P),
+    # x, x_dtype, gamma, beta, out, rows, width, inv, eps, mode, stream
+    "fitclip_ln_quant": (_P, _I, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # x, x_dtype, gamma, beta, out (bf16), rows, width, eps, stream
     "fitclip_ln_cast": (_P, _I, _P, _P, _P, _I, _I, _F, _P),
-    # a, w, m, n, k, epilogue, scale, bias, residual, res_dtype, out, out_dtype, kv, quick, stream
+    # a, w, m, n, k, epilogue, scale, bias, residual, res_dtype, out, out_dtype, kv, act, stream
     "fitclip_int8_gemm": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _F, _I, _P),
     # a, w, m, n, k, epilogue, bias, residual, res_dtype, out, out_dtype, quick, stream
     "fitclip_bf16_gemm": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P),
     # qkv, dtype, out, mode, batch, seq, heads, head_dim, scale, causal,
-    # seq_valid, out_mul, stream
-    "fitclip_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P),
-    # qkv, grad, dtype, dqkv, stats, batch, seq, heads, head_dim, scale, causal, stream
-    "fitclip_attention_bwd": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # seq_valid, out_mul, v_global, stream
+    "fitclip_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _P),
+    # qkv, grad, dtype, dqkv, stats, batch, seq, heads, head_dim, scale, causal, global,
+    # stream
+    "fitclip_attention_bwd": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # qkv, qkv_clip_stride, gkv, gkv_stride, dtype, out, out_clip_stride, int8_out,
     # groups (space) or clips (time), frames, patches, heads, head_dim, scale, out_mul, stream
     "fitclip_fit_space_attention": (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
@@ -60,6 +61,21 @@ _SIGNATURES = {
     "fitclip_fit_cls_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     # x, packed weights, bias, out, batch, frames, height, width, stream
     "fitclip_s3dg_stem": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # qkv, dtype, out, clips, n, row0, rows, width, inv, stream
+    "fitclip_slice_requant": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _P),
+    # qkv, scales, frames, seq, width, block, stream
+    "fitclip_attn_amax": (_P, _P, _I, _I, _I, _I, _P),
+    # qkv, scales, out, frames, seq, heads, block, scale, av8, stream
+    "fitclip_attention_s8": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+}
+# The size_t shared-memory queries: name -> their int arguments.
+_SMEM_QUERIES = {
+    "fitclip_attention_smem_bytes": 4,      # dtype, seq, head_dim, v_global
+    "fitclip_attention_bwd_smem_bytes": 4,  # dtype, seq, head_dim, global
+    "fitclip_fit_space_smem_bytes": 2,      # dtype, patches
+    "fitclip_fit_cls_smem_bytes": 1,        # seq
+    "fitclip_s3dg_stem_smem_bytes": 1,      # frame width
+    "fitclip_attention_s8_smem_bytes": 2,   # seq, av8
 }
 
 
@@ -122,12 +138,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fitclip_error_string.argtypes = (ctypes.c_int,)
     lib.fitclip_error_string.restype = ctypes.c_char_p
-    for name in ("fitclip_attention_smem_bytes", "fitclip_attention_bwd_smem_bytes",
-                 "fitclip_fit_space_smem_bytes"):
-        getattr(lib, name).argtypes = (ctypes.c_int, ctypes.c_int)
-        getattr(lib, name).restype = ctypes.c_size_t
-    for name in ("fitclip_fit_cls_smem_bytes", "fitclip_s3dg_stem_smem_bytes"):
-        getattr(lib, name).argtypes = (ctypes.c_int,)
+    for name, count in _SMEM_QUERIES.items():
+        getattr(lib, name).argtypes = (ctypes.c_int,) * count
         getattr(lib, name).restype = ctypes.c_size_t
     return lib
 

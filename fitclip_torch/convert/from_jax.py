@@ -75,6 +75,18 @@ def _ln_from_jax(node, name: str, out):
     out[f"{name}.bias"] = _t(np.asarray(node["ln"]["bias"], np.float32))
 
 
+def int8_layer_from_jax(layer) -> Dict[str, torch.Tensor]:
+    """One unstacked layer node of the JAX package (ln_1, attn.in_proj,
+    attn.out_proj, ln_2, mlp_fc, mlp_proj; numpy leaves) -> the state dict of
+    a ``ResidualBlock``."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in _LNS:
+        _ln_from_jax(layer[name], name, out)
+    for path in _DENSES:
+        _dense_from_jax(_get(layer, path), ".".join(path), out)
+    return out
+
+
 def params_from_jax(tree, config: CLIPConfig) -> Dict[str, torch.Tensor]:
     """JAX CLIP tree (float or int8, numpy leaves) -> CLIPModel state dict."""
     out: Dict[str, torch.Tensor] = {}

@@ -1,5 +1,5 @@
 // attention_bwd: the backward of multi-head self-attention over the unsplit
-// (B, L, 3 * H * D) QKV projection output, head_dim D = 64.
+// (B, L, 3 * H * D) QKV projection output, head_dim D = 32 or 64.
 //
 // Replaces fitclip_tpu/ops/attention.py:_packed_bwd_kernel (K3b, reached from
 // _bwd -> _backward_packed). Given qkv and the output's gradient g (B, L, H * D),
@@ -30,13 +30,18 @@
 // reads qkv and g once per tile and never writes the (L, L) intermediates). A
 // tensor-core (mma / wgmma) version is later work. The column reads
 // (lane * pitch + j) use a row pitch chosen so that the 32 lanes hit 32 banks.
+//
+// Where the two transposed operands of one head exceed a block's shared memory
+// (fp32 at L = 577, ViT-L/14@336: 2 x 148 KB), the global variant keeps only
+// the first (K^T in the rows kernel, (q_s)^T in the columns kernel) in shared
+// memory and reads the second (V, g) from device memory through L2, with the
+// same arithmetic in the same order. The wrapper picks it by shape.
 #include "common.cuh"
 
 using namespace fitclip;
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kWarps = 8;
 constexpr int kTile = 64;
 
@@ -52,39 +57,40 @@ int row_pitch(int dtype, int seq) {
   return seq | 1;
 }
 
-// Shared memory of either kernel: two transposed operands (kHeadDim x lp), three
-// per-row statistics (lp fp32 each) and two fp32 row buffers per warp.
+// Shared memory of either kernel: two transposed operands (D x lp; one in the
+// global variant), three per-row statistics (lp fp32 each) and two fp32 row
+// buffers per warp.
 template <typename T>
-size_t smem_bytes(int lp) {
-  return 2 * align16(sizeof(T) * kHeadDim * lp) + sizeof(float) * 3 * lp +
+size_t smem_bytes(int lp, int head_dim, bool global) {
+  return (global ? 1 : 2) * align16(sizeof(T) * head_dim * lp) + sizeof(float) * 3 * lp +
          sizeof(float) * 2 * kWarps * lp;
 }
 
-template <typename T>
+template <typename T, int D>
 __device__ inline void load_scaled(const T* src, float scale_t, float* r) {
 #pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) r[d] = to_float(from_float<T>(mul(to_float(src[d]), scale_t)));
+  for (int d = 0; d < D; ++d) r[d] = to_float(from_float<T>(mul(to_float(src[d]), scale_t)));
 }
 
-template <typename T>
+template <typename T, int D>
 __device__ inline void load_row(const T* src, float* r) {
 #pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) r[d] = to_float(src[d]);
+  for (int d = 0; d < D; ++d) r[d] = to_float(src[d]);
 }
 
-// stats: (3, B, H, L) fp32 -- peak, denominator, inner.
-template <typename T>
+// stats: (3, B, H, L) fp32 -- peak, denominator, inner. G: V from device memory.
+template <typename T, int D, bool G>
 __global__ void __launch_bounds__(kWarps * 32)
 rows_kernel(const T* __restrict__ qkv, const T* __restrict__ grad, T* __restrict__ dqkv,
             float* __restrict__ stats, int seq, int lp, int heads, float scale, int causal,
             size_t stat_plane) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* kt = reinterpret_cast<T*>(smem);
-  T* vt = reinterpret_cast<T*>(smem + align16(sizeof(T) * kHeadDim * lp));
-  float* bufs = reinterpret_cast<float*>(smem + 2 * align16(sizeof(T) * kHeadDim * lp) +
+  T* vt = reinterpret_cast<T*>(smem + align16(sizeof(T) * D * lp));
+  float* bufs = reinterpret_cast<float*>(smem + (G ? 1 : 2) * align16(sizeof(T) * D * lp) +
                                          sizeof(float) * 3 * lp);
 
-  const int width = heads * kHeadDim;
+  const int width = heads * D;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int q1 = min(q0 + kTile, seq);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -95,11 +101,11 @@ rows_kernel(const T* __restrict__ qkv, const T* __restrict__ grad, T* __restrict
 
   // The keys any row of this tile can see.
   const int keys = causal ? q1 : seq;
-  for (int idx = tid; idx < keys * kHeadDim; idx += kWarps * 32) {
-    const int j = idx / kHeadDim, d = idx % kHeadDim;
-    const T* src = base + static_cast<size_t>(j) * 3 * width + h * kHeadDim + d;
+  for (int idx = tid; idx < keys * D; idx += kWarps * 32) {
+    const int j = idx / D, d = idx % D;
+    const T* src = base + static_cast<size_t>(j) * 3 * width + h * D + d;
     kt[d * lp + j] = src[width];
-    vt[d * lp + j] = src[2 * width];
+    if (!G) vt[d * lp + j] = src[2 * width];
   }
   __syncthreads();
 
@@ -108,13 +114,13 @@ rows_kernel(const T* __restrict__ qkv, const T* __restrict__ grad, T* __restrict
   float* e = p + lp;                // dW, then dL
   for (int i = q0 + warp; i < q1; i += kWarps) {
     const int nk = causal ? i + 1 : seq;
-    float r[kHeadDim];
-    load_scaled(base + static_cast<size_t>(i) * 3 * width + h * kHeadDim, scale_t, r);
+    float r[D];
+    load_scaled<T, D>(base + static_cast<size_t>(i) * 3 * width + h * D, scale_t, r);
     float peak = -INFINITY;
     for (int j = lane; j < nk; j += 32) {
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) s = fmaf(r[d], to_float(kt[d * lp + j]), s);
+      for (int d = 0; d < D; ++d) s = fmaf(r[d], to_float(kt[d * lp + j]), s);
       p[j] = s;
       peak = fmaxf(peak, s);
     }
@@ -127,12 +133,13 @@ rows_kernel(const T* __restrict__ qkv, const T* __restrict__ grad, T* __restrict
     }
     denom = warp_sum(denom);
 
-    load_row(gbase + static_cast<size_t>(i) * width + h * kHeadDim, r);
+    load_row<T, D>(gbase + static_cast<size_t>(i) * width + h * D, r);
     float inner = 0.f;
     for (int j = lane; j < nk; j += 32) {
       float dw = 0.f;
+      const T* vrow = base + static_cast<size_t>(j) * 3 * width + 2 * width + h * D;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) dw = fmaf(r[d], to_float(vt[d * lp + j]), dw);
+      for (int d = 0; d < D; ++d) dw = fmaf(r[d], to_float(G ? vrow[d] : vt[d * lp + j]), dw);
       const float w = div(p[j], denom);
       p[j] = w;
       e[j] = dw;
@@ -142,15 +149,17 @@ rows_kernel(const T* __restrict__ qkv, const T* __restrict__ grad, T* __restrict
     for (int j = lane; j < nk; j += 32) e[j] = to_float(from_float<T>(mul(p[j], sub(e[j], inner))));
     __syncwarp();
 
-    float a0 = 0.f, a1 = 0.f;
+    float a[D / 32];
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) a[c] = 0.f;
     for (int j = 0; j < nk; ++j) {
       const float dl = e[j];
-      a0 = fmaf(dl, to_float(kt[lane * lp + j]), a0);
-      a1 = fmaf(dl, to_float(kt[(lane + 32) * lp + j]), a1);
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) a[c] = fmaf(dl, to_float(kt[(lane + 32 * c) * lp + j]), a[c]);
     }
-    T* drow = dbase + static_cast<size_t>(i) * 3 * width + h * kHeadDim;
-    drow[lane] = from_float<T>(mul(a0, scale));
-    drow[lane + 32] = from_float<T>(mul(a1, scale));
+    T* drow = dbase + static_cast<size_t>(i) * 3 * width + h * D;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) drow[lane + 32 * c] = from_float<T>(mul(a[c], scale));
     if (lane == 0) {
       st[i] = peak;
       st[stat_plane + i] = denom;
@@ -160,18 +169,19 @@ rows_kernel(const T* __restrict__ qkv, const T* __restrict__ grad, T* __restrict
   }
 }
 
-template <typename T>
+// G: g from device memory.
+template <typename T, int D, bool G>
 __global__ void __launch_bounds__(kWarps * 32)
 columns_kernel(const T* __restrict__ qkv, const T* __restrict__ grad, T* __restrict__ dqkv,
                const float* __restrict__ stats, int seq, int lp, int heads, float scale,
                int causal, size_t stat_plane) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* qt = reinterpret_cast<T*>(smem);
-  T* gt = reinterpret_cast<T*>(smem + align16(sizeof(T) * kHeadDim * lp));
-  float* st = reinterpret_cast<float*>(smem + 2 * align16(sizeof(T) * kHeadDim * lp));
+  T* gt = reinterpret_cast<T*>(smem + align16(sizeof(T) * D * lp));
+  float* st = reinterpret_cast<float*>(smem + (G ? 1 : 2) * align16(sizeof(T) * D * lp));
   float* bufs = st + 3 * lp;
 
-  const int width = heads * kHeadDim;
+  const int width = heads * D;
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int k1 = min(k0 + kTile, seq);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -183,11 +193,11 @@ columns_kernel(const T* __restrict__ qkv, const T* __restrict__ grad, T* __restr
   // The query rows that see any key of this tile.
   const int r0 = causal ? k0 : 0;
   const float scale_t = to_float(from_float<T>(scale));
-  for (int idx = tid; idx < (seq - r0) * kHeadDim; idx += kWarps * 32) {
-    const int l = r0 + idx / kHeadDim, d = idx % kHeadDim;
-    const T q = base[static_cast<size_t>(l) * 3 * width + h * kHeadDim + d];
+  for (int idx = tid; idx < (seq - r0) * D; idx += kWarps * 32) {
+    const int l = r0 + idx / D, d = idx % D;
+    const T q = base[static_cast<size_t>(l) * 3 * width + h * D + d];
     qt[d * lp + l] = from_float<T>(mul(to_float(q), scale_t));
-    gt[d * lp + l] = gbase[static_cast<size_t>(l) * width + h * kHeadDim + d];
+    if (!G) gt[d * lp + l] = gbase[static_cast<size_t>(l) * width + h * D + d];
   }
   for (int l = r0 + tid; l < seq; l += kWarps * 32) {
     st[l] = gst[l];
@@ -200,39 +210,46 @@ columns_kernel(const T* __restrict__ qkv, const T* __restrict__ grad, T* __restr
   float* e = p + lp;                // dL
   for (int s = k0 + warp; s < k1; s += kWarps) {
     const int l0 = causal ? s : 0;
-    const T* krow = base + static_cast<size_t>(s) * 3 * width + width + h * kHeadDim;
-    float r[kHeadDim];
-    load_row(krow, r);
+    const T* krow = base + static_cast<size_t>(s) * 3 * width + width + h * D;
+    float r[D];
+    load_row<T, D>(krow, r);
     for (int l = l0 + lane; l < seq; l += 32) {
       float x = 0.f;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) x = fmaf(to_float(qt[d * lp + l]), r[d], x);
+      for (int d = 0; d < D; ++d) x = fmaf(to_float(qt[d * lp + l]), r[d], x);
       p[l] = div(expf(sub(x, st[l])), st[lp + l]);
     }
-    load_row(krow + width, r);  // v
+    load_row<T, D>(krow + width, r);  // v
     for (int l = l0 + lane; l < seq; l += 32) {
       float dw = 0.f;
+      const T* grow = gbase + static_cast<size_t>(l) * width + h * D;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) dw = fmaf(to_float(gt[d * lp + l]), r[d], dw);
+      for (int d = 0; d < D; ++d) dw = fmaf(to_float(G ? grow[d] : gt[d * lp + l]), r[d], dw);
       const float w = p[l];
       e[l] = to_float(from_float<T>(mul(w, sub(dw, st[2 * lp + l]))));
       p[l] = to_float(from_float<T>(w));
     }
     __syncwarp();
 
-    float v0 = 0.f, v1 = 0.f, g0 = 0.f, g1 = 0.f;
+    float v[D / 32], g[D / 32];
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) v[c] = g[c] = 0.f;
     for (int l = l0; l < seq; ++l) {
       const float wt = p[l], dl = e[l];
-      v0 = fmaf(wt, to_float(gt[lane * lp + l]), v0);
-      v1 = fmaf(wt, to_float(gt[(lane + 32) * lp + l]), v1);
-      g0 = fmaf(dl, to_float(qt[lane * lp + l]), g0);
-      g1 = fmaf(dl, to_float(qt[(lane + 32) * lp + l]), g1);
+      const T* grow = gbase + static_cast<size_t>(l) * width + h * D;
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) {
+        const int d = lane + 32 * c;
+        v[c] = fmaf(wt, to_float(G ? grow[d] : gt[d * lp + l]), v[c]);
+        g[c] = fmaf(dl, to_float(qt[(lane + 32 * c) * lp + l]), g[c]);
+      }
     }
-    T* drow = dbase + static_cast<size_t>(s) * 3 * width + h * kHeadDim;
-    drow[width + lane] = from_float<T>(g0);
-    drow[width + lane + 32] = from_float<T>(g1);
-    drow[2 * width + lane] = from_float<T>(v0);
-    drow[2 * width + lane + 32] = from_float<T>(v1);
+    T* drow = dbase + static_cast<size_t>(s) * 3 * width + h * D;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) {
+      drow[width + lane + 32 * c] = from_float<T>(g[c]);
+      drow[2 * width + lane + 32 * c] = from_float<T>(v[c]);
+    }
     __syncwarp();  // the next key overwrites p and e
   }
 }
@@ -244,45 +261,70 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T>
+template <typename T, int D, bool G>
 int launch(const void* qkv, const void* grad, void* dqkv, float* stats, int dtype, int batch,
            int seq, int heads, float scale, int causal, cudaStream_t s) {
   const int lp = row_pitch(dtype, seq);
-  const size_t smem = smem_bytes<T>(lp);
-  cudaError_t err = allow_smem(rows_kernel<T>, smem);
-  if (err == cudaSuccess) err = allow_smem(columns_kernel<T>, smem);
+  const size_t smem = smem_bytes<T>(lp, D, G);
+  cudaError_t err = allow_smem(rows_kernel<T, D, G>, smem);
+  if (err == cudaSuccess) err = allow_smem(columns_kernel<T, D, G>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kTile - 1) / kTile, heads, batch);
   const size_t plane = static_cast<size_t>(batch) * heads * seq;
   const T* q = static_cast<const T*>(qkv);
   const T* g = static_cast<const T*>(grad);
   T* d = static_cast<T*>(dqkv);
-  rows_kernel<T><<<grid, kWarps * 32, smem, s>>>(q, g, d, stats, seq, lp, heads, scale, causal, plane);
+  rows_kernel<T, D, G><<<grid, kWarps * 32, smem, s>>>(q, g, d, stats, seq, lp, heads, scale,
+                                                       causal, plane);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  columns_kernel<T><<<grid, kWarps * 32, smem, s>>>(q, g, d, stats, seq, lp, heads, scale, causal,
-                                                    plane);
+  columns_kernel<T, D, G><<<grid, kWarps * 32, smem, s>>>(q, g, d, stats, seq, lp, heads, scale,
+                                                          causal, plane);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool G>
+int launch_head_dim(int head_dim, const void* qkv, const void* grad, void* dqkv, float* stats,
+                    int dtype, int batch, int seq, int heads, float scale, int causal,
+                    cudaStream_t s) {
+  if (head_dim == 64)
+    return launch<T, 64, G>(qkv, grad, dqkv, stats, dtype, batch, seq, heads, scale, causal, s);
+  if (head_dim == 32)
+    return launch<T, 32, G>(qkv, grad, dqkv, stats, dtype, batch, seq, heads, scale, causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_global(int global, int head_dim, const void* qkv, const void* grad, void* dqkv,
+                  float* stats, int dtype, int batch, int seq, int heads, float scale, int causal,
+                  cudaStream_t s) {
+  return global ? launch_head_dim<T, true>(head_dim, qkv, grad, dqkv, stats, dtype, batch, seq,
+                                           heads, scale, causal, s)
+                : launch_head_dim<T, false>(head_dim, qkv, grad, dqkv, stats, dtype, batch, seq,
+                                            heads, scale, causal, s);
 }
 
 }  // namespace
 
-extern "C" size_t fitclip_attention_bwd_smem_bytes(int dtype, int seq) {
+extern "C" size_t fitclip_attention_bwd_smem_bytes(int dtype, int seq, int head_dim, int global) {
   const int lp = row_pitch(dtype, seq);
-  return dtype == kBFloat16 ? smem_bytes<__nv_bfloat16>(lp) : smem_bytes<float>(lp);
+  return dtype == kBFloat16 ? smem_bytes<__nv_bfloat16>(lp, head_dim, global != 0)
+                            : smem_bytes<float>(lp, head_dim, global != 0);
 }
 
 // stats: scratch of 3 * batch * heads * seq fp32 (written by the rows kernel,
-// read by the columns kernel). Two launches on one stream.
+// read by the columns kernel). Two launches on one stream. global: the variant
+// that reads V and g from device memory.
 extern "C" int fitclip_attention_bwd(const void* qkv, const void* grad, int dtype, void* dqkv,
                                      void* stats, int batch, int seq, int heads, int head_dim,
-                                     float scale, int causal, void* stream) {
-  if (head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+                                     float scale, int causal, int global, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(qkv, grad, dqkv, st, dtype, batch, seq, heads, scale, causal, s);
+    return launch_global<__nv_bfloat16>(global, head_dim, qkv, grad, dqkv, st, dtype, batch, seq,
+                                        heads, scale, causal, s);
   if (dtype == kFloat32)
-    return launch<float>(qkv, grad, dqkv, st, dtype, batch, seq, heads, scale, causal, s);
+    return launch_global<float>(global, head_dim, qkv, grad, dqkv, st, dtype, batch, seq, heads,
+                                scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,6 +36,21 @@ __device__ __forceinline__ int8_t quant_rint(float v) {
   return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(v), -127.f), 127.f)));
 }
 
+// v.astype(int8) of XLA: truncation toward zero, saturated to the int8 range.
+__device__ __forceinline__ int8_t trunc_int8(float v) {
+  return static_cast<int8_t>(min(max(__float2int_rz(v), -128), 127));
+}
+
+// The value rounded to bf16 and back: one bf16 arithmetic step.
+__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// The hardware's approximate reciprocal (pl.reciprocal(approx=True) on the TPU).
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+
 // A 16-byte global -> shared copy; valid = false copies 0 source bytes and
 // zero-fills the 16 destination bytes (the ragged edge of a GEMM tile).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {

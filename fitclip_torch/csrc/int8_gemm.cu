@@ -34,27 +34,58 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The folded fc epilogue of block.py:_layer_kernel, with its exact divides.
-template <bool kQuick>
-__device__ __forceinline__ int8_t gelu_quant(float t, float kv) {
-  float g;
-  if (kQuick) {
-    const float e = exp2f(mul(t, kv));
-    g = div(t, add(1.f, e));
-  } else {
-    const float z = mul(t, kv);
-    const float az = fabsf(z);
-    const float u = div(1.f, add(1.f, mul(0.3275911f, az)));
-    const float poly = mul(u, add(0.254829592f, mul(u, add(-0.284496736f, mul(u, add(
-        1.421413741f, mul(u, add(-1.453152027f, mul(u, 1.061405429f)))))))));
-    const float pe = mul(poly, exp2f(mul(mul(-1.4426950408889634f, az), az)));
-    const float erf = z < 0.f ? sub(pe, 1.f) : sub(1.f, pe);
-    g = mul(mul(0.5f, t), add(1.f, erf));
+// The fc epilogues: acc -> int8. kExact and kQuick are the folded epilogues of
+// block.py:_layer_kernel, with its exact divides: t = acc * fs2 + fb2, then the
+// exact GELU (erf argument t * kv) or QuickGELU t / (1 + exp2(t * kv)). The
+// others are the MLP epilogues of the TPU ablation bench
+// scripts/bench_block_layer.py:make_run (S1):
+//   kSigmoid      unfolded: h = acc * fs + fb, h * sigmoid(1.702 h), rint(g * inv_p)
+//                 with kv = inv_p (`full`);
+//   kSigmoidCast  the same g truncated to int8, no inv (`noquant`);
+//   kBf16         dequant, QuickGELU and the inv_p multiply in bf16 arithmetic, one
+//                 rounding per operation, only the round in fp32 (`bf16gelu`);
+//   kFold         kQuick with rcp.approx in place of the divide (`mlpfold`);
+//   kFold16       kQuick in bf16 arithmetic, the round in fp32 (`mlpfold16`).
+enum Act : int { kExact = 0, kQuick = 1, kSigmoid = 2, kBf16 = 3, kFold = 4, kFold16 = 5,
+                 kSigmoidCast = 6 };
+
+template <int kAct>
+__device__ __forceinline__ int8_t gelu_quant(int acc, float scale, float bias, float kv) {
+  if (kAct == kBf16) {
+    const float h = bf16_round(add(bf16_round(mul(bf16_round(__int2float_rn(acc)), bf16_round(scale))),
+                                   bf16_round(bias)));
+    const float z = bf16_round(mul(bf16_round(1.702f), h));
+    const float sg = bf16_round(div(1.f, bf16_round(add(1.f, bf16_round(expf(-z))))));
+    const float g = bf16_round(mul(h, sg));
+    return quant_rint(bf16_round(mul(g, bf16_round(kv))));
   }
-  return quant_rint(g);
+  if (kAct == kFold16) {
+    const float t = bf16_round(add(bf16_round(mul(bf16_round(__int2float_rn(acc)), bf16_round(scale))),
+                                   bf16_round(bias)));
+    const float e = bf16_round(exp2f(bf16_round(mul(t, bf16_round(kv)))));
+    const float r = bf16_round(div(1.f, bf16_round(add(1.f, e))));
+    return quant_rint(bf16_round(mul(t, r)));
+  }
+  const float t = add(mul(__int2float_rn(acc), scale), bias);
+  if (kAct == kSigmoid || kAct == kSigmoidCast) {
+    const float g = mul(t, div(1.f, add(1.f, expf(-mul(1.702f, t)))));
+    return kAct == kSigmoid ? quant_rint(mul(g, kv)) : trunc_int8(g);
+  }
+  if (kAct == kQuick || kAct == kFold) {
+    const float e = exp2f(mul(t, kv));
+    return quant_rint(kAct == kQuick ? div(t, add(1.f, e)) : mul(t, rcp_approx(add(1.f, e))));
+  }
+  const float z = mul(t, kv);
+  const float az = fabsf(z);
+  const float u = div(1.f, add(1.f, mul(0.3275911f, az)));
+  const float poly = mul(u, add(0.254829592f, mul(u, add(-0.284496736f, mul(u, add(
+      1.421413741f, mul(u, add(-1.453152027f, mul(u, 1.061405429f)))))))));
+  const float pe = mul(poly, exp2f(mul(mul(-1.4426950408889634f, az), az)));
+  const float erf = z < 0.f ? sub(pe, 1.f) : sub(1.f, pe);
+  return quant_rint(mul(mul(0.5f, t), add(1.f, erf)));
 }
 
-template <int kEpi, typename ResT, typename OutT, bool kQuick>
+template <int kEpi, typename ResT, typename OutT, int kAct>
 __global__ void __launch_bounds__(kThreads)
 int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w, int m, int n, int k,
                  const float* __restrict__ scale, const float* __restrict__ bias,
@@ -140,23 +171,25 @@ int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w, int
         const int col = n0 + wn + ni * 8 + t * 2 + (r & 1);
         if (row < m && col < n) {
           const size_t o = static_cast<size_t>(row) * n + col;
-          const float y = add(mul(__int2float_rn(acc[mi][ni][r]), scale[col]), bias[col]);
-          if constexpr (kEpi == kBias) {
-            out[o] = from_float<OutT>(y);
-          } else if constexpr (kEpi == kResidual) {
-            out[o] = from_float<OutT>(add(to_float(residual[o]), y));
+          if constexpr (kEpi == kGelu) {
+            out[o] = gelu_quant<kAct>(acc[mi][ni][r], scale[col], bias[col], kv);
           } else {
-            out[o] = gelu_quant<kQuick>(y, kv);
+            const float y = add(mul(__int2float_rn(acc[mi][ni][r]), scale[col]), bias[col]);
+            if constexpr (kEpi == kBias) {
+              out[o] = from_float<OutT>(y);
+            } else {
+              out[o] = from_float<OutT>(add(to_float(residual[o]), y));
+            }
           }
         }
       }
 }
 
-template <int kEpi, typename ResT, typename OutT, bool kQuick>
+template <int kEpi, typename ResT, typename OutT, int kAct = kExact>
 void launch(const void* a, const void* w, int m, int n, int k, const void* scale,
             const void* bias, const void* residual, void* out, float kv, cudaStream_t s) {
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  int8_gemm_kernel<kEpi, ResT, OutT, kQuick><<<grid, kThreads, 0, s>>>(
+  int8_gemm_kernel<kEpi, ResT, OutT, kAct><<<grid, kThreads, 0, s>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(w), m, n, k,
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<const ResT*>(residual), static_cast<OutT*>(out), kv);
@@ -165,29 +198,39 @@ void launch(const void* a, const void* w, int m, int n, int k, const void* scale
 }  // namespace
 
 // epilogue: kBias | kResidual | kGelu. res_dtype and out_dtype are DType codes
-// (out_dtype is ignored by kGelu, which writes int8).
+// (out_dtype is ignored by kGelu, which writes int8). act: kGelu's Act.
 extern "C" int fitclip_int8_gemm(const void* a, const void* w, int m, int n, int k, int epilogue,
                                  const void* scale, const void* bias, const void* residual,
-                                 int res_dtype, void* out, int out_dtype, float kv,
-                                 int quick_gelu, void* stream) {
+                                 int res_dtype, void* out, int out_dtype, float kv, int act,
+                                 void* stream) {
   using bf16 = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epilogue == kBias && out_dtype == kBFloat16) {
-    launch<kBias, float, bf16, false>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
+    launch<kBias, float, bf16>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
   } else if (epilogue == kBias && out_dtype == kFloat32) {
-    launch<kBias, float, float, false>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
+    launch<kBias, float, float>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
   } else if (epilogue == kResidual && res_dtype == kBFloat16 && out_dtype == kFloat32) {
-    launch<kResidual, bf16, float, false>(a, w, m, n, k, scale, bias, residual, out, kv, s);
+    launch<kResidual, bf16, float>(a, w, m, n, k, scale, bias, residual, out, kv, s);
   } else if (epilogue == kResidual && res_dtype == kFloat32 && out_dtype == kBFloat16) {
-    launch<kResidual, float, bf16, false>(a, w, m, n, k, scale, bias, residual, out, kv, s);
+    launch<kResidual, float, bf16>(a, w, m, n, k, scale, bias, residual, out, kv, s);
   } else if (epilogue == kResidual && res_dtype == kFloat32 && out_dtype == kFloat32) {
-    launch<kResidual, float, float, false>(a, w, m, n, k, scale, bias, residual, out, kv, s);
+    launch<kResidual, float, float>(a, w, m, n, k, scale, bias, residual, out, kv, s);
   } else if (epilogue == kResidual && res_dtype == kBFloat16 && out_dtype == kBFloat16) {
-    launch<kResidual, bf16, bf16, false>(a, w, m, n, k, scale, bias, residual, out, kv, s);
-  } else if (epilogue == kGelu && quick_gelu) {
-    launch<kGelu, float, int8_t, true>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
+    launch<kResidual, bf16, bf16>(a, w, m, n, k, scale, bias, residual, out, kv, s);
   } else if (epilogue == kGelu) {
-    launch<kGelu, float, int8_t, false>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
+    switch (act) {
+#define FITCLIP_ACT(A) \
+  case A: launch<kGelu, float, int8_t, A>(a, w, m, n, k, scale, bias, nullptr, out, kv, s); break;
+      FITCLIP_ACT(kExact)
+      FITCLIP_ACT(kQuick)
+      FITCLIP_ACT(kSigmoid)
+      FITCLIP_ACT(kBf16)
+      FITCLIP_ACT(kFold)
+      FITCLIP_ACT(kFold16)
+      FITCLIP_ACT(kSigmoidCast)
+#undef FITCLIP_ACT
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from fitclip_torch.ops.attention import fused_attention_qkv, fused_int8_qkv_attention
 from fitclip_torch.ops.block import prepare_bf16_layer, prepare_int8_layer
 from fitclip_torch.ops.quant import QUANT_EPS, int8_dense, int8_dense_static, quantize_rint
+from fitclip_torch.utils.precision import fp32_convolutions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,7 +338,8 @@ class VisionTransformer(nn.Module):
     def patch_tokens(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, g*g, width) patch embeddings without the bias."""
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.conv2d(x, self.patch_embed.weight.to(self.dtype), stride=self.config.patch_size)
+        with fp32_convolutions():  # the reference's Precision.HIGHEST
+            x = F.conv2d(x, self.patch_embed.weight.to(self.dtype), stride=self.config.patch_size)
         return x.flatten(2).transpose(1, 2)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from torch import nn
 from fitclip_torch.models.clip.model import LayerNormFp32, _dense
 from fitclip_torch.ops.attention import fused_attention_qkv_gkv, fused_time_attention
 from fitclip_torch.ops.fit_block import FIT_LN_EPS, prepare_fit_int8_layer
+from fitclip_torch.utils.precision import fp32_convolutions
 
 
 class LayerNormTorch(LayerNormFp32):
@@ -171,7 +172,8 @@ class SpaceTimeTransformer(nn.Module):
     def patch_tokens(self, frames: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) -> (N, P, embed_dim) patch embeddings without the bias."""
         x = frames.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.conv2d(x, self.patch_embed.weight.to(self.dtype), stride=self.patch_size)
+        with fp32_convolutions():  # the reference's Precision.HIGHEST
+            x = F.conv2d(x, self.patch_embed.weight.to(self.dtype), stride=self.patch_size)
         return x.flatten(2).transpose(1, 2)
 
     def positions(self) -> torch.Tensor:

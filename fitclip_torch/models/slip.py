@@ -32,7 +32,6 @@ from fitclip_torch.models.clip.load import _DTYPES, LoadedEncoder, resolve_devic
 from fitclip_torch.models.clip.model import (Dense, LayerNormFp32, TextConfig, Transformer,
                                              _truncated_normal)
 from fitclip_torch.models import slip_fast
-from fitclip_torch.ops.attention import HEAD_DIM
 from fitclip_torch.ops.quant import (apply_act_scales, dynamic_observing, observed_act_amax,
                                      quantize_clip_params)
 
@@ -381,11 +380,6 @@ def load_slip_encoder(checkpoint_path: Optional[str] = None, model: str = "SLIP_
                                    dtype=_DTYPES["bfloat16" if quantized else str(dtype)],
                                    fused_attention=fused_attention, quantized=quantized,
                                    fused_block=fused_block, device="cpu")
-    head_dim = config.vision_width // config.vision_heads
-    if device.type == "cuda" and (encoder.fused_attention or encoder.fused_block) \
-            and head_dim != HEAD_DIM:
-        raise ValueError(f"SLIP {variant}'s vision head_dim is {head_dim}; the attention "
-                         f"kernels take head_dim {HEAD_DIM}")
     if state_dict is not None:
         tree = slip_tree_from_torch(state_dict, config)
     else:

@@ -11,8 +11,10 @@ Three Hopper kernels serve the CLIP wrappers, and K8 is composed of two:
   weights are exps / denom, the output is in qkv's dtype. Its backward,
   ``fused_attention_qkv_backward`` (``csrc/attention_bwd.cu``), replaces
   ``attention.py:_packed_bwd_kernel``: it recomputes the softmax from the saved
-  qkv, as ``_fwd`` saves only qkv. Every L the card's shared memory holds is
-  served; there is no size-dependent fall back to the plain version.
+  qkv, as ``_fwd`` saves only qkv. Where the fp32 K and V of one head exceed a
+  block's shared memory (L = 577, ViT-L/14@336), both read their second operand
+  through L2 (the v_global variant of ``attention.cu``, the global variant of
+  ``attention_bwd.cu``), each picked by shape.
 - ``attention_int8``: replaces the attention core of ``block.py:_layer_kernel``
   (K1). The out-projection's requant multiplier rides the softmax normalizer
   (weights = exps * (out_mul / denom)), and the fp32 output is rounded and
@@ -25,10 +27,14 @@ Three Hopper kernels serve the CLIP wrappers, and K8 is composed of two:
   the attention kernel. On Hopper the (B, L, 3W) qkv makes one round trip
   through device memory between the two launches.
 
-On the H100 the kernels are bound by latency and shared-memory bandwidth: at
-L <= 577 one head's two (L, 64) operands fit in shared memory, so a block reads
-them once for 64 rows and the (L, L) logits never reach device memory. See the
-sources for the layouts.
+On the H100 the kernels are bound by latency and shared-memory bandwidth: one
+head's two (L, D) operands sit in shared memory (K alone for fp32 past L = 427),
+so a block reads them once for 64 rows and the (L, L) logits never reach device
+memory. See the sources for the layouts. head_dim is 32 or 64 (ViT-S/16's and
+every other preset's); the FiT kernels take 64, FiT base's.
+
+K5 and K6 are forward only, as in the reference ("Forward only (inference
+paths)"): on CUDA they raise when autograd would need their gradient.
 
 Each wrapper takes its plain version (``attention_core_plain``,
 ``attention_backward_plain``) for a tensor on the CPU only; for a CUDA tensor it
@@ -49,7 +55,8 @@ from fitclip_torch.ops.quant import quantize_rint
 
 _QKV, _INT8, _BLOCK = 0, 1, 2  # csrc/attention.cu modes
 
-HEAD_DIM = 64  # the kernels' head_dim: every CLIP preset's and FiT base's
+HEAD_DIMS = (32, 64)  # attention.cu and attention_bwd.cu: ViT-S/16's and every other preset's
+HEAD_DIM = 64  # fit_attention.cu's: FiT base's
 SMEM_LIMIT = 232448  # shared memory a block can use on an H100
 MAX_FRAMES = 16  # the time kernel keeps each location's frames in registers
 
@@ -98,7 +105,10 @@ def _launch(qkv, heads, scale, causal, seq_valid, out, mode, out_mul):
     batch, seq, _ = qkv.shape
     head_dim = _check_head_dim(qkv, heads)
     code = _build.dtype_code(qkv.dtype)
-    smem = _build.library().fitclip_attention_smem_bytes(code, seq)
+    smem_bytes = _build.library().fitclip_attention_smem_bytes
+    # K and V in shared memory where they fit, else K alone with V read through L2.
+    v_global = int(smem_bytes(code, seq, head_dim, 0) > SMEM_LIMIT)
+    smem = smem_bytes(code, seq, head_dim, v_global)
     if smem > SMEM_LIMIT:
         raise ValueError(f"sequence length {seq} needs {smem} bytes of shared memory "
                          f"per block; an H100 block has {SMEM_LIMIT}")
@@ -107,7 +117,7 @@ def _launch(qkv, heads, scale, causal, seq_valid, out, mode, out_mul):
         raise ValueError(f"seq_valid must be >= 1, got {seq_valid}")
     _build.call("fitclip_attention", qkv.data_ptr(), code, out.data_ptr(), mode,
                 batch, seq, heads, head_dim, float(scale), int(causal), valid,
-                float(out_mul))
+                float(out_mul), v_global)
 
 
 def attention_backward_plain(qkv: torch.Tensor, grad_out: torch.Tensor, heads: int,
@@ -151,13 +161,21 @@ def attention_backward_plain(qkv: torch.Tensor, grad_out: torch.Tensor, heads: i
     return torch.cat([merge(d_q), merge(d_k), merge(d_v)], dim=-1).to(qkv.dtype)
 
 
-def _check_head_dim(qkv, heads):
+def _check_head_dim(qkv, heads, head_dims=HEAD_DIMS):
     batch, seq, triple = qkv.shape
     head_dim = triple // 3 // heads
-    if head_dim != HEAD_DIM or triple != 3 * heads * head_dim:
-        raise ValueError(f"the attention kernels take head_dim {HEAD_DIM}; "
+    if head_dim not in head_dims or triple != 3 * heads * head_dim:
+        raise ValueError(f"the attention kernels take head_dim {' or '.join(map(str, head_dims))}; "
                          f"got (B, L, 3*H*D) = {tuple(qkv.shape)} with {heads} heads")
     return head_dim
+
+
+def backward_smem_bytes(qkv: torch.Tensor, heads: int, global_operand: bool = False) -> int:
+    """Shared memory per block of the backward kernel at qkv's shape (of its
+    global variant with global_operand)."""
+    head_dim = _check_head_dim(qkv, heads)
+    return _build.library().fitclip_attention_bwd_smem_bytes(
+        _build.dtype_code(qkv.dtype), qkv.shape[1], head_dim, int(global_operand))
 
 
 @torch.library.custom_op("fitclip::fused_attention_qkv", mutates_args=())
@@ -186,7 +204,10 @@ def fused_attention_qkv_backward(qkv: torch.Tensor, grad_out: torch.Tensor, head
                          f"{tuple(grad_out.shape)}")
     head_dim = _check_head_dim(qkv, heads)
     code = _build.dtype_code(qkv.dtype)
-    smem = _build.library().fitclip_attention_bwd_smem_bytes(code, seq)
+    # Both transposed operands (K^T and V^T; (q_s)^T and g^T) in shared memory where
+    # they fit, else the first alone with the second read through L2.
+    global_operand = backward_smem_bytes(qkv, heads) > SMEM_LIMIT
+    smem = backward_smem_bytes(qkv, heads, global_operand)
     if smem > SMEM_LIMIT:
         raise ValueError(f"the attention backward at sequence length {seq} in {qkv.dtype} "
                          f"needs {smem} bytes of shared memory per block; an H100 block "
@@ -195,7 +216,7 @@ def fused_attention_qkv_backward(qkv: torch.Tensor, grad_out: torch.Tensor, head
     stats = torch.empty(3, batch, heads, seq, dtype=torch.float32, device=qkv.device)
     _build.call("fitclip_attention_bwd", qkv.data_ptr(), grad_out.data_ptr(), code,
                 dqkv.data_ptr(), stats.data_ptr(), batch, seq, heads, head_dim, float(scale),
-                int(causal))
+                int(causal), int(global_operand))
     fused_attention_qkv_backward.launches += 1
     return dqkv
 
@@ -391,7 +412,7 @@ def cls_attention_plain(qkv: torch.Tensor, heads: int, scale: float,
 
 def _fit_check(qkv, heads, frames=1):
     _build.check_cuda_operand("qkv", qkv, ndim=3)
-    _check_head_dim(qkv, heads)
+    _check_head_dim(qkv, heads, (HEAD_DIM,))
     if not 1 <= frames <= MAX_FRAMES:
         raise ValueError(f"the time kernel takes 1 to {MAX_FRAMES} frames, got {frames}")
 
@@ -416,6 +437,13 @@ def _check_space_smem(qkv, patches):
                          f"block; an H100 block has {SMEM_LIMIT}")
 
 
+def _refuse_gradient(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward only, as in the reference (its kernel has no "
+                           "backward): call it under torch.no_grad(), or train through the "
+                           "module path with fused_attention=False")
+
+
 def _check_gkv(gkv, qkv):
     _build.check_cuda_operand("gkv", gkv, qkv.dtype, 2)
     if gkv.shape != (qkv.shape[0], qkv.shape[2]):
@@ -430,6 +458,7 @@ def fused_attention_qkv_gkv(qkv: torch.Tensor, gkv: torch.Tensor, heads: int,
     (``_packed_gkv_kernel``). Forward only."""
     if qkv.device.type == "cpu":
         return attention_gkv_plain(qkv, gkv, heads, scale)
+    _refuse_gradient("fused_attention_qkv_gkv (K5)", qkv, gkv)
     _fit_check(qkv, heads)
     _check_gkv(gkv, qkv)
     groups, seq, triple = qkv.shape
@@ -452,6 +481,7 @@ def fused_time_attention(qkv: torch.Tensor, gkv: torch.Tensor, heads: int, frame
     (``_time_attention_kernel``). Forward only."""
     if qkv.device.type == "cpu":
         return time_attention_plain(qkv, gkv, heads, frames, scale)
+    _refuse_gradient("fused_time_attention (K6)", qkv, gkv)
     _fit_check(qkv, heads, frames)
     _check_gkv(gkv, qkv)
     batch, n, triple = qkv.shape

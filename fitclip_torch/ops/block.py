@@ -75,6 +75,14 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, inv: flo
     Replaces the _ln + _quant prologues of block.py:_layer_kernel."""
     if x.device.type == "cpu":
         return ln_quant_plain(x, weight, bias, inv, eps)
+    out = ln_quant_launch(x, weight, bias, inv, eps, 0)
+    ln_quant.launches += 1
+    return out
+
+
+def ln_quant_launch(x, weight, bias, inv, eps, mode: int) -> torch.Tensor:
+    """One launch of csrc/ln_quant.cu's int8 kernel in ``mode`` (0: the
+    shipped two-pass LN; 1-3: the modes of fitclip_torch/bench)."""
     rows, width = x.shape
     _build.check_cuda_operand("x", x, ndim=2)
     for name, t in (("weight", weight), ("bias", bias)):
@@ -82,8 +90,7 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, inv: flo
     out = torch.empty(rows, width, dtype=torch.int8, device=x.device)
     _build.call("fitclip_ln_quant", x.data_ptr(), _build.dtype_code(x.dtype),
                 weight.data_ptr(), bias.data_ptr(), out.data_ptr(), rows, width,
-                float(inv), float(eps))
-    ln_quant.launches += 1
+                float(inv), float(eps), int(mode))
     return out
 
 
@@ -116,7 +123,9 @@ def int8_gemm_gelu_plain(a, w, fs2, fb2, kv: float, quick_gelu: bool):
     return quantize_rint(g)
 
 
-def _gemm(a, w, scale, bias, epilogue, out, residual=None, kv=0.0, quick_gelu=False):
+def _gemm(a, w, scale, bias, epilogue, out, residual=None, kv=0.0, act=0):
+    """One launch of csrc/int8_gemm.cu; act is the fc epilogue's Act code
+    (0: exact GELU, 1: QuickGELU; 2-6: the epilogues of fitclip_torch/bench)."""
     _build.check_cuda_operand("a", a, torch.int8, 2)
     _build.check_cuda_operand("w", w, torch.int8, 2)
     for name, t in (("scale", scale), ("bias", bias)):
@@ -136,7 +145,7 @@ def _gemm(a, w, scale, bias, epilogue, out, residual=None, kv=0.0, quick_gelu=Fa
     out_code = 0 if out.dtype == torch.int8 else _build.dtype_code(out.dtype)
     _build.call("fitclip_int8_gemm", a.data_ptr(), w.data_ptr(), m, n, k, epilogue,
                 scale.data_ptr(), bias.data_ptr(), res_ptr, res_code, out.data_ptr(),
-                out_code, float(kv), int(quick_gelu))
+                out_code, float(kv), int(act))
 
 
 def int8_gemm_bias(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -174,7 +183,7 @@ def int8_gemm_gelu(a: torch.Tensor, w: torch.Tensor, fs2: torch.Tensor,
     if a.device.type == "cpu":
         return int8_gemm_gelu_plain(a, w, fs2, fb2, kv, quick_gelu)
     out = torch.empty(a.shape[0], w.shape[0], dtype=torch.int8, device=a.device)
-    _gemm(a, w, fs2, fb2, _GELU, out, kv=kv, quick_gelu=quick_gelu)
+    _gemm(a, w, fs2, fb2, _GELU, out, kv=kv, act=int(quick_gelu))
     int8_gemm_gelu.launches += 1
     return out
 
@@ -256,21 +265,30 @@ _PLAIN = _Steps(ln_quant_plain, int8_gemm_bias_plain, attention_int8_plain,
                 int8_gemm_residual_plain, int8_gemm_gelu_plain)
 
 
-def _layer(x, ops: Int8LayerOperands, heads, causal, ln_eps, seq_valid, steps: _Steps):
-    batch, seq, width = x.shape
-    x2 = x.reshape(batch * seq, width)
-    # --- attention half ---
+def attention_half(x2, ops: Int8LayerOperands, batch, seq, heads, causal, ln_eps, seq_valid,
+                   steps: _Steps) -> torch.Tensor:
+    """x2 (B * L, W) -> the fp32 mid-layer residual x2 + proj(attention(LN1(x2)))."""
+    width = x2.shape[1]
     h1 = steps.ln_quant(x2, ops.ln1_weight, ops.ln1_bias, ops.inv_q, ln_eps)
-    qkv = steps.gemm_bias(h1, ops.wq, ops.qs, ops.qb, x.dtype)
+    qkv = steps.gemm_bias(h1, ops.wq, ops.qs, ops.qb, x2.dtype)
     att = steps.attention(qkv.view(batch, seq, 3 * width), heads, (width // heads) ** -0.5,
                           causal, ops.inv_o, seq_valid)
-    x32 = steps.gemm_residual(att.view(batch * seq, width), ops.wo, ops.os, ops.ob, x2,
-                              torch.float32)
-    # --- MLP half ---
+    return steps.gemm_residual(att.view(batch * seq, width), ops.wo, ops.os, ops.ob, x2,
+                               torch.float32)
+
+
+def mlp_half(x32, ops: Int8LayerOperands, ln_eps, steps: _Steps, out_dtype) -> torch.Tensor:
+    """The fp32 residual x32 (B * L, W) -> x32 + MLP(LN2(x32)) in out_dtype."""
     h2 = steps.ln_quant(x32, ops.ln2_weight, ops.ln2_bias, ops.inv_f, ln_eps)
     h = steps.gemm_gelu(h2, ops.wf, ops.fs2, ops.fb2, ops.kv, ops.quick_gelu)
-    y = steps.gemm_residual(h, ops.wp, ops.ps, ops.pb, x32, x.dtype)
-    return y.view(batch, seq, width)
+    return steps.gemm_residual(h, ops.wp, ops.ps, ops.pb, x32, out_dtype)
+
+
+def _layer(x, ops: Int8LayerOperands, heads, causal, ln_eps, seq_valid, steps: _Steps):
+    batch, seq, width = x.shape
+    x32 = attention_half(x.reshape(batch * seq, width), ops, batch, seq, heads, causal, ln_eps,
+                         seq_valid, steps)
+    return mlp_half(x32, ops, ln_eps, steps, x.dtype).view(batch, seq, width)
 
 
 def fused_int8_layer(x: torch.Tensor, ops: Int8LayerOperands, heads: int,

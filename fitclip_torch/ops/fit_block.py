@@ -137,7 +137,10 @@ _PLAIN = _Steps(ln_quant_plain, int8_gemm_bias_plain, fit_attention_int8_plain,
                 int8_gemm_residual_plain, int8_gemm_gelu_plain)
 
 
-def _layer(x, ops: FitLayerOperands, heads: int, frames: int, steps: _Steps):
+def attention_halves(x, ops: FitLayerOperands, heads: int, frames: int,
+                     steps: _Steps) -> torch.Tensor:
+    """x (B, N, W) -> the fp32 residual s (B * N, W) after the time and space
+    halves."""
     batch, n, width = x.shape
     x2 = x.reshape(batch * n, width)
 
@@ -149,8 +152,13 @@ def _layer(x, ops: FitLayerOperands, heads: int, frames: int, steps: _Steps):
 
     t32 = attention_half(x2, ops.ln3_weight, ops.ln3_bias, ops.inv_tq, ops.wtq, ops.tqs,
                          ops.tqb, "time", ops.inv_tp, ops.wtp, ops.tps, ops.tpb)
-    s32 = attention_half(t32, ops.ln1_weight, ops.ln1_bias, ops.inv_sq, ops.wsq, ops.sqs,
-                         ops.sqb, "space", ops.inv_sp, ops.wsp, ops.sps, ops.spb)
+    return attention_half(t32, ops.ln1_weight, ops.ln1_bias, ops.inv_sq, ops.wsq, ops.sqs,
+                          ops.sqb, "space", ops.inv_sp, ops.wsp, ops.sps, ops.spb)
+
+
+def _layer(x, ops: FitLayerOperands, heads: int, frames: int, steps: _Steps):
+    batch, n, width = x.shape
+    s32 = attention_halves(x, ops, heads, frames, steps)
     h2 = steps.ln_quant(s32, ops.ln2_weight, ops.ln2_bias, ops.inv_f, FIT_LN_EPS)
     h = steps.gemm_gelu(h2, ops.wf, ops.fs2, ops.fb2, ops.kv, False)
     return steps.gemm_residual(h, ops.wp, ops.ps, ops.pb, s32, x.dtype).view(batch, n, width)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from fitclip_torch import _build
+from fitclip_torch.utils.precision import fp32_convolutions
 
 BN_EPS = 1e-5
 STEM_CHANNELS = 64
@@ -67,12 +68,8 @@ def s3dg_stem_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -
     s = space_to_depth(x.float()).permute(0, 4, 1, 2, 3)          # NCDHW view
     weight = kernel.to(x.dtype).float().permute(4, 3, 0, 1, 2)  # (64, 24, 2, 4, 4)
     bias = bias.to(x.dtype)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with fp32_convolutions():
         y = F.conv3d(s, weight, padding=(1, 2, 2))[:, :, 1:, 1:, 1:]
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     y = torch.relu(y + bias.float()[:, None, None, None])
     y = F.max_pool3d(F.pad(y, (0, 1, 0, 1)), (1, 3, 3), (1, 2, 2))  # 'SAME' pad, 0 after ReLU
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()

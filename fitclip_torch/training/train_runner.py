@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from fitclip_torch.evaluation.retrieval import RetrievalEvaluator
+from fitclip_torch.models.frozen_in_time.encoder import FrozenInTimeVideoTextEncoder
 from fitclip_torch.training.checkpointing import load_trainer_state, restore_checkpoint
 from fitclip_torch.training.state import init_train_state, make_optimizer
 from fitclip_torch.training.steps import (make_contrastive_train_step,
@@ -111,6 +112,15 @@ def _refuse_untrainable(slot_name: str, enc) -> None:
             f"the {slot_name} slot holds {type(enc).__name__} built with fused_block (the "
             "inference layer kernels, which have no gradient path); rebuild it with "
             "fused_block=False to train")
+    # Off the CPU the attention wrappers launch their kernels (a CPU tensor
+    # alone takes the plain, differentiable version).
+    off_cpu = any(p.device.type != "cpu" for p in enc.parameters())
+    if isinstance(enc, FrozenInTimeVideoTextEncoder) and enc.fused_attention and off_cpu:
+        raise ValueError(
+            f"the {slot_name} slot holds {type(enc).__name__} with fused_attention on CUDA: "
+            "its divided attention runs K5 and K6, which are forward only (no gradient "
+            "reaches the attention's parameters); rebuild it with fused_attention=False "
+            "to train")
 
 
 def run_train(encoder_slot, data_module, model_cfg: Mapping[str, Any],

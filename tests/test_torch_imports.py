@@ -30,7 +30,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "triton"))
 assert not leaked, leaked
 assert not any(m.startswith("fitclip_tpu") for m in sys.modules)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -43,8 +43,13 @@ def _run(args, cwd, timeout=120):
 def test_every_module_imports_without_jax():
     proc = _run(["-c", _BLOCKED_IMPORT], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    # Every module of the package was imported, the training path's included.
-    assert int(proc.stdout.strip()) >= 39
+    names = proc.stdout.split()
+    # Every module of the package was imported, the training path's and the
+    # benches' included.
+    assert len(names) >= 39
+    bench = {f"fitclip_torch.bench.{m}" for m in ("__main__", "kernels", "encode", "block_layer",
+                                                   "attn_int8", "fit_block")}
+    assert bench <= set(names) and "fitclip_torch.utils.benchmarking" in names
 
 
 def _last_line_is_ok(stdout: str) -> bool:
