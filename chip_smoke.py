@@ -25,15 +25,17 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    (768, 3072), its attention also at 8 x 77 causal; K8 at 32 x 197 x 768;
    the repaired shapes: fp32 attention at L = 577 (forward and backward on
    their global variants, V and g read through L2) and every attention mode and the backward at head_dim 32 (ViT-S/16, 32 x
-   197 x 384, 6 heads); the bench kernels at the benches' production shapes:
+   197 x 384, 6 heads); bf16 attention past 208 keys on the mma sweep (8 x
+   257 and 4 x 577, 16 heads, full and causal with seq_valid, every shipped
+   mode); the bench kernels at the benches' production shapes:
    S1's LN, attention and fc-epilogue modes on 512 frames x 197 x 768, S2's
    modes, amax pass and s8 attention on 512 x 197 x 2304, slice-requant on 32 x
    785 x 2304).
    int8 outputs may differ by one step on at most 0.1% of
    the elements; float outputs stay within atol/rtol 2e-2 of the plain version
    run in fp32, the stem's within one bf16 ulp on all but 0.1%; two launches of
-   the attention backward, of each FiT kernel and of the stem give the same
-   bits. Each timed kernel gets
+   each shipped attention mode, of the attention backward, of each FiT kernel
+   and of the stem give the same bits. Each timed kernel gets
    its plain time, its bound (bytes over 3.35 TB/s or operations over the
    peak of their type) and, where one PyTorch call computes the same function
    (scaled_dot_product_attention; torch._int_mm for the int8 GEMMs' product
@@ -45,7 +47,12 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    attention kernel and K1's kernels on 12 layers of each tower. Gates: the
    kernel path against the plain path on the card, and int8 against the bf16
    float model, both towers, min-row cosine > 0.999; finite text x video scores;
-5. timings (CUDA events, after warm-up): the CLIP slice's clips/s at 32 clips;
+5. timings (CUDA events, after warm-up): the CLIP slice's clips/s at 32 clips,
+   and profiler tables of the int8 and bf16 (module path) encodes. This
+   profile and those of phases 7 and 9 require the tensor-core attention
+   bodies (attention_mma_kernel, space_mma_kernel) by kernel name, and no
+   CUDA-core attention body (attention_kernel_f32, space_kernel_f32): every
+   bf16 attention runs on the tensor cores;
 6. training: bf16 compute, fp32 master weights, fused attention, fused AdamW,
    synthetic uint8 video and token ids from a seed, through ``run_train``:
    (a) contrastive, 32 clips x 4 frames, config/trainer.yaml's optimizer and
@@ -68,8 +75,8 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    block. Gates, min-row cosine over the video embeddings: (i) each kernel
    path against the same model through the plain versions on the card, (ii)
    int8 against bf16, both > 0.999; finite text embeddings. Timings: int8 and
-   bf16 clips/s, text rows/s, peak memory, and a torch.profiler breakdown of
-   the int8 encode by kernel with the device's busy share;
+   bf16 clips/s, text rows/s, peak memory, and torch.profiler breakdowns of
+   the int8 and bf16 encodes by kernel with the device's busy share;
 8. the S3D-G family, from seed 0 with device="cuda": MIL-NCE (Miech et al.,
    CVPR 2020: S3D-G on 16 frames of 224^2, 512-d, word-embedding text tower)
    bf16 and int8 (calibrated on 8 clips), 32 clips and 256 rows x 20 ids;
@@ -114,8 +121,9 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
     must show launches there.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
-The last two lines are the kernels' JSON record and the card line from
-nvidia-smi before the final {"ok": true, "device": {...}} line.
+The last two lines are the kernels' JSON record (the attention rows also
+name their __global__ body under "kernel") and the card line from nvidia-smi
+before the final {"ok": true, "device": {...}} line.
 """
 
 import contextlib
@@ -440,6 +448,15 @@ def kernel_phase(torch, checks: KernelChecks):
         checks.float("fused_attention_qkv", f"{tag} {'causal' if causal else 'full'}",
                      A.fused_attention_qkv(qkv, heads, scale_q, causal),
                      A.attention_core_plain(qkv.float(), heads, scale_q, causal))
+        for name, fn in (("attention_int8", lambda: A.attention_int8(qkv, heads, scale_q, causal,
+                                                                     out_mul, valids[-1])),
+                         ("fused_attention_qkv", lambda: A.fused_attention_qkv(qkv, heads, scale_q,
+                                                                               causal)),
+                         ("attention_block", lambda: A.attention_block(qkv, heads, scale_q,
+                                                                       causal))):
+            require(torch.equal(fn(), fn()), f"{name} {tag}: two launches differ")
+        print(f"  attention_int8, fused_attention_qkv, attention_block {tag}: two launches "
+              f"bit-identical")
         if timed:
             ops = 4 * b * heads * seq * seq * (w // heads)
             times["attention_int8"] = timing(
@@ -745,6 +762,25 @@ def fault_kernel_phase(torch, checks: KernelChecks):
     print(f"  fused_attention_qkv_backward {what}, global variant: {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms")
 
+    # bf16 past 208 keys: the mma sweep (ViT-L/14's 257, ViT-L/14@336's 577), also
+    # causal with seq_valid, under the float and int8 rules.
+    for b, seq in ((8, 257), (4, 577)):
+        qkv = (1.5 * torch.randn(b, seq, 3 * 16 * 64, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+        for causal, valid in ((False, None), (True, seq - 57)):
+            tag = (f"bf16 {b} x {seq} x {3 * 16 * 64}{' causal' if causal else ''}"
+                   f"{f', seq_valid {valid}' if valid else ''} (mma sweep)")
+            checks.int8("attention_int8", tag,
+                        A.attention_int8(qkv, 16, scale, causal, out_mul, valid),
+                        A.attention_int8_plain(qkv, 16, scale, causal, out_mul, valid))
+            checks.float("fused_attention_qkv", tag, A.fused_attention_qkv(qkv, 16, scale, causal),
+                         A.attention_core_plain(qkv.float(), 16, scale, causal))
+            out = A.attention_block(qkv, 16, scale, causal, valid)
+            checks.float("attention_block", tag, out,
+                         A.attention_core_plain(qkv.float(), 16, scale, causal, 1.0, valid))
+            require(torch.equal(out, A.attention_block(qkv, 16, scale, causal, valid)),
+                    f"attention_block {tag}: two launches differ")
+
     b, seq, heads, d = 32, 197, 6, 32
     what = f"head_dim 32, {b} x {seq} x {3 * heads * d}"
     for dtype in (torch.bfloat16, torch.float32):
@@ -898,15 +934,17 @@ def bench_kernel_phase(torch, checks: KernelChecks):
     return times
 
 
-def bench_phase(torch, checks: KernelChecks, wrappers, steps=(2, 7, 1)):
+def bench_phase(torch, checks: KernelChecks, wrappers, steps=(2, 7, 2)):
     """Phase 10, the port's bench path (fitclip_torch/bench, the entry points
     of ``python -m fitclip_torch.bench``): (a) every S1, S2 and S3 arm against
     its plain twin at 32 frames (S3: 8 clips), the two-stream S1s bit for bit
     against `full`; (b) with the launch counts zeroed, every case of the three
     ablation benches at its script's production shape, with the kernels'
     agreement with `full` (cos_vs_full); (c) one encode reading each for int8
-    and bf16 at 128 clips with bench.py's gates. Returns ({path: launches},
-    {"skew": timing}, records)."""
+    and bf16 at 128 clips with bench.py's gates. Each case is timed over 2 and
+    7 chained steps, in two trials (the reference's count): one trial alone
+    can read a long short run, as S1s's two streams sometimes give, and then
+    no marginal time. Returns ({path: launches}, {"skew": timing}, records)."""
     from fitclip_torch.bench import attn_int8 as S2
     from fitclip_torch.bench import block_layer as S1
     from fitclip_torch.bench import encode
@@ -1273,13 +1311,27 @@ def profile_ms(torch, fn, calls: int = 3):
     return per_kernel, sum(per_kernel.values()) * calls / window_ms
 
 
-def print_profile(torch, what, fn, top=10):
+# The CUDA-core forward attention bodies by their kernel names (fp32 only; every
+# bf16 path runs attention_mma.cuh's attention_mma_kernel or space_mma_kernel).
+CUDA_CORE_ATTENTION = ("attention_kernel_f32", "space_kernel_f32")
+
+
+def print_profile(torch, what, fn, top=10, mma=None):
+    """The profile's top kernels; with mma (kernel names), require that those
+    tensor-core attention bodies ran and no CUDA-core attention body did."""
     per_kernel, busy = profile_ms(torch, fn)
     total = sum(per_kernel.values())
     print(f"{what} profile, device {total:.3f} ms per call, busy share {busy:.3f} of the host "
           f"window; top kernels (ms per call, share):")
     for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
+    if mma:
+        for name in mma:
+            ms = sum(v for k, v in per_kernel.items() if name in k)
+            print(f"  {what}: {name} {ms:.3f} ms per call ({ms / total:.2%})")
+            require(ms > 0, f"{what}: the profile shows no {name}")
+        slow = [k for k in per_kernel if any(name in k for name in CUDA_CORE_ATTENTION)]
+        require(not slow, f"{what}: a bf16 path ran a CUDA-core attention body: {slow}")
 
 
 def fit_phase(torch, wrappers):
@@ -1381,7 +1433,10 @@ def fit_phase(torch, wrappers):
           f"clips/s, peak {timings['bf16_peak_gib']:.2f} GiB; encode_text, 256 rows x 77: "
           f"{timings['text_ms']:.3f} ms, {256e3 / timings['text_ms']:.1f} rows/s")
 
-    print_profile(torch, "fit: int8 encode_video", lambda: int8_enc.encode_video(video), top=12)
+    print_profile(torch, "fit: int8 encode_video", lambda: int8_enc.encode_video(video), top=12,
+                  mma=("space_mma_kernel",))
+    print_profile(torch, "fit: bf16 encode_video", lambda: bf16_enc.encode_video(video), top=6,
+                  mma=("space_mma_kernel",))
     return paths, timings
 
 
@@ -1571,7 +1626,8 @@ def clip_bf16_fused_phase(torch, wrappers, module_enc, video, text, video32):
                "clip_bf16_fused_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"clip bf16 fused_block encode_video, 32 clips x 4 frames: {ms:.3f} ms, "
           f"{32e3 / ms:.1f} clips/s, peak {timings['clip_bf16_fused_peak_gib']:.2f} GiB")
-    print_profile(torch, "clip bf16 fused_block encode_video", lambda: enc.encode_video(video32))
+    print_profile(torch, "clip bf16 fused_block encode_video", lambda: enc.encode_video(video32),
+                  mma=("attention_mma_kernel",))
     return {"clip_bf16_fused_encode": launches}, timings
 
 
@@ -1686,7 +1742,7 @@ def slip_phase(torch, wrappers, video, calib_text, text, video32):
               f"GiB; encode_text, 256 rows x 77: {timings[f'{tag}_text_ms']:.3f} ms, "
               f"{256e3 / timings[f'{tag}_text_ms']:.1f} rows/s")
     print_profile(torch, "slip int8 module path (K8) encode_video",
-                  lambda: int8_enc.encode_video(video32))
+                  lambda: int8_enc.encode_video(video32), mma=("attention_mma_kernel",))
     return paths, timings
 
 
@@ -1809,6 +1865,10 @@ def main() -> int:
     print(f"slice: int8 encode_video, 32 clips x 4 frames: {int8_ms:.3f} ms, "
           f"{32e3 / int8_ms:.1f} clips/s, peak {peak_gib:.2f} GiB; "
           f"bf16 float model: {float_ms:.3f} ms, {32e3 / float_ms:.1f} clips/s")
+    print_profile(torch, "clip int8 encode_video", lambda: int8_enc.encode_video(video32),
+                  mma=("attention_mma_kernel",))
+    print_profile(torch, "clip bf16 module path encode_video",
+                  lambda: float_enc.encode_video(video32), top=6, mma=("attention_mma_kernel",))
 
     # Phase 9 runs here, while phase 4's inputs and bf16 encoder are at hand.
     # (a) CLIP ViT-B/16 bf16 with fused_block=True (K2); (b) SLIP ViT-B/16.
@@ -1864,6 +1924,14 @@ def main() -> int:
                **{name: "bf16_gemm.cu" for name in K2_LAUNCHES_PER_LAYER if "gemm" in name},
                "fused_attention_qkv_backward": "attention_bwd.cu", "s3dg_stem": "s3dg_stem.cu",
                **{name: "fit_attention.cu" for name in fit_attention}}
+    # The __global__ bodies of the attention rows on the paths timed here (bf16):
+    # attention.cu's and the FiT space kernel's tensor-core core, attention_mma.cuh.
+    bodies = {**{name: "attention_mma_kernel" for name in (
+                  "attention_int8", "fused_attention_qkv", "attention_block",
+                  "fused_int8_qkv_attention",
+                  *(n for n in BENCH_KERNELS if n.startswith("attention_") and "i8" not in n))},
+              "fused_attention_qkv_gkv": "space_mma_kernel",
+              "fit_space_attention_int8": "space_mma_kernel"}
     record = [{"name": name, "route": "cuda",
                "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",
                "replaces": replaces.get(name, "fitclip_tpu/ops/block.py:137"),
@@ -1874,6 +1942,9 @@ def main() -> int:
                 "replaces": site, "launches": bench_paths["bench"][name],
                 "max_abs_err": checks.max_abs_err[name], **times[name]}
                for name, (site, source) in BENCH_KERNELS.items()]
+    for entry in record:
+        if entry["name"] in bodies:
+            entry["kernel"] = bodies[entry["name"]]
     for entry in record:
         library = entry["library_ms"]
         print(f"  {entry['name']}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "

@@ -46,7 +46,7 @@ _SIGNATURES = {
     # a, w, m, n, k, epilogue, bias, residual, res_dtype, out, out_dtype, quick, stream
     "fitclip_bf16_gemm": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P),
     # qkv, dtype, out, mode, batch, seq, heads, head_dim, scale, causal,
-    # seq_valid, out_mul, v_global, stream
+    # seq_valid, out_mul, body, stream
     "fitclip_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _P),
     # qkv, grad, dtype, dqkv, stats, batch, seq, heads, head_dim, scale, causal, global,
     # stream
@@ -70,12 +70,15 @@ _SIGNATURES = {
 }
 # The size_t shared-memory queries: name -> their int arguments.
 _SMEM_QUERIES = {
-    "fitclip_attention_smem_bytes": 4,      # dtype, seq, head_dim, v_global
     "fitclip_attention_bwd_smem_bytes": 4,  # dtype, seq, head_dim, global
     "fitclip_fit_space_smem_bytes": 2,      # dtype, patches
     "fitclip_fit_cls_smem_bytes": 1,        # seq
     "fitclip_s3dg_stem_smem_bytes": 1,      # frame width
     "fitclip_attention_s8_smem_bytes": 2,   # seq, av8
+}
+# The int queries: name -> their int arguments.
+_INT_QUERIES = {
+    "fitclip_attention_body": 3,  # dtype, seq, head_dim -> attention.cu's body, or -1
 }
 
 
@@ -138,9 +141,10 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fitclip_error_string.argtypes = (ctypes.c_int,)
     lib.fitclip_error_string.restype = ctypes.c_char_p
-    for name, count in _SMEM_QUERIES.items():
-        getattr(lib, name).argtypes = (ctypes.c_int,) * count
-        getattr(lib, name).restype = ctypes.c_size_t
+    for queries, restype in ((_SMEM_QUERIES, ctypes.c_size_t), (_INT_QUERIES, ctypes.c_int)):
+        for name, count in queries.items():
+            getattr(lib, name).argtypes = (ctypes.c_int,) * count
+            getattr(lib, name).restype = restype
     return lib
 
 

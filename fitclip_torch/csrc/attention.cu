@@ -30,143 +30,204 @@
 //               exps * bf16(1 / denom) in bf16;
 //     nosoftmax weights = bf16(logits), for timing only.
 // All scale q in qkv's dtype before QK^T, keep logits and softmax in fp32,
-// cast the weights to v's dtype before P.V, and skip keys that the causal mask
-// (finfo.min) or the seq_valid key mask (-1e30) would zero: exp() of either
-// is exactly 0, so skipping them gives the same sums.
+// cast the weights to v's dtype before P.V, and leave out keys that the causal
+// mask (finfo.min) or the seq_valid key mask (-1e30) would zero: exp() of
+// either is exactly 0, so leaving them out gives the same sums.
 //
-// On the H100 this is bound by latency and shared-memory bandwidth, not by
-// device memory: one head's K and V fit in shared memory (2 x 197 x 64 bf16 = 50
-// KB at ViT-B/16), and a block reads them once for 64 query rows. Each warp
-// takes one query row at a time: q sits in registers, lane j computes the
-// logits of keys j, j + 32, ... against K stored transposed (conflict-free), then
-// each lane accumulates D / 32 of the output columns over P.V. The products run
-// on the CUDA cores; a tensor-core (mma) version is later work.
-//
-// Where K and V do not fit (fp32 at L = 577, ViT-L/14@336: 296 KB of the 227 KB),
-// the v_global variant keeps only K^T in shared memory (148 KB) and reads V
-// through L2: each lane reads its output columns of key j, 32 lanes on 32
-// consecutive values. The wrapper picks it by shape (fitclip_attention_smem_bytes).
-#include "common.cuh"
+// Four bodies; the wrapper picks one from (dtype, L, head_dim)
+// (fitclip_torch/ops/attention.py:attention_body) and the entry refuses any
+// other (fitclip_attention_body is the same rule):
+//   mma        bf16, L <= 208: attention_mma_kernel, the tensor-core core of
+//              attention_mma.cuh (K and V in shared memory once per block of 64
+//              rows, QK^T and P.V on mma.sync, every logit of a warp's 16 rows
+//              in its registers). Every mode runs here in bf16.
+//   mma_sweep  bf16, L > 208 (ViT-L/14, ViT-L/14@336): the same core sweeping
+//              the keys in tiles of 64, QK^T recomputed in each of its three
+//              passes (max, sum, weights and P.V).
+//   f32        fp32, the shipped modes: attention_kernel_f32 on the CUDA cores
+//              (tensor cores would take fp32 as TF32). Each warp takes one query
+//              row at a time: lane j computes the logits of keys j, j + 32, ...
+//              against K stored transposed, then accumulates D / 32 output
+//              columns over P.V.
+//   f32_v_global  fp32 where K and V do not fit (L = 577: 296 KB of the 227 KB):
+//              attention_kernel_f32 with only K^T in shared memory (148 KB) and
+//              V read through L2.
+#include "attention_mma.cuh"
 
 using namespace fitclip;
+using namespace fitclip::attn;
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kQueryTile = 64;
-constexpr float kLog2e = 1.4426950408889634f;
-enum Mode : int {
-  kQkv = 0, kInt8 = 1, kBlock = 2,
-  kDiv = 3, kFold2 = 4, kSm2 = 5, kSm2Div = 6, kNoMax = 7, kCast = 8,
-  kHead0 = 9, kBf16Logits = 10, kNoSoftmax = 11,
-};
+enum Body : int { kBodyMma = 0, kBodyMmaSweep = 1, kBodyF32 = 2, kBodyF32VGlobal = 3 };
+
+constexpr size_t kSmemLimit = 232448;  // shared memory a block can use on an H100
+
+// --- the mma bodies (bf16) ---------------------------------------------------------
+
+template <int D, int kMode, int kSteps, bool kSweep>
+__global__ void __launch_bounds__(kThreads, min_blocks<kSteps, kSweep>())
+attention_mma_kernel(const bf16* __restrict__ qkv, void* __restrict__ out, int seq, int heads, float scale,
+                     int causal, int seq_valid, float out_mul) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + static_cast<size_t>(round16(seq)) * D;
+
+  const int width = heads * D;
+  const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
+  const int hl = kMode == kHead0 ? 0 : h;  // the head whose q, k and v are read
+  const bf16* base = qkv + static_cast<size_t>(b) * seq * 3 * width + hl * D;
+  auto row = [&](int j) { return base + static_cast<size_t>(j) * 3 * width; };
+
+  // The keys any row of this tile can see.
+  const int keys = min(seq, seq_valid);
+  load_kv<D>(ks, vs, causal ? min(min(q0 + kBlockRows, seq), keys) : keys, width, row);
+
+  const int i0 = q0 + (threadIdx.x >> 5) * 16;
+  const int lo = i0 + ((threadIdx.x & 31) >> 2), hi = lo + 8;
+  uint32_t qa[D / 16][4];
+  const QRows qr{lo < seq ? row(lo) : nullptr, hi < seq ? row(hi) : nullptr, bf16_round(scale)};
+  load_q<D>(qr.lo, qr.hi, qr.scale, qa);
+  wait_k();
+  float o[D / 8][4];
+  attend<D, kMode, kSteps, kSweep>(ks, vs, qa, qr, i0, i0 < seq ? keys : 0, causal != 0, out_mul, o);
+  const long long o_row = static_cast<long long>(b) * seq * width + h * D;
+  store_rows<D, kMode>(out, lo < seq ? o_row + static_cast<long long>(lo) * width : -1,
+                       hi < seq ? o_row + static_cast<long long>(hi) * width : -1, o, out_mul);
+}
+
+template <int D, int kMode, int kSteps, bool kSweep>
+int launch_mma(const void* qkv, void* out, int batch, int seq, int heads, float scale, int causal, int seq_valid,
+               float out_mul, cudaStream_t s) {
+  const size_t smem = smem_bytes(seq, D);
+  auto kernel = attention_mma_kernel<D, kMode, kSteps, kSweep>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
+  kernel<<<grid, kThreads, smem, s>>>(static_cast<const bf16*>(qkv), out, seq, heads, scale, causal, seq_valid,
+                                      out_mul);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register tier by length: the small one (the text towers' 77, ViT-B/32's
+// 50) only for the shipped modes.
+template <int D, int kMode, bool kSmallTier>
+int launch_mma_body(int body, const void* qkv, void* out, int batch, int seq, int heads, float scale, int causal,
+                    int seq_valid, float out_mul, cudaStream_t s) {
+  if (body == kBodyMmaSweep)
+    return launch_mma<D, kMode, kSweepSteps, true>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+  if constexpr (kSmallTier) {
+    if (seq <= 16 * kSmallSteps)
+      return launch_mma<D, kMode, kSmallSteps, false>(qkv, out, batch, seq, heads, scale, causal, seq_valid,
+                                                      out_mul, s);
+  }
+  return launch_mma<D, kMode, kLargeSteps, false>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+}
+
+template <int D>
+int dispatch_mma(int mode, int body, const void* qkv, void* out, int batch, int seq, int heads, float scale,
+                 int causal, int seq_valid, float out_mul, cudaStream_t s) {
+#define FITCLIP_MMA_MODE(M, SMALL) \
+  case M: return launch_mma_body<D, M, SMALL>(body, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+  switch (mode) {
+    FITCLIP_MMA_MODE(kQkv, true)
+    FITCLIP_MMA_MODE(kInt8, true)
+    case kBlock:
+      return launch_mma_body<D, kBlock, true>(body, qkv, out, batch, seq, heads, scale, causal, seq_valid, 1.f, s);
+    default: break;
+  }
+  if constexpr (D == 64) {  // the bench arms' modes: head_dim 64 only
+    switch (mode) {
+      FITCLIP_MMA_MODE(kDiv, false)
+      FITCLIP_MMA_MODE(kFold2, false)
+      FITCLIP_MMA_MODE(kSm2, false)
+      FITCLIP_MMA_MODE(kSm2Div, false)
+      FITCLIP_MMA_MODE(kNoMax, false)
+      FITCLIP_MMA_MODE(kCast, false)
+      FITCLIP_MMA_MODE(kHead0, false)
+      FITCLIP_MMA_MODE(kBf16Logits, false)
+      FITCLIP_MMA_MODE(kNoSoftmax, false)
+      default: break;
+    }
+  }
+#undef FITCLIP_MMA_MODE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// --- the fp32 bodies (CUDA cores) ------------------------------------------------
+
+constexpr int kF32Warps = 8;
+constexpr int kF32QueryTile = 64;
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
 
 // Shared memory: K^T (D x lp), V (L x D) unless read through L2, per-warp row
-// buffers (kWarps x lp fp32).
-template <typename T>
-size_t smem_bytes(int seq, int lp, int head_dim, bool v_global) {
-  return align16(sizeof(T) * head_dim * lp) +
-         (v_global ? 0 : align16(sizeof(T) * static_cast<size_t>(seq) * head_dim)) +
-         sizeof(float) * kWarps * lp;
+// buffers (kF32Warps x lp fp32).
+size_t f32_smem_bytes(int seq, int head_dim, bool v_global) {
+  const int lp = seq + (seq & 1);
+  return align16(sizeof(float) * head_dim * lp) +
+         (v_global ? 0 : align16(sizeof(float) * static_cast<size_t>(seq) * head_dim)) +
+         sizeof(float) * kF32Warps * lp;
 }
 
-template <int kMode>
-__host__ __device__ constexpr bool int8_out() {
-  return kMode == kInt8 || kMode == kDiv || kMode == kFold2 || kMode == kSm2 || kMode == kSm2Div ||
-         kMode == kNoMax || kMode == kCast;
-}
-
-template <typename T, int D, int kMode, bool kVGlobal>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_kernel(const T* __restrict__ qkv, void* __restrict__ out, int seq, int lp, int heads,
-                 float scale, int causal, int seq_valid, float out_mul) {
+template <int D, int kMode, bool kVGlobal>
+__global__ void __launch_bounds__(kF32Warps * 32)
+attention_kernel_f32(const float* __restrict__ qkv, void* __restrict__ out, int seq, int lp, int heads,
+                     float scale, int causal, int seq_valid, float out_mul) {
   constexpr int kCols = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* kt = reinterpret_cast<T*>(smem);
-  T* vs = reinterpret_cast<T*>(smem + align16(sizeof(T) * D * lp));
+  float* kt = reinterpret_cast<float*>(smem);
+  float* vs = reinterpret_cast<float*>(smem + align16(sizeof(float) * D * lp));
   float* rows = reinterpret_cast<float*>(
-      smem + align16(sizeof(T) * D * lp) +
-      (kVGlobal ? 0 : align16(sizeof(T) * static_cast<size_t>(seq) * D)));
+      smem + align16(sizeof(float) * D * lp) +
+      (kVGlobal ? 0 : align16(sizeof(float) * static_cast<size_t>(seq) * D)));
 
   const int width = heads * D;
-  const int q0 = blockIdx.x * kQueryTile, h = blockIdx.y, b = blockIdx.z;
-  const int hl = kMode == kHead0 ? 0 : h;  // the head whose q, k and v are read
-  const int q1 = min(q0 + kQueryTile, seq);
+  const int q0 = blockIdx.x * kF32QueryTile, h = blockIdx.y, b = blockIdx.z;
+  const int q1 = min(q0 + kF32QueryTile, seq);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T* base = qkv + static_cast<size_t>(b) * seq * 3 * width;
-  const T* vg = base + 2 * width + hl * D;  // V of key j at vg[j * 3 * width]
+  const float* base = qkv + static_cast<size_t>(b) * seq * 3 * width;
+  const float* vg = base + 2 * width + h * D;  // V of key j at vg[j * 3 * width]
 
   // The keys any row of this tile can see.
   const int keys = min(causal ? q1 : seq, seq_valid);
-  for (int idx = tid; idx < keys * D; idx += kWarps * 32) {
+  for (int idx = tid; idx < keys * D; idx += kF32Warps * 32) {
     const int j = idx / D, d = idx % D;
-    const T* src = base + static_cast<size_t>(j) * 3 * width + hl * D + d;
+    const float* src = base + static_cast<size_t>(j) * 3 * width + h * D + d;
     kt[d * lp + j] = src[width];
     if (!kVGlobal) vs[j * D + d] = src[2 * width];
   }
   __syncthreads();
 
-  const float scale_t = to_float(from_float<T>(scale));
   float* p = rows + warp * lp;
-  for (int i = q0 + warp; i < q1; i += kWarps) {
-    const T* qrow = base + static_cast<size_t>(i) * 3 * width + hl * D;
+  for (int i = q0 + warp; i < q1; i += kF32Warps) {
+    const float* qrow = base + static_cast<size_t>(i) * 3 * width + h * D;
     float q[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) q[d] = to_float(from_float<T>(mul(to_float(qrow[d]), scale_t)));
+    for (int d = 0; d < D; ++d) q[d] = mul(qrow[d], scale);
 
     const int nk = min(causal ? i + 1 : seq, seq_valid);
-    float peak = kMode == kNoMax ? 0.f : -INFINITY;
+    float peak = -INFINITY;
     for (int j = lane; j < nk; j += 32) {
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(q[d], to_float(kt[d * lp + j]), s);
-      if (kMode == kBf16Logits) s = bf16_round(s);
+      for (int d = 0; d < D; ++d) s = fmaf(q[d], kt[d * lp + j], s);
       p[j] = s;
-      if (kMode != kNoMax) peak = fmaxf(peak, s);
+      peak = fmaxf(peak, s);
     }
-    if (kMode == kNoSoftmax) {
-      for (int j = lane; j < nk; j += 32) p[j] = to_float(from_float<T>(p[j]));
-    } else {
-      if (kMode != kNoMax) peak = warp_max(peak);
-      float denom = 0.f;
-      for (int j = lane; j < nk; j += 32) {
-        float e;
-        if (kMode == kFold2) {
-          e = exp2f(mul(sub(p[j], peak), kLog2e));
-        } else if (kMode == kSm2 || kMode == kSm2Div) {
-          e = exp2f(sub(p[j], peak));
-        } else if (kMode == kNoMax) {
-          e = expf(p[j]);
-        } else if (kMode == kBf16Logits) {
-          e = bf16_round(expf(bf16_round(sub(p[j], peak))));
-        } else {
-          e = expf(sub(p[j], peak));
-        }
-        p[j] = e;
-        denom += e;
-      }
-      denom = warp_sum(denom);
-      // The multiplier of each weight, where the mode multiplies.
-      float norm;
-      if (kMode == kInt8) norm = div(out_mul, denom);
-      else if (kMode == kFold2) norm = mul(out_mul, rcp_approx(denom));
-      else if (kMode == kSm2) norm = rcp_approx(denom);
-      else if (kMode == kBf16Logits) norm = bf16_round(div(1.f, denom));
-      else norm = div(1.f, denom);  // kBlock, kDiv, kCast; unused by the dividing modes
-      for (int j = lane; j < nk; j += 32) {
-        float wgt;
-        if (kMode == kQkv || kMode == kHead0 || kMode == kSm2Div || kMode == kNoMax) {
-          wgt = div(p[j], denom);
-        } else if (kMode == kBf16Logits) {
-          wgt = bf16_round(mul(p[j], norm));
-        } else {
-          wgt = mul(p[j], norm);
-        }
-        p[j] = to_float(from_float<T>(wgt));
-      }
+    peak = warp_max(peak);
+    float denom = 0.f;
+    for (int j = lane; j < nk; j += 32) {
+      const float e = softmax_exp<kMode>(p[j], peak);
+      p[j] = e;
+      denom += e;
     }
+    denom = warp_sum(denom);
+    const float norm = softmax_norm<kMode>(denom, out_mul);
+    for (int j = lane; j < nk; j += 32) p[j] = softmax_weight<kMode>(p[j], denom, norm);
     __syncwarp();
 
     float o[kCols];
@@ -176,8 +237,7 @@ attention_kernel(const T* __restrict__ qkv, void* __restrict__ out, int seq, int
       const float wgt = p[j];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float v = kVGlobal ? to_float(vg[static_cast<size_t>(j) * 3 * width + lane + 32 * c])
-                                 : to_float(vs[j * D + lane + 32 * c]);
+        const float v = kVGlobal ? vg[static_cast<size_t>(j) * 3 * width + lane + 32 * c] : vs[j * D + lane + 32 * c];
         o[c] = fmaf(wgt, v, o[c]);
       }
     }
@@ -185,112 +245,83 @@ attention_kernel(const T* __restrict__ qkv, void* __restrict__ out, int seq, int
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       if constexpr (int8_out<kMode>()) {
-        int8_t* dst = static_cast<int8_t*>(out);
-        int8_t v;
-        if (kMode == kInt8 || kMode == kFold2) v = quant_rint(o[c]);
-        else if (kMode == kCast) v = trunc_int8(o[c]);
-        else v = quant_rint(mul(o[c], out_mul));
-        dst[o_row + 32 * c] = v;
+        static_cast<int8_t*>(out)[o_row + 32 * c] = requant<kMode>(o[c], out_mul);
       } else {
-        static_cast<T*>(out)[o_row + 32 * c] = from_float<T>(o[c]);
+        static_cast<float*>(out)[o_row + 32 * c] = o[c];
       }
     }
     __syncwarp();  // the next row overwrites p
   }
 }
 
-template <typename T, int D, int kMode, bool kVGlobal>
-int launch(const void* qkv, void* out, int batch, int seq, int heads, float scale, int causal,
-           int seq_valid, float out_mul, cudaStream_t s) {
+template <int D, int kMode, bool kVGlobal>
+int launch_f32(const void* qkv, void* out, int batch, int seq, int heads, float scale, int causal, int seq_valid,
+               float out_mul, cudaStream_t s) {
   const int lp = seq + (seq & 1);
-  const size_t smem = smem_bytes<T>(seq, lp, D, kVGlobal);
-  auto kernel = attention_kernel<T, D, kMode, kVGlobal>;
+  const size_t smem = f32_smem_bytes(seq, D, kVGlobal);
+  auto kernel = attention_kernel_f32<D, kMode, kVGlobal>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((seq + kQueryTile - 1) / kQueryTile, heads, batch);
-  kernel<<<grid, kWarps * 32, smem, s>>>(static_cast<const T*>(qkv), out, seq, lp, heads, scale,
-                                          causal, seq_valid, out_mul);
+  const dim3 grid((seq + kF32QueryTile - 1) / kF32QueryTile, heads, batch);
+  kernel<<<grid, kF32Warps * 32, smem, s>>>(static_cast<const float*>(qkv), out, seq, lp, heads, scale, causal,
+                                            seq_valid, out_mul);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The shipped modes, for either head_dim and dtype; V in shared memory.
-template <typename T, int D>
-int dispatch_shipped(int mode, const void* qkv, void* out, int batch, int seq, int heads,
-                     float scale, int causal, int seq_valid, float out_mul, cudaStream_t s) {
+// The shipped modes; V in shared memory, or through L2 (head_dim 64 only: the
+// shape that overflows shared memory is L = 577).
+template <int D, bool kVGlobal>
+int dispatch_f32(int mode, const void* qkv, void* out, int batch, int seq, int heads, float scale, int causal,
+                 int seq_valid, float out_mul, cudaStream_t s) {
   switch (mode) {
-    case kQkv: return launch<T, D, kQkv, false>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-    case kInt8: return launch<T, D, kInt8, false>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-    case kBlock: return launch<T, D, kBlock, false>(qkv, out, batch, seq, heads, scale, causal, seq_valid, 1.f, s);
+    case kQkv: return launch_f32<D, kQkv, kVGlobal>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    case kInt8: return launch_f32<D, kInt8, kVGlobal>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    case kBlock: return launch_f32<D, kBlock, kVGlobal>(qkv, out, batch, seq, heads, scale, causal, seq_valid, 1.f, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The shipped modes with V read through L2 (fp32, head_dim 64: the shape that
-// overflows shared memory at L = 577).
-int dispatch_v_global(int mode, const void* qkv, void* out, int batch, int seq, int heads,
-                      float scale, int causal, int seq_valid, float out_mul, cudaStream_t s) {
-  switch (mode) {
-    case kQkv: return launch<float, 64, kQkv, true>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-    case kInt8: return launch<float, 64, kInt8, true>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-    case kBlock: return launch<float, 64, kBlock, true>(qkv, out, batch, seq, heads, scale, causal, seq_valid, 1.f, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// The bench arms' modes: bf16, head_dim 64.
-int dispatch_bench(int mode, const void* qkv, void* out, int batch, int seq, int heads,
-                   float scale, int causal, int seq_valid, float out_mul, cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
-#define FITCLIP_BENCH_MODE(M) \
-  case M: return launch<bf16, 64, M, false>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-  switch (mode) {
-    FITCLIP_BENCH_MODE(kDiv)
-    FITCLIP_BENCH_MODE(kFold2)
-    FITCLIP_BENCH_MODE(kSm2)
-    FITCLIP_BENCH_MODE(kSm2Div)
-    FITCLIP_BENCH_MODE(kNoMax)
-    FITCLIP_BENCH_MODE(kCast)
-    FITCLIP_BENCH_MODE(kHead0)
-    FITCLIP_BENCH_MODE(kBf16Logits)
-    FITCLIP_BENCH_MODE(kNoSoftmax)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef FITCLIP_BENCH_MODE
 }
 
 }  // namespace
 
-extern "C" size_t fitclip_attention_smem_bytes(int dtype, int seq, int head_dim, int v_global) {
-  const int lp = seq + (seq & 1);
-  return dtype == kBFloat16 ? smem_bytes<__nv_bfloat16>(seq, lp, head_dim, v_global != 0)
-                            : smem_bytes<float>(seq, lp, head_dim, v_global != 0);
+// The body that takes (dtype, L, head_dim), or -1 where none does: the rule of
+// fitclip_torch/ops/attention.py:attention_body.
+extern "C" int fitclip_attention_body(int dtype, int seq, int head_dim) {
+  if (seq < 1 || (head_dim != 32 && head_dim != 64)) return -1;
+  if (dtype == kBFloat16) {
+    if (smem_bytes(seq, head_dim) > kSmemLimit) return -1;
+    return seq <= kResidentKeys ? kBodyMma : kBodyMmaSweep;
+  }
+  if (dtype == kFloat32) {
+    if (f32_smem_bytes(seq, head_dim, false) <= kSmemLimit) return kBodyF32;
+    if (head_dim == 64 && f32_smem_bytes(seq, head_dim, true) <= kSmemLimit) return kBodyF32VGlobal;
+  }
+  return -1;
 }
 
-// mode: see Mode. The int8-output modes write int8, the others qkv's dtype;
-// out_mul is the requant multiplier of the int8 modes (unused by qkv and the S2
-// modes). v_global: read V through L2 (fp32, head_dim 64, shipped modes only).
-extern "C" int fitclip_attention(const void* qkv, int dtype, void* out, int mode, int batch,
-                                 int seq, int heads, int head_dim, float scale, int causal,
-                                 int seq_valid, float out_mul, int v_global, void* stream) {
+// mode: see attn::Mode. The int8-output modes write int8, the others qkv's
+// dtype; out_mul is the requant multiplier of the int8 modes (unused by qkv
+// and the S2 modes). body: the wrapper's choice, refused unless it is the rule's.
+// The bench modes take bf16 at head_dim 64 only.
+extern "C" int fitclip_attention(const void* qkv, int dtype, void* out, int mode, int batch, int seq, int heads,
+                                 int head_dim, float scale, int causal, int seq_valid, float out_mul, int body,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode > kBlock) {
-    if (dtype != kBFloat16 || head_dim != 64 || v_global) return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch_bench(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+  if (body < 0 || body != fitclip_attention_body(dtype, seq, head_dim) || mode < kQkv || mode > kNoSoftmax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (body == kBodyMma || body == kBodyMmaSweep) {
+    if (dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+    if (head_dim == 64)
+      return dispatch_mma<64>(mode, body, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    return dispatch_mma<32>(mode, body, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
   }
-  if (v_global) {
-    if (dtype != kFloat32 || head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch_v_global(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-  }
-  if (dtype == kBFloat16 && head_dim == 64)
-    return dispatch_shipped<__nv_bfloat16, 64>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-  if (dtype == kBFloat16 && head_dim == 32)
-    return dispatch_shipped<__nv_bfloat16, 32>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-  if (dtype == kFloat32 && head_dim == 64)
-    return dispatch_shipped<float, 64>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-  if (dtype == kFloat32 && head_dim == 32)
-    return dispatch_shipped<float, 32>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  // The fp32 bodies: fp32 and the shipped modes only; a bf16 call never reaches them.
+  if (dtype != kFloat32 || mode > kBlock) return static_cast<int>(cudaErrorInvalidValue);
+  if (body == kBodyF32VGlobal)
+    return dispatch_f32<64, true>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+  if (head_dim == 64)
+    return dispatch_f32<64, false>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+  return dispatch_f32<32, false>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
 }

@@ -25,13 +25,17 @@
 // follow it) and K5's (G, P, 3W) groups with a (G, 3W) gkv go through the
 // same code: group g reads clip c = g / frames, frame f = g % frames.
 //
-// On the H100: space is bound by latency and shared-memory bandwidth (one
-// head's 1 + P keys and values, 2 x 197 x 64 bf16 = 50 KB, are read once for
-// 64 query rows; the products run on the CUDA cores). time and cls are bound
-// by device memory: time reads each qkv element about once (one warp per
+// On the H100: space in bf16 (both modes) is space_mma_kernel, attention.cu's
+// tensor-core core (attention_mma.cuh) with a loader of its own: key 0 from the
+// global row, keys 1..P from the group rows; 64 query rows per block, the
+// 1 + P keys' K and V read once per block, QK^T and P.V on mma.sync with the
+// logits in registers (swept in tiles of 64 keys past 208 keys). fp32 stays on
+// the CUDA cores (space_kernel_f32: tensor cores would take fp32 as TF32), one
+// query row per warp against K^T and V in shared memory. time and cls are
+// bound by device memory: time reads each qkv element about once (one warp per
 // (clip, location, head), lane = two of the 64 dims, F + 1 = 5 keys), cls
 // reads one head's K and V of a clip once per (clip, head) block.
-#include "common.cuh"
+#include "attention_mma.cuh"
 
 using namespace fitclip;
 
@@ -47,55 +51,125 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_
 
 // --- space --------------------------------------------------------------------
 
-// Shared memory: K^T (kHeadDim x lp), V (keys x kHeadDim), per-warp rows (kWarps x lp fp32).
-template <typename T>
-size_t space_smem_bytes(int keys, int lp) {
-  return align16(sizeof(T) * kHeadDim * lp) + align16(sizeof(T) * static_cast<size_t>(keys) * kHeadDim) +
+// bf16: the tensor-core core. The keys are [global row | the group's P rows].
+template <bool kInt8Out, int kSteps, bool kSweep>
+__global__ void __launch_bounds__(attn::kThreads, attn::min_blocks<kSteps, kSweep>())
+space_mma_kernel(const __nv_bfloat16* __restrict__ qkv, int qkv_clip_stride, const __nv_bfloat16* __restrict__ gkv,
+                 int gkv_stride, void* __restrict__ out, int out_clip_stride, int frames, int patches, int heads,
+                 float scale, float out_mul) {
+  using attn::bf16;
+  constexpr int kMode = kInt8Out ? attn::kInt8 : attn::kQkv;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int keys = patches + 1;
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + static_cast<size_t>(attn::round16(keys)) * kHeadDim;
+
+  const int width = heads * kHeadDim;
+  const int q0 = blockIdx.x * attn::kBlockRows, h = blockIdx.y, g = blockIdx.z;
+  const int c = g / frames, f = g % frames;
+  const bf16* group = qkv + static_cast<size_t>(c) * qkv_clip_stride + static_cast<size_t>(f) * patches * 3 * width +
+                      h * kHeadDim;
+  const bf16* global = gkv + static_cast<size_t>(c) * gkv_stride + h * kHeadDim;
+  auto row = [&](int i) { return group + static_cast<size_t>(i) * 3 * width; };  // group row i
+
+  // Key 0 is the global row, key j >= 1 is group row j - 1.
+  attn::load_kv<kHeadDim>(ks, vs, keys, width, [&](int j) { return j == 0 ? global : row(j - 1); });
+
+  const int i0 = q0 + (threadIdx.x >> 5) * 16;
+  const int lo = i0 + ((threadIdx.x & 31) >> 2), hi = lo + 8;
+  uint32_t qa[kHeadDim / 16][4];
+  const attn::QRows qr{lo < patches ? row(lo) : nullptr, hi < patches ? row(hi) : nullptr, bf16_round(scale)};
+  attn::load_q<kHeadDim>(qr.lo, qr.hi, qr.scale, qa);
+  attn::wait_k();
+  float o[kHeadDim / 8][4];
+  attn::attend<kHeadDim, kMode, kSteps, kSweep>(ks, vs, qa, qr, i0, i0 < patches ? keys : 0, false, out_mul, o);
+  const long long o_row = static_cast<long long>(c) * out_clip_stride +
+                          static_cast<long long>(f) * patches * width + h * kHeadDim;
+  attn::store_rows<kHeadDim, kMode>(out, lo < patches ? o_row + static_cast<long long>(lo) * width : -1,
+                                    hi < patches ? o_row + static_cast<long long>(hi) * width : -1, o, out_mul);
+}
+
+template <bool kInt8Out, int kSteps, bool kSweep>
+int launch_space_mma(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride, void* out,
+                     int out_clip_stride, int groups, int frames, int patches, int heads, float scale, float out_mul,
+                     cudaStream_t s) {
+  const size_t smem = attn::smem_bytes(patches + 1, kHeadDim);
+  auto kernel = space_mma_kernel<kInt8Out, kSteps, kSweep>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((patches + attn::kBlockRows - 1) / attn::kBlockRows, heads, groups);
+  kernel<<<grid, attn::kThreads, smem, s>>>(static_cast<const __nv_bfloat16*>(qkv), qkv_clip_stride,
+                                            static_cast<const __nv_bfloat16*>(gkv), gkv_stride, out, out_clip_stride,
+                                            frames, patches, heads, scale, out_mul);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register tier by the number of keys, as attention.cu picks it.
+template <bool kInt8Out>
+int launch_space_bf16(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride, void* out,
+                      int out_clip_stride, int groups, int frames, int patches, int heads, float scale, float out_mul,
+                      cudaStream_t s) {
+  const int keys = patches + 1;
+#define FIT_SPACE_MMA(STEPS, SWEEP)                                                                              \
+  launch_space_mma<kInt8Out, STEPS, SWEEP>(qkv, qkv_clip_stride, gkv, gkv_stride, out, out_clip_stride, groups, \
+                                          frames, patches, heads, scale, out_mul, s)
+  if (keys > attn::kResidentKeys) return FIT_SPACE_MMA(attn::kSweepSteps, true);
+  if (keys <= 16 * attn::kSmallSteps) return FIT_SPACE_MMA(attn::kSmallSteps, false);
+  return FIT_SPACE_MMA(attn::kLargeSteps, false);
+#undef FIT_SPACE_MMA
+}
+
+// fp32: the CUDA cores. Shared memory: K^T (kHeadDim x lp), V (keys x kHeadDim),
+// per-warp rows (kWarps x lp fp32).
+size_t space_f32_smem_bytes(int keys, int lp) {
+  return align16(sizeof(float) * kHeadDim * lp) + align16(sizeof(float) * static_cast<size_t>(keys) * kHeadDim) +
          sizeof(float) * kWarps * lp;
 }
 
-template <typename T, bool kInt8Out>
+template <bool kInt8Out>
 __global__ void __launch_bounds__(kThreads)
-space_kernel(const T* __restrict__ qkv, int qkv_clip_stride, const T* __restrict__ gkv, int gkv_stride,
-             void* __restrict__ out, int out_clip_stride, int frames, int patches, int lp, int heads,
-             float scale, float out_mul) {
+space_kernel_f32(const float* __restrict__ qkv, int qkv_clip_stride, const float* __restrict__ gkv, int gkv_stride,
+                 void* __restrict__ out, int out_clip_stride, int frames, int patches, int lp, int heads,
+                 float scale, float out_mul) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int keys = patches + 1;
-  T* kt = reinterpret_cast<T*>(smem);
-  T* vs = reinterpret_cast<T*>(smem + align16(sizeof(T) * kHeadDim * lp));
-  float* rows = reinterpret_cast<float*>(smem + align16(sizeof(T) * kHeadDim * lp) +
-                                         align16(sizeof(T) * static_cast<size_t>(keys) * kHeadDim));
+  float* kt = reinterpret_cast<float*>(smem);
+  float* vs = reinterpret_cast<float*>(smem + align16(sizeof(float) * kHeadDim * lp));
+  float* rows = reinterpret_cast<float*>(smem + align16(sizeof(float) * kHeadDim * lp) +
+                                         align16(sizeof(float) * static_cast<size_t>(keys) * kHeadDim));
 
   const int width = heads * kHeadDim;
   const int q0 = blockIdx.x * kQueryTile, h = blockIdx.y, g = blockIdx.z;
   const int q1 = min(q0 + kQueryTile, patches);
   const int c = g / frames, f = g % frames;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T* group = qkv + static_cast<size_t>(c) * qkv_clip_stride + static_cast<size_t>(f) * patches * 3 * width;
-  const T* global = gkv + static_cast<size_t>(c) * gkv_stride;
+  const float* group = qkv + static_cast<size_t>(c) * qkv_clip_stride + static_cast<size_t>(f) * patches * 3 * width;
+  const float* global = gkv + static_cast<size_t>(c) * gkv_stride;
 
   // Key 0 is the global row, key j >= 1 is group row j - 1.
   for (int idx = tid; idx < keys * kHeadDim; idx += kThreads) {
     const int j = idx / kHeadDim, d = idx % kHeadDim;
-    const T* src = (j == 0 ? global : group + static_cast<size_t>(j - 1) * 3 * width) + h * kHeadDim + d;
+    const float* src = (j == 0 ? global : group + static_cast<size_t>(j - 1) * 3 * width) + h * kHeadDim + d;
     kt[d * lp + j] = src[width];
     vs[j * kHeadDim + d] = src[2 * width];
   }
   __syncthreads();
 
-  const float scale_t = to_float(from_float<T>(scale));
   float* p = rows + warp * lp;
   for (int i = q0 + warp; i < q1; i += kWarps) {
-    const T* qrow = group + static_cast<size_t>(i) * 3 * width + h * kHeadDim;
+    const float* qrow = group + static_cast<size_t>(i) * 3 * width + h * kHeadDim;
     float q[kHeadDim];
 #pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) q[d] = to_float(from_float<T>(mul(to_float(qrow[d]), scale_t)));
+    for (int d = 0; d < kHeadDim; ++d) q[d] = mul(qrow[d], scale);
 
     float peak = -INFINITY;
     for (int j = lane; j < keys; j += 32) {
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) s = fmaf(q[d], to_float(kt[d * lp + j]), s);
+      for (int d = 0; d < kHeadDim; ++d) s = fmaf(q[d], kt[d * lp + j], s);
       p[j] = s;
       peak = fmaxf(peak, s);
     }
@@ -108,17 +182,14 @@ space_kernel(const T* __restrict__ qkv, int qkv_clip_stride, const T* __restrict
     }
     denom = warp_sum(denom);
     const float norm = kInt8Out ? div(out_mul, denom) : 0.f;
-    for (int j = lane; j < keys; j += 32) {
-      const float wgt = kInt8Out ? mul(p[j], norm) : div(p[j], denom);
-      p[j] = to_float(from_float<T>(wgt));
-    }
+    for (int j = lane; j < keys; j += 32) p[j] = kInt8Out ? mul(p[j], norm) : div(p[j], denom);
     __syncwarp();
 
     float o0 = 0.f, o1 = 0.f;
     for (int j = 0; j < keys; ++j) {
       const float wgt = p[j];
-      o0 = fmaf(wgt, to_float(vs[j * kHeadDim + lane]), o0);
-      o1 = fmaf(wgt, to_float(vs[j * kHeadDim + lane + 32]), o1);
+      o0 = fmaf(wgt, vs[j * kHeadDim + lane], o0);
+      o1 = fmaf(wgt, vs[j * kHeadDim + lane + 32], o1);
     }
     const size_t o = static_cast<size_t>(c) * out_clip_stride +
                      (static_cast<size_t>(f) * patches + i) * width + h * kHeadDim + lane;
@@ -127,31 +198,30 @@ space_kernel(const T* __restrict__ qkv, int qkv_clip_stride, const T* __restrict
       dst[o] = quant_rint(o0);
       dst[o + 32] = quant_rint(o1);
     } else {
-      T* dst = static_cast<T*>(out);
-      dst[o] = from_float<T>(o0);
-      dst[o + 32] = from_float<T>(o1);
+      float* dst = static_cast<float*>(out);
+      dst[o] = o0;
+      dst[o + 32] = o1;
     }
     __syncwarp();  // the next row overwrites p
   }
 }
 
-template <typename T, bool kInt8Out>
-int launch_space(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride, void* out,
-                 int out_clip_stride, int groups, int frames, int patches, int heads, float scale,
-                 float out_mul, cudaStream_t s) {
+template <bool kInt8Out>
+int launch_space_f32(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride, void* out,
+                     int out_clip_stride, int groups, int frames, int patches, int heads, float scale, float out_mul,
+                     cudaStream_t s) {
   const int keys = patches + 1;
   const int lp = keys + (keys & 1);
-  const size_t smem = space_smem_bytes<T>(keys, lp);
-  auto kernel = space_kernel<T, kInt8Out>;
+  const size_t smem = space_f32_smem_bytes(keys, lp);
+  auto kernel = space_kernel_f32<kInt8Out>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((patches + kQueryTile - 1) / kQueryTile, heads, groups);
-  kernel<<<grid, kThreads, smem, s>>>(static_cast<const T*>(qkv), qkv_clip_stride, static_cast<const T*>(gkv),
-                                      gkv_stride, out, out_clip_stride, frames, patches, lp, heads, scale,
-                                      out_mul);
+  kernel<<<grid, kThreads, smem, s>>>(static_cast<const float*>(qkv), qkv_clip_stride, static_cast<const float*>(gkv),
+                                      gkv_stride, out, out_clip_stride, frames, patches, lp, heads, scale, out_mul);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -334,26 +404,24 @@ int launch_cls(const void* qkv, void* out, int out_clip_stride, int clips, int s
 
 extern "C" size_t fitclip_fit_space_smem_bytes(int dtype, int patches) {
   const int keys = patches + 1;
-  const int lp = keys + (keys & 1);
-  return dtype == kBFloat16 ? space_smem_bytes<__nv_bfloat16>(keys, lp) : space_smem_bytes<float>(keys, lp);
+  return dtype == kBFloat16 ? attn::smem_bytes(keys, kHeadDim) : space_f32_smem_bytes(keys, keys + (keys & 1));
 }
 
 extern "C" size_t fitclip_fit_cls_smem_bytes(int seq) { return cls_smem_bytes(seq); }
 
 // Strides are in elements. int8_out = 1: out is int8 and out_mul rides the
 // normalizer; int8_out = 0: out is in qkv's dtype (out_mul must be 1 for time).
+// Space routes by dtype: bf16 to the tensor-core kernel, fp32 to the CUDA cores.
 extern "C" int fitclip_fit_space_attention(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride,
                                            int dtype, void* out, int out_clip_stride, int int8_out, int groups,
                                            int frames, int patches, int heads, int head_dim, float scale,
                                            float out_mul, void* stream) {
   if (head_dim != kHeadDim || frames < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-#define FIT_SPACE(T, I8) \
-  launch_space<T, I8>(qkv, qkv_clip_stride, gkv, gkv_stride, out, out_clip_stride, groups, frames, patches, heads, \
-                      scale, out_mul, s)
-  if (dtype == kBFloat16) return int8_out ? FIT_SPACE(bf16, true) : FIT_SPACE(bf16, false);
-  if (dtype == kFloat32) return int8_out ? FIT_SPACE(float, true) : FIT_SPACE(float, false);
+#define FIT_SPACE(FN, I8) \
+  FN<I8>(qkv, qkv_clip_stride, gkv, gkv_stride, out, out_clip_stride, groups, frames, patches, heads, scale, out_mul, s)
+  if (dtype == kBFloat16) return int8_out ? FIT_SPACE(launch_space_bf16, true) : FIT_SPACE(launch_space_bf16, false);
+  if (dtype == kFloat32) return int8_out ? FIT_SPACE(launch_space_f32, true) : FIT_SPACE(launch_space_f32, false);
 #undef FIT_SPACE
   return static_cast<int>(cudaErrorInvalidValue);
 }

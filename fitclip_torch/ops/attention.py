@@ -27,11 +27,33 @@ Three Hopper kernels serve the CLIP wrappers, and K8 is composed of two:
   the attention kernel. On Hopper the (B, L, 3W) qkv makes one round trip
   through device memory between the two launches.
 
-On the H100 the kernels are bound by latency and shared-memory bandwidth: one
-head's two (L, D) operands sit in shared memory (K alone for fp32 past L = 427),
-so a block reads them once for 64 rows and the (L, L) logits never reach device
-memory. See the sources for the layouts. head_dim is 32 or 64 (ViT-S/16's and
-every other preset's); the FiT kernels take 64, FiT base's.
+On the H100 the forward attention runs one of four bodies of ``attention.cu``,
+picked by ``attention_body`` from (dtype, L, head_dim) alone; the kernel entry
+refuses any other:
+
+- ``mma`` (bf16, L <= 208: every CLIP and SLIP tower, FiT's 197 keys): the
+  tensor-core core of ``csrc/attention_mma.cuh``. A block copies one head's K
+  and V into shared memory once for 64 query rows; each warp runs QK^T and P.V
+  for 16 rows on ``mma.sync`` with every logit in registers, an exact row max
+  and sum (no online softmax), and the weights rounded to bf16 in registers.
+  It is bound by latency (each warp's chain of loads, exps and mma steps),
+  far from its bytes bound and from the tensor cores' peak.
+- ``mma_sweep`` (bf16, L > 208: ViT-L/14's 257, ViT-L/14@336's 577): the same
+  core over tiles of 64 keys, QK^T recomputed in each of three passes (max,
+  sum, weights and P.V), so the function stays exact.
+- ``f32`` and ``f32_v_global`` (fp32): the CUDA-core bodies (tensor cores would
+  take fp32 as TF32), one query row per warp against K and V in shared memory;
+  where fp32 K and V exceed a block's shared memory (L = 577) K alone, with V
+  read through L2.
+
+Every bf16 mode runs on the tensor cores: K1's int8 core, K2's block mode,
+K3f and K8's attention, and the bench arms' modes. FiT's space kernel (K5, K4
+space) runs the same core on bf16 with a loader of its own (the global row
+then the group rows). The backward (``attention_bwd.cu``) is bound by latency
+and shared-memory bandwidth on the CUDA cores: one head's transposed operands
+sit in shared memory (the first alone for fp32 past L = 427). head_dim is 32
+or 64 (ViT-S/16's and every other preset's); the FiT kernels take 64, FiT
+base's.
 
 K5 and K6 are forward only, as in the reference ("Forward only (inference
 paths)"): on CUDA they raise when autograd would need their gradient.
@@ -58,6 +80,11 @@ _QKV, _INT8, _BLOCK = 0, 1, 2  # csrc/attention.cu modes
 HEAD_DIMS = (32, 64)  # attention.cu and attention_bwd.cu: ViT-S/16's and every other preset's
 HEAD_DIM = 64  # fit_attention.cu's: FiT base's
 SMEM_LIMIT = 232448  # shared memory a block can use on an H100
+# attention.cu's bodies (its Body codes) and the bf16 length past which the
+# logits no longer stay in registers (attention_mma.cuh: kResidentKeys).
+BODIES = {"mma": 0, "mma_sweep": 1, "f32": 2, "f32_v_global": 3}
+MMA_RESIDENT_KEYS = 208
+_F32_WARPS = 8  # attention.cu's fp32 bodies: one row buffer per warp
 MAX_FRAMES = 16  # the time kernel keeps each location's frames in registers
 
 
@@ -99,25 +126,56 @@ def attention_int8_plain(qkv, heads, scale, causal, out_mul, seq_valid=None):
                                               seq_valid, torch.float32))
 
 
+def _mma_smem_bytes(seq: int, head_dim: int) -> int:
+    """The mma bodies' shared memory: K and V, ceil(L / 16) * 16 rows of bf16."""
+    return 2 * 2 * (-(-seq // 16) * 16) * head_dim
+
+
+def _f32_smem_bytes(seq: int, head_dim: int, v_global: bool) -> int:
+    """The fp32 bodies': K^T, V (unless read through L2) and the row buffers."""
+    lp = seq + (seq & 1)
+    align = lambda n: -(-n // 16) * 16  # noqa: E731
+    return (align(4 * head_dim * lp) + (0 if v_global else align(4 * seq * head_dim))
+            + 4 * _F32_WARPS * lp)
+
+
+def attention_body(dtype: torch.dtype, seq: int, head_dim: int) -> str:
+    """The body of ``csrc/attention.cu`` that takes (dtype, L, head_dim): bf16
+    runs on the tensor cores ("mma", or "mma_sweep" past MMA_RESIDENT_KEYS),
+    fp32 on the CUDA cores ("f32", or "f32_v_global" where K and V overflow a
+    block's shared memory). Raises where no body takes the shape. The kernel
+    entry holds its launch to the same rule (``fitclip_attention_body``)."""
+    if head_dim not in HEAD_DIMS or seq < 1:
+        raise ValueError(f"the attention kernels take head_dim {HEAD_DIMS} and L >= 1, got "
+                         f"head_dim {head_dim}, L {seq}")
+    if dtype == torch.bfloat16:
+        smem = _mma_smem_bytes(seq, head_dim)
+        if smem <= SMEM_LIMIT:
+            return "mma" if seq <= MMA_RESIDENT_KEYS else "mma_sweep"
+    elif dtype == torch.float32:
+        if _f32_smem_bytes(seq, head_dim, False) <= SMEM_LIMIT:
+            return "f32"
+        smem = _f32_smem_bytes(seq, head_dim, True)
+        if head_dim == 64 and smem <= SMEM_LIMIT:
+            return "f32_v_global"
+    else:
+        raise TypeError(f"the attention kernels take float32 or bfloat16, not {dtype}")
+    raise ValueError(f"sequence length {seq} at head_dim {head_dim} in {dtype} needs {smem} "
+                     f"bytes of shared memory per block; an H100 block has {SMEM_LIMIT}")
+
+
 def _launch(qkv, heads, scale, causal, seq_valid, out, mode, out_mul):
     _build.check_cuda_operand("qkv", qkv, ndim=3)
     _build.check_cuda_operand("out", out, ndim=3)
     batch, seq, _ = qkv.shape
     head_dim = _check_head_dim(qkv, heads)
-    code = _build.dtype_code(qkv.dtype)
-    smem_bytes = _build.library().fitclip_attention_smem_bytes
-    # K and V in shared memory where they fit, else K alone with V read through L2.
-    v_global = int(smem_bytes(code, seq, head_dim, 0) > SMEM_LIMIT)
-    smem = smem_bytes(code, seq, head_dim, v_global)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"sequence length {seq} needs {smem} bytes of shared memory "
-                         f"per block; an H100 block has {SMEM_LIMIT}")
+    body = BODIES[attention_body(qkv.dtype, seq, head_dim)]
     valid = seq if seq_valid is None else min(int(seq_valid), seq)
     if valid < 1:
         raise ValueError(f"seq_valid must be >= 1, got {seq_valid}")
-    _build.call("fitclip_attention", qkv.data_ptr(), code, out.data_ptr(), mode,
-                batch, seq, heads, head_dim, float(scale), int(causal), valid,
-                float(out_mul), v_global)
+    _build.call("fitclip_attention", qkv.data_ptr(), _build.dtype_code(qkv.dtype), out.data_ptr(),
+                mode, batch, seq, heads, head_dim, float(scale), int(causal), valid,
+                float(out_mul), body)
 
 
 def attention_backward_plain(qkv: torch.Tensor, grad_out: torch.Tensor, heads: int,
