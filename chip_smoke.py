@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (fitclip_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --train-steps [DIR]   # phase 6 (d) alone, for DIR's package
 
 Drives seven paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -17,20 +18,22 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
    at the main paths' shapes (ViT-B/16 vision: 32 frames x 197 tokens x 768;
    text: 8 x 77 x 512; the attention backward at the training shapes, 128
-   frames x 197 x 2304 and 32 x 77 x 1536 causal, in bf16 and fp32; FiT base:
+   frames x 197 x 2304 and 32 x 77 x 1536 causal, in bf16 and fp32, timed in
+   bf16 at both; FiT base:
    K4's int8 attention cores on the joint 32 x 785 x 2304 qkv, K5 on 128 frame
    groups of 196 rows, K6 on 32 x 784 x 2304; the S3D-G stem, K7, on 32 clips x
    16 frames of 224^2; the float layer's kernels, K2, at 32 x 197 x 768 with its
    GEMMs at M = 6304 and (N, K) = (2304, 768), (768, 768), (3072, 768),
    (768, 3072), its attention also at 8 x 77 causal; K8 at 32 x 197 x 768;
    the repaired shapes: fp32 attention at L = 577 (forward and backward on
-   their global variants, V and g read through L2) and every attention mode and the backward at head_dim 32 (ViT-S/16, 32 x
-   197 x 384, 6 heads); bf16 attention past 208 keys on the mma sweep (8 x
-   257 and 4 x 577, 16 heads, full and causal with seq_valid, every shipped
-   mode); the bench kernels at the benches' production shapes:
-   S1's LN, attention and fc-epilogue modes on 512 frames x 197 x 768, S2's
-   modes, amax pass and s8 attention on 512 x 197 x 2304, slice-requant on 32 x
-   785 x 2304).
+   their global variants, V and g read through L2) and every attention mode
+   and the backward at head_dim 32 (ViT-S/16, 32 x 197 x 384, 6 heads); bf16
+   attention past 208 keys on the mma sweep (8 x 257 and 4 x 577, 16 heads,
+   full and causal with seq_valid, every shipped mode, and the backward there
+   and at 1 x 900 on its global body); the bench kernels at the benches'
+   production shapes: S1's LN, attention and fc-epilogue modes on 512 frames
+   x 197 x 768, S2's modes, amax pass and s8 attention on 512 x 197 x 2304,
+   slice-requant on 32 x 785 x 2304).
    int8 outputs may differ by one step on at most 0.1% of
    the elements; float outputs stay within atol/rtol 2e-2 of the plain version
    run in fp32, the stem's within one bf16 ulp on all but 0.1%; two launches of
@@ -65,7 +68,15 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
        kernels, 3 steps with finite losses and counted launches;
    (c) resume: 3 steps, checkpoint, restore, 2 more equal (a)'s 5 straight
        steps bit for bit (params and AdamW moments);
-   (d) timings: contrastive and teacher-student step ms, clips/s, peak memory;
+   (d) timings: contrastive and teacher-student step ms (the median of 5
+       chains of 3 steps after warm-up, with min and max), clips/s, peak
+       memory, and a profile of one step of each by group: the attention
+       backward (K3b), the forward attention, the port's GEMM and LN kernels,
+       cuBLAS, the optimizer; the contrastive and teacher-student profiles
+       require K3b's tensor-core kernels (rows_mma_kernel, columns_mma_kernel)
+       by name and no CUDA-core backward body. ``--train-steps DIR`` runs this
+       part alone for the package under DIR (the parent's, say), on batches of
+       its own;
 7. Frozen-in-Time base (Bain et al., ICCV 2021: 12 SpaceTimeBlocks of width
    768, 4 frames of 196 patches, DistilBERT, projection 256): load int8 and
    bf16 from seed 0 with device="cuda", calibrate the int8 encoder on 8 clips,
@@ -223,14 +234,14 @@ def timing(kernel_ms, plain_ms, library_ms, bound_pair):
             "bound_ms": bound_pair[0], "bound_by": bound_pair[1]}
 
 
-def sdpa_ms(torch, q, k, v, scale, backward=False):
+def sdpa_ms(torch, q, k, v, scale, backward=False, causal=False):
     """One F.scaled_dot_product_attention call on (N, H, S, D) operands
     (the yardstick of an attention kernel; the port never calls it)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if not backward:
-        return cuda_ms(lambda: sdpa(q, k, v, scale=scale))
+        return cuda_ms(lambda: sdpa(q, k, v, scale=scale, is_causal=causal))
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-    out = sdpa(q, k, v, scale=scale)
+    out = sdpa(q, k, v, scale=scale, is_causal=causal)
     grad = torch.ones_like(out)
     return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True))
 
@@ -485,15 +496,25 @@ def kernel_phase(torch, checks: KernelChecks):
             again = A.fused_attention_qkv_backward(qkv, grad, heads, scale_q, causal)
             require(torch.equal(out, again), f"{name} {what}: two launches differ")
             print(f"  {name} {what}: two launches bit-identical")
-            if tag == "vision" and dtype == torch.bfloat16:
-                times[name] = timing(
+            if dtype == torch.bfloat16:
+                # Under causal only the pairs at or below the diagonal are computed.
+                pairs = seq * (seq + 1) // 2 if causal else seq * seq
+                timed = timing(
                     cuda_ms(lambda: A.fused_attention_qkv_backward(qkv, grad, heads, scale_q,
                                                                    causal)),
                     cuda_ms(lambda: A.attention_backward_plain(qkv, grad, heads, scale_q,
                                                                causal)),
-                    sdpa_ms(torch, *heads_first(qkv, heads), scale_q, backward=True),
+                    sdpa_ms(torch, *heads_first(qkv, heads), scale_q, backward=True,
+                            causal=causal),
                     bound(b * seq * 3 * w * 2 * 2 + b * seq * w * 2,
-                          10 * b * heads * seq * seq * (w // heads), "bf16"))
+                          10 * b * heads * pairs * (w // heads), "bf16"))
+                print(f"  {name} {what}: {timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} "
+                      f"ms, bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}), SDPA "
+                      f"backward {timed['library_ms']:.4f} ms")
+                if tag == "vision":
+                    times[name] = timed
+                else:  # the text tower's shape rides in the kernel's record
+                    times[name]["text"] = dict(timed, shape=f"{b} x {seq} x {3 * w} causal")
             del out, again
     return times
 
@@ -731,11 +752,14 @@ def s3dg_kernel_phase(torch, checks: KernelChecks):
 def fault_kernel_phase(torch, checks: KernelChecks):
     """Phase 3, the repaired shapes: the fp32 attention at L = 577 (ViT-L/14@336;
     the forward reads V through L2, the backward V and g; the function's
-    gradient runs through both kernels) and every attention mode and the
-    backward at head_dim 32 (SLIP ViT-S/16: 32 x 197 x 384, 6 heads)."""
+    gradient runs through both kernels), bf16 past 208 keys (the forward's and
+    the backward rows kernel's sweep) and past 848 (the backward's global
+    body), and every attention mode and the backward at head_dim 32 (SLIP
+    ViT-S/16: 32 x 197 x 384, 6 heads)."""
     from fitclip_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(11)
+    bwd_gen = torch.Generator(device="cuda").manual_seed(13)
     b, seq, heads, d = 2, 577, 16, 64
     qkv = (1.5 * torch.randn(b, seq, 3 * heads * d, generator=gen, device="cuda"))
     scale, out_mul = d ** -0.5, 127.0 / 2.5
@@ -780,6 +804,30 @@ def fault_kernel_phase(torch, checks: KernelChecks):
                          A.attention_core_plain(qkv.float(), 16, scale, causal, 1.0, valid))
             require(torch.equal(out, A.attention_block(qkv, 16, scale, causal, valid)),
                     f"attention_block {tag}: two launches differ")
+            # The backward's rows kernel sweeps here too (no seq_valid in training);
+            # its inputs come from a generator of their own.
+            tag = f"bf16 {b} x {seq} x {3 * 16 * 64}{' causal' if causal else ''} (rows sweep)"
+            grad = torch.randn(b, seq, 16 * 64, generator=bwd_gen, device="cuda").to(
+                torch.bfloat16)
+            out = A.fused_attention_qkv_backward(qkv, grad, 16, scale, causal)
+            checks.float("fused_attention_qkv_backward", tag, out, A.attention_backward_plain(
+                qkv.float(), grad.float(), 16, scale, causal))
+            require(torch.equal(out, A.fused_attention_qkv_backward(qkv, grad, 16, scale, causal)),
+                    f"fused_attention_qkv_backward {tag}: two launches differ")
+    # bf16 past 848 keys: the backward's global body (V and g through L2).
+    b, seq = 1, 900
+    require(A.backward_body(torch.bfloat16, seq, 64) == "mma_global",
+            f"bf16 L = {seq}: not on the backward's global body")
+    qkv = (1.5 * torch.randn(b, seq, 3 * 16 * 64, generator=bwd_gen, device="cuda")).to(
+        torch.bfloat16)
+    grad = torch.randn(b, seq, 16 * 64, generator=bwd_gen, device="cuda").to(torch.bfloat16)
+    for causal in (False, True):
+        tag = f"bf16 {b} x {seq} x {3 * 16 * 64}{' causal' if causal else ''} (V and g through L2)"
+        out = A.fused_attention_qkv_backward(qkv, grad, 16, scale, causal)
+        checks.float("fused_attention_qkv_backward", tag, out, A.attention_backward_plain(
+            qkv.float(), grad.float(), 16, scale, causal))
+        require(torch.equal(out, A.fused_attention_qkv_backward(qkv, grad, 16, scale, causal)),
+                f"fused_attention_qkv_backward {tag}: two launches differ")
 
     b, seq, heads, d = 32, 197, 6, 32
     what = f"head_dim 32, {b} x {seq} x {3 * heads * d}"
@@ -1132,14 +1180,112 @@ def same_bits(torch, a, b) -> bool:
                     for k in ("mu", "nu") for n in named_a))
 
 
+def step_chains(torch, fn, chains: int = 5, steps: int = 3, warmup: int = 2):
+    """ms per step of each of ``chains`` chains of ``steps`` steps after warm-up,
+    each chain timed by CUDA events from its first step to its last."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(chains):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / steps)
+    return out
+
+
+# A train step's device time by group (first match by kernel name): the attention
+# backward (K3b: the bf16 tensor-core kernels, or the fp32 CUDA-core ones), the
+# forward attention, the port's GEMM and LayerNorm kernels (the int8 teacher),
+# cuBLAS and the fused AdamW.
+STEP_GROUPS = (
+    ("K3b", ("rows_mma_kernel", "columns_mma_kernel", "::rows_kernel<", "::columns_kernel<")),
+    ("forward attention", ("attention_mma_kernel", "attention_kernel_f32")),
+    ("port GEMM + LN", ("int8_gemm_kernel", "bf16_gemm_kernel", "ln_kernel")),
+    ("cuBLAS", ("nvjet", "cublas", "cutlass", "xmma", "gemm", "gemv")),
+    ("optimizer", ("Adam", "multi_tensor_apply")),
+)
+K3B_MMA = ("rows_mma_kernel", "columns_mma_kernel")
+
+
+def step_profile(torch, what, fn, require_mma):
+    """torch.profiler over one step: its device ms by group and the top kernels.
+    With require_mma, the bf16 backward must show both tensor-core kernels and
+    no CUDA-core body."""
+    per_kernel, busy = profile_ms(torch, fn, calls=1)
+    total = sum(per_kernel.values())
+    groups = {name: 0.0 for name, _ in STEP_GROUPS}
+    groups["other"] = 0.0
+    for key, ms in per_kernel.items():
+        group = next((name for name, marks in STEP_GROUPS if any(m in key for m in marks)),
+                     "other")
+        groups[group] += ms
+    print(f"{what} profile, one step: device {total:.3f} ms, busy share {busy:.3f} of the "
+          f"host window; by group (ms, share): " +
+          ", ".join(f"{name} {ms:.3f} ({ms / total:.2%})" for name, ms in groups.items()))
+    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
+    if require_mma:
+        for name in K3B_MMA:
+            ms = sum(v for k, v in per_kernel.items() if name in k)
+            require(ms > 0, f"{what}: the profile shows no {name}")
+        slow = [k for k in per_kernel if "::rows_kernel<" in k or "::columns_kernel<" in k]
+        require(not slow, f"{what}: the bf16 backward ran a CUDA-core body: {slow}")
+    return {"device_ms": total, "busy": busy, "groups_ms": groups}
+
+
+def step_timings(torch, student_template, teacher, batch, ts_batch, require_mma):
+    """Phase 6 (d): the contrastive (32 clips) and teacher-student (8 + 8, the
+    int8 teacher) steps that run_train drives, on fresh states: ms per step as
+    the median of 5 chains of 3 steps after warm-up (with min and max), peak
+    memory, and a profile of one step of each."""
+    from fitclip_torch.training.state import init_train_state, make_optimizer
+    from fitclip_torch.training.steps import (make_contrastive_train_step,
+                                              make_teacher_student_train_step)
+    from fitclip_torch.training.train_runner import make_batch_preparer
+
+    frames = student_template.encoder.num_frames
+    optimizer = make_optimizer(3e-6, weight_decay=0.01, eps=1e-8, fused=True)
+    timings = {}
+    for kind in ("contrastive", "teacher_student"):
+        torch.cuda.empty_cache()
+        encoder = copy.deepcopy(student_template.encoder)
+        if kind == "contrastive":
+            state = init_train_state(encoder, optimizer, init_temperature=0.015)
+            step = make_contrastive_train_step(encoder, optimizer)
+            device_batch = make_batch_preparer("cuda")(batch)
+        else:
+            state = init_train_state(encoder, optimizer, init_temperature=0.05,
+                                     with_teacher_student_scale=True)
+            step = make_teacher_student_train_step(encoder, teacher.encoder, optimizer,
+                                                   labeled_loss_share=0.9999)
+            device_batch = make_batch_preparer("cuda")(ts_batch)
+        torch.cuda.reset_peak_memory_stats()
+        chains = step_chains(torch, lambda: step(state, device_batch))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        median = float(np.median(chains))
+        timings[kind] = {"ms": median, "min_ms": min(chains), "max_ms": max(chains),
+                         "chains_ms": chains, "peak_gib": peak}
+        clips = 32 if kind == "contrastive" else 16
+        print(f"train (d) {kind} step, {'32' if clips == 32 else '8 + 8'} clips x {frames} "
+              f"frames: median {median:.3f} ms (min {min(chains):.3f}, max {max(chains):.3f}; "
+              f"5 chains of 3 steps), {clips * 1e3 / median:.1f} clips/s, peak {peak:.2f} GiB")
+        timings[kind]["profile"] = step_profile(torch, f"train (d) {kind}",
+                                                lambda: step(state, device_batch), require_mma)
+        del state, step, encoder, device_batch
+    return timings
+
+
 def training_phase(torch, student_template, teacher, wrappers, workdir: Path):
     """Phase 6; returns ({phase: launches summed over its steps}, timings)."""
     import fitclip_torch.models.clip.model as model_module
     from fitclip_torch.models.clip.load import LoadedEncoder
     from fitclip_torch.ops.losses import nce_loss
-    from fitclip_torch.training.state import init_train_state, make_optimizer
-    from fitclip_torch.training.steps import (make_contrastive_train_step,
-                                              make_teacher_student_train_step)
     from fitclip_torch.training.train_runner import make_batch_preparer
 
     def counters():
@@ -1247,33 +1393,9 @@ def training_phase(torch, student_template, teacher, wrappers, workdir: Path):
             f"teacher-student launches per step {ts_launches}, expected {expected}")
     shutil.rmtree(workdir)
 
-    # (d) Timings of the steps run_train drives, on fresh states.
-    torch.cuda.empty_cache()
-    timings = {}
-    optimizer = make_optimizer(3e-6, weight_decay=0.01, eps=1e-8, fused=True)
-    encoder = student().encoder
-    state = init_train_state(encoder, optimizer, init_temperature=0.015)
-    step = make_contrastive_train_step(encoder, optimizer)
-    torch.cuda.reset_peak_memory_stats()
-    timings["contrastive_ms"] = cuda_ms(lambda: step(state, device_batch), iters=5, warmup=2)
-    timings["contrastive_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    del state, step, encoder
-    torch.cuda.empty_cache()
-    encoder = student().encoder
-    state = init_train_state(encoder, optimizer, init_temperature=0.05,
-                             with_teacher_student_scale=True)
-    step = make_teacher_student_train_step(encoder, teacher.encoder, optimizer,
-                                           labeled_loss_share=0.9999)
-    ts_device_batch = make_batch_preparer("cuda")(ts_batches[0])
-    torch.cuda.reset_peak_memory_stats()
-    timings["teacher_student_ms"] = cuda_ms(lambda: step(state, ts_device_batch), iters=5,
-                                            warmup=2)
-    timings["teacher_student_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train (d) contrastive step, 32 clips x {frames} frames: "
-          f"{timings['contrastive_ms']:.3f} ms, {32e3 / timings['contrastive_ms']:.1f} clips/s, "
-          f"peak {timings['contrastive_peak_gib']:.2f} GiB; teacher-student step, 8 + 8 clips: "
-          f"{timings['teacher_student_ms']:.3f} ms, "
-          f"peak {timings['teacher_student_peak_gib']:.2f} GiB")
+    # (d) Timings and a profile of the steps run_train drives, on fresh states.
+    timings = step_timings(torch, student_template, teacher, batches[0], ts_batches[0],
+                           require_mma=True)
     return totals, timings
 
 
@@ -1746,6 +1868,43 @@ def slip_phase(torch, wrappers, video, calib_text, text, video32):
     return paths, timings
 
 
+def train_steps_only(torch, package: Path) -> int:
+    """``--train-steps [DIR]``: phase 6 (d) alone, for the fitclip_torch package
+    under DIR (default: this checkout), so that two trees' steps are timed by the
+    same code in one run. Prints the card, the timings and their profiles, and
+    one JSON line of the timings."""
+    sys.path.insert(0, str(package))
+    from fitclip_torch import _build
+    from fitclip_torch.models.clip.load import LoadedEncoder, load_clip_encoder
+
+    print(f"train steps of {package}; device: {torch.cuda.get_device_name(0)}; "
+          f"nvidia-smi: {nvidia_smi()}")
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s")
+    rng = np.random.default_rng(2)
+    with torch.no_grad():
+        teacher = load_clip_encoder("ViT-B/16", dtype="int8", device="cuda", seed=0).encoder
+        teacher.fold_pixel_normalization()
+        teacher.calibrate(torch.from_numpy(rng.integers(0, 256, (8, 4, 224, 224, 3),
+                                                        dtype=np.uint8)).cuda(),
+                          torch.from_numpy(token_ids(32, rng)).cuda())
+    student = load_clip_encoder("ViT-B/16", dtype="bfloat16", device="cuda", seed=0)
+
+    def clips(n):
+        return rng.integers(0, 256, size=(n, 4, 224, 224, 3), dtype=np.uint8)
+
+    sub = lambda: {"video_student": clips(8), "text_student": token_ids(8, rng)}  # noqa: E731
+    ts_batch = {half: {**part, "video_teacher": part["video_student"],
+                       "text_teacher": part["text_student"]}
+                for half, part in (("labeled", sub()), ("unlabeled", sub()))}
+    timings = step_timings(torch, student, LoadedEncoder(teacher),
+                           {"video": clips(32), "text": token_ids(32, rng)}, ts_batch,
+                           require_mma=False)
+    print(json.dumps({"train_steps": timings, "package": str(package)}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1753,6 +1912,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--train-steps"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return train_steps_only(torch, Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
     sys.path.insert(0, str(ROOT))
     from fitclip_torch import _build
     from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
@@ -1925,13 +2088,15 @@ def main() -> int:
                "fused_attention_qkv_backward": "attention_bwd.cu", "s3dg_stem": "s3dg_stem.cu",
                **{name: "fit_attention.cu" for name in fit_attention}}
     # The __global__ bodies of the attention rows on the paths timed here (bf16):
-    # attention.cu's and the FiT space kernel's tensor-core core, attention_mma.cuh.
+    # attention.cu's and the FiT space kernel's tensor-core core, attention_mma.cuh,
+    # and the backward's two kernels, attention_bwd_mma.cuh.
     bodies = {**{name: "attention_mma_kernel" for name in (
                   "attention_int8", "fused_attention_qkv", "attention_block",
                   "fused_int8_qkv_attention",
                   *(n for n in BENCH_KERNELS if n.startswith("attention_") and "i8" not in n))},
               "fused_attention_qkv_gkv": "space_mma_kernel",
-              "fit_space_attention_int8": "space_mma_kernel"}
+              "fit_space_attention_int8": "space_mma_kernel",
+              "fused_attention_qkv_backward": "+".join(K3B_MMA)}
     record = [{"name": name, "route": "cuda",
                "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",
                "replaces": replaces.get(name, "fitclip_tpu/ops/block.py:137"),

@@ -48,7 +48,7 @@ _SIGNATURES = {
     # qkv, dtype, out, mode, batch, seq, heads, head_dim, scale, causal,
     # seq_valid, out_mul, body, stream
     "fitclip_attention": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _P),
-    # qkv, grad, dtype, dqkv, stats, batch, seq, heads, head_dim, scale, causal, global,
+    # qkv, grad, dtype, dqkv, stats, batch, seq, heads, head_dim, scale, causal, body,
     # stream
     "fitclip_attention_bwd": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # qkv, qkv_clip_stride, gkv, gkv_stride, dtype, out, out_clip_stride, int8_out,
@@ -70,7 +70,7 @@ _SIGNATURES = {
 }
 # The size_t shared-memory queries: name -> their int arguments.
 _SMEM_QUERIES = {
-    "fitclip_attention_bwd_smem_bytes": 4,  # dtype, seq, head_dim, global
+    "fitclip_attention_bwd_smem_bytes": 3,  # seq, head_dim, body
     "fitclip_fit_space_smem_bytes": 2,      # dtype, patches
     "fitclip_fit_cls_smem_bytes": 1,        # seq
     "fitclip_s3dg_stem_smem_bytes": 1,      # frame width
@@ -79,6 +79,7 @@ _SMEM_QUERIES = {
 # The int queries: name -> their int arguments.
 _INT_QUERIES = {
     "fitclip_attention_body": 3,  # dtype, seq, head_dim -> attention.cu's body, or -1
+    "fitclip_attention_bwd_body": 3,  # dtype, seq, head_dim -> attention_bwd.cu's body, or -1
 }
 
 

@@ -181,6 +181,19 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// Copy rows 0 .. loaded - 1 (row(j)) into a swizzled [row][d] tile and zero
+// rows loaded .. round16(loaded) - 1; one cp.async group, left in flight.
+template <int D, typename RowFn>
+__device__ __forceinline__ void load_tile(bf16* dst, int loaded, RowFn row) {
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < round16(loaded) * kChunks; idx += kThreads) {
+    const int j = idx / kChunks, c = idx % kChunks;
+    const bool valid = j < loaded;
+    cp_async16(dst + tile_offset<D>(j, c), row(valid ? j : 0) + c * 8, valid);
+  }
+  cp_async_commit();
+}
+
 // Copy keys 0 .. loaded-1 of one head into the K and V tiles and zero rows
 // loaded .. round16(loaded)-1. row(j) points at key j's q slice of the head:
 // its k slice is width elements on, its v slice 2 * width. K and V are two
@@ -190,18 +203,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 // the one wait_v inside attend before P.V.
 template <int D, typename RowFn>
 __device__ __forceinline__ void load_kv(bf16* ks, bf16* vs, int loaded, int width, RowFn row) {
-  constexpr int kChunks = D / 8;
-  const int filled = round16(loaded);
-#pragma unroll
-  for (int part = 1; part <= 2; ++part) {
-    bf16* dst = part == 1 ? ks : vs;
-    for (int idx = threadIdx.x; idx < filled * kChunks; idx += kThreads) {
-      const int j = idx / kChunks, c = idx % kChunks;
-      const bool valid = j < loaded;
-      cp_async16(dst + tile_offset<D>(j, c), row(valid ? j : 0) + part * width + c * 8, valid);
-    }
-    cp_async_commit();
-  }
+  load_tile<D>(ks, loaded, [&](int j) { return row(j) + width; });
+  load_tile<D>(vs, loaded, [&](int j) { return row(j) + 2 * width; });
 }
 
 __device__ __forceinline__ void wait_k() {

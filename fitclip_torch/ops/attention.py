@@ -13,7 +13,7 @@ Three Hopper kernels serve the CLIP wrappers, and K8 is composed of two:
   ``attention.py:_packed_bwd_kernel``: it recomputes the softmax from the saved
   qkv, as ``_fwd`` saves only qkv. Where the fp32 K and V of one head exceed a
   block's shared memory (L = 577, ViT-L/14@336), both read their second operand
-  through L2 (the v_global variant of ``attention.cu``, the global variant of
+  through L2 (the v_global body of ``attention.cu``, the f32_global body of
   ``attention_bwd.cu``), each picked by shape.
 - ``attention_int8``: replaces the attention core of ``block.py:_layer_kernel``
   (K1). The out-projection's requant multiplier rides the softmax normalizer
@@ -49,11 +49,27 @@ refuses any other:
 Every bf16 mode runs on the tensor cores: K1's int8 core, K2's block mode,
 K3f and K8's attention, and the bench arms' modes. FiT's space kernel (K5, K4
 space) runs the same core on bf16 with a loader of its own (the global row
-then the group rows). The backward (``attention_bwd.cu``) is bound by latency
-and shared-memory bandwidth on the CUDA cores: one head's transposed operands
-sit in shared memory (the first alone for fp32 past L = 427). head_dim is 32
-or 64 (ViT-S/16's and every other preset's); the FiT kernels take 64, FiT
-base's.
+then the group rows).
+
+The backward (``attention_bwd.cu``) runs one of three bodies, picked by
+``backward_body`` from (dtype, L, head_dim) alone; the kernel entry refuses
+any other:
+
+- ``mma`` (bf16, any L whose q_s, g and statistics fit a block: up to 848 at
+  head_dim 64): the tensor-core kernels of ``csrc/attention_bwd_mma.cuh``. A
+  rows kernel (64 query rows a block, K and V in shared memory once) takes
+  each row's peak, denominator and inner = rowsum(dW W32) and dQ; a columns
+  kernel (64 keys a block, q_s and g of the rows that see them in shared
+  memory) takes dK and dV from those statistics. Every product is an
+  ``mma.sync``; no atomics, so two launches give the same bits.
+  ``mma_global`` past that reads V and g through L2.
+- ``f32`` and ``f32_global`` (fp32): the same two-kernel split on the CUDA
+  cores, one query row or one key per warp against the head's two transposed
+  operands in shared memory; where they exceed a block's shared memory (past
+  L = 395 at head_dim 64) the first alone, with V and g read through L2.
+
+head_dim is 32 or 64 (ViT-S/16's and every other preset's); the FiT kernels
+take 64, FiT base's.
 
 K5 and K6 are forward only, as in the reference ("Forward only (inference
 paths)"): on CUDA they raise when autograd would need their gradient.
@@ -83,8 +99,9 @@ SMEM_LIMIT = 232448  # shared memory a block can use on an H100
 # attention.cu's bodies (its Body codes) and the bf16 length past which the
 # logits no longer stay in registers (attention_mma.cuh: kResidentKeys).
 BODIES = {"mma": 0, "mma_sweep": 1, "f32": 2, "f32_v_global": 3}
+BACKWARD_BODIES = {"mma": 0, "mma_global": 1, "f32": 2, "f32_global": 3}  # attention_bwd.cu's
 MMA_RESIDENT_KEYS = 208
-_F32_WARPS = 8  # attention.cu's fp32 bodies: one row buffer per warp
+_F32_WARPS = 8  # the fp32 bodies' warps per block (attention.cu, attention_bwd.cu)
 MAX_FRAMES = 16  # the time kernel keeps each location's frames in registers
 
 
@@ -228,12 +245,47 @@ def _check_head_dim(qkv, heads, head_dims=HEAD_DIMS):
     return head_dim
 
 
-def backward_smem_bytes(qkv: torch.Tensor, heads: int, global_operand: bool = False) -> int:
-    """Shared memory per block of the backward kernel at qkv's shape (of its
-    global variant with global_operand)."""
-    head_dim = _check_head_dim(qkv, heads)
-    return _build.library().fitclip_attention_bwd_smem_bytes(
-        _build.dtype_code(qkv.dtype), qkv.shape[1], head_dim, int(global_operand))
+def backward_smem_bytes(seq: int, head_dim: int, body: str) -> int:
+    """Shared memory per block of a body of ``csrc/attention_bwd.cu`` at (L,
+    head_dim), the larger of its two kernels'. mma: q_s and g (q_s alone where
+    g is read through L2), ceil(L / 16) * 16 rows of bf16, and four fp32
+    statistics per row. f32: two transposed fp32 operands at an odd pitch (the
+    first alone where the second is read through L2), three statistics and
+    two row buffers per warp."""
+    if body in ("mma", "mma_global"):
+        rows = -(-seq // 16) * 16
+        return (1 if body == "mma_global" else 2) * 2 * rows * head_dim + 4 * 4 * rows
+    if body in ("f32", "f32_global"):
+        lp = seq | 1
+        operand = -(-4 * head_dim * lp // 16) * 16
+        return ((1 if body == "f32_global" else 2) * operand + 4 * 3 * lp
+                + 4 * 2 * _F32_WARPS * lp)
+    raise ValueError(f"no backward body {body!r}; the bodies are {sorted(BACKWARD_BODIES)}")
+
+
+def backward_body(dtype: torch.dtype, seq: int, head_dim: int) -> str:
+    """The body of ``csrc/attention_bwd.cu`` that takes (dtype, L, head_dim): bf16
+    runs the tensor-core kernels, fp32 the CUDA-core ones; each reads its second
+    operand (V and g) through L2 where both overflow a block's shared memory
+    ("mma" or "mma_global", "f32" or "f32_global"). Raises where no body takes
+    the shape. The kernel entry holds its launch to the same rule
+    (``fitclip_attention_bwd_body``)."""
+    if head_dim not in HEAD_DIMS or seq < 1:
+        raise ValueError(f"the attention backward takes head_dim {HEAD_DIMS} and L >= 1, got "
+                         f"head_dim {head_dim}, L {seq}")
+    if dtype == torch.bfloat16:
+        candidates = ("mma", "mma_global")
+    elif dtype == torch.float32:
+        candidates = ("f32", "f32_global")
+    else:
+        raise TypeError(f"the attention backward takes float32 or bfloat16, not {dtype}")
+    for body in candidates:
+        smem = backward_smem_bytes(seq, head_dim, body)
+        if smem <= SMEM_LIMIT:
+            return body
+    raise ValueError(f"the attention backward at sequence length {seq}, head_dim {head_dim} in "
+                     f"{dtype} needs {smem} bytes of shared memory per block; an H100 block "
+                     f"has {SMEM_LIMIT}")
 
 
 @torch.library.custom_op("fitclip::fused_attention_qkv", mutates_args=())
@@ -261,20 +313,12 @@ def fused_attention_qkv_backward(qkv: torch.Tensor, grad_out: torch.Tensor, head
         raise ValueError(f"grad_out must be {(batch, seq, triple // 3)}, got "
                          f"{tuple(grad_out.shape)}")
     head_dim = _check_head_dim(qkv, heads)
-    code = _build.dtype_code(qkv.dtype)
-    # Both transposed operands (K^T and V^T; (q_s)^T and g^T) in shared memory where
-    # they fit, else the first alone with the second read through L2.
-    global_operand = backward_smem_bytes(qkv, heads) > SMEM_LIMIT
-    smem = backward_smem_bytes(qkv, heads, global_operand)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"the attention backward at sequence length {seq} in {qkv.dtype} "
-                         f"needs {smem} bytes of shared memory per block; an H100 block "
-                         f"has {SMEM_LIMIT}")
+    body = BACKWARD_BODIES[backward_body(qkv.dtype, seq, head_dim)]
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(3, batch, heads, seq, dtype=torch.float32, device=qkv.device)
-    _build.call("fitclip_attention_bwd", qkv.data_ptr(), grad_out.data_ptr(), code,
-                dqkv.data_ptr(), stats.data_ptr(), batch, seq, heads, head_dim, float(scale),
-                int(causal), int(global_operand))
+    _build.call("fitclip_attention_bwd", qkv.data_ptr(), grad_out.data_ptr(),
+                _build.dtype_code(qkv.dtype), dqkv.data_ptr(), stats.data_ptr(), batch, seq,
+                heads, head_dim, float(scale), int(causal), body)
     fused_attention_qkv_backward.launches += 1
     return dqkv
 

@@ -337,18 +337,24 @@ def test_fused_int8_layer_kernels_match_plain(cuda, quick_gelu, causal):
 @pytest.mark.parametrize("batch,seq,heads,causal,head_dim", [
     (4, 197, 12, False, 64), (4, 77, 8, True, 64), (3, 50, 12, False, 64),
     (2, 257, 16, True, 64), (1, 577, 16, False, 64),  # every CLIP preset's L
-    (4, 197, 6, False, 32), (4, 77, 8, True, 32)])    # ViT-S/16's head_dim
+    (4, 197, 6, False, 32), (4, 77, 8, True, 32),     # ViT-S/16's head_dim
+    (2, 65, 8, False, 64), (2, 65, 8, True, 64),      # one key past a tile of 64
+    (2, 209, 8, False, 64), (2, 209, 8, True, 32)])   # one key past the resident 208
 def test_attention_backward_kernel_matches_plain(cuda, dtype, batch, seq, heads, causal,
                                                  head_dim):
     gen = torch.Generator().manual_seed(5)
     width, scale = heads * head_dim, head_dim ** -0.5
     qkv = (1.5 * torch.randn(batch, seq, 3 * width, generator=gen)).to(cuda, dtype)
     grad = torch.randn(batch, seq, width, generator=gen).to(cuda, dtype)
-    if dtype == torch.float32 and seq == 577:
+    body = A.backward_body(dtype, seq, head_dim)
+    if dtype == torch.bfloat16:
+        assert body == "mma"
+    elif seq == 577:
         # fp32 K^T and V^T of L = 577 exceed a block's shared memory: the
-        # global variant keeps one operand there and reads the other through L2.
-        assert A.backward_smem_bytes(qkv, heads) > A.SMEM_LIMIT
-        assert A.backward_smem_bytes(qkv, heads, True) <= A.SMEM_LIMIT
+        # global body keeps one operand there and reads the other through L2.
+        assert body == "f32_global"
+        assert A.backward_smem_bytes(seq, head_dim, "f32") > A.SMEM_LIMIT
+        assert A.backward_smem_bytes(seq, head_dim, "f32_global") <= A.SMEM_LIMIT
     before = A.fused_attention_qkv_backward.launches
     out = A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal)
     # At head_dim 32 the scale 32^-1/2 magnifies the bf16 rounding of dL that the
@@ -363,6 +369,64 @@ def test_attention_backward_kernel_matches_plain(cuda, dtype, batch, seq, heads,
     # No atomics: two launches give the same bits.
     assert torch.equal(out, A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal))
     assert A.fused_attention_qkv_backward.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,causal", [(13, False), (77, True), (150, False), (300, True)])
+def test_bf16_attention_backward_pads_ragged_lengths(cuda, seq, causal):
+    """bf16 runs the tensor-core body at any L, also one not a multiple of 16:
+    the zero-filled pad rows (K and V in the rows kernel, q_s and g in the
+    columns kernel) keep every output finite, and a row or key past the end is
+    never written over its neighbour's."""
+    assert seq % 16 and A.backward_body(torch.bfloat16, seq, 64) == "mma"
+    gen = torch.Generator().manual_seed(7)
+    qkv = (1.5 * torch.randn(3, seq, 3 * 256, generator=gen)).to(cuda, torch.bfloat16)
+    grad = torch.randn(3, seq, 256, generator=gen).to(cuda, torch.bfloat16)
+    out = A.fused_attention_qkv_backward(qkv, grad, 4, 0.125, causal)
+    assert bool(torch.isfinite(out.float()).all())
+    ref = A.attention_backward_plain(qkv.float(), grad.float(), 4, 0.125, causal)
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,seq,heads,causal,head_dim", [
+    (1, 900, 4, False, 64), (1, 1000, 2, True, 64), (1, 1700, 2, True, 32)])
+def test_bf16_attention_backward_global_body_matches_plain(cuda, batch, seq, heads, causal,
+                                                           head_dim):
+    """Past 848 keys at head_dim 64 (1600 at 32) bf16 reads V and g through L2
+    (mma_global), under the same rules as the shared-memory body."""
+    assert A.backward_body(torch.bfloat16, seq, head_dim) == "mma_global"
+    gen = torch.Generator().manual_seed(8)
+    width, scale = heads * head_dim, head_dim ** -0.5
+    qkv = (1.5 * torch.randn(batch, seq, 3 * width, generator=gen)).to(cuda, torch.bfloat16)
+    grad = torch.randn(batch, seq, width, generator=gen).to(cuda, torch.bfloat16)
+    out = A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal)
+    same_casts = head_dim == 32  # as in test_attention_backward_kernel_matches_plain
+    ref = A.attention_backward_plain(qkv if same_casts else qkv.float(),
+                                     grad if same_casts else grad.float(), heads, scale,
+                                     causal).float()
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    assert torch.equal(out, A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal))
+
+
+@pytest.mark.cuda
+def test_attention_backward_body_rule_matches_the_kernel_entry(cuda):
+    """backward_body and backward_smem_bytes (ops/attention.py) and the kernel
+    entry's rule and sizes (fitclip_attention_bwd_body, _smem_bytes) agree, so
+    no launch the wrapper makes is refused."""
+    lib = _build.library()
+    for dtype in (torch.bfloat16, torch.float32):
+        for head_dim in A.HEAD_DIMS:
+            for seq in range(1, 3073):
+                try:
+                    body = A.backward_body(dtype, seq, head_dim)
+                    want = A.BACKWARD_BODIES[body]
+                    assert lib.fitclip_attention_bwd_smem_bytes(seq, head_dim, want) == \
+                        A.backward_smem_bytes(seq, head_dim, body)
+                except ValueError:
+                    want = -1
+                got = lib.fitclip_attention_bwd_body(_build.dtype_code(dtype), seq, head_dim)
+                assert got == want, (dtype, seq, head_dim)
 
 
 @pytest.mark.cuda
@@ -947,6 +1011,41 @@ def test_nosoftmax_is_no_further_from_fp64_logits_than_plain(cuda, seq):
     plain = misses(P.attention_variant_plain(qkv, heads, 0.125, False, 1.0, None, "nosoftmax"))
     print(f"nosoftmax L={seq}: outputs past the float rule against fp64 logits: "
           f"kernel {kernel}, plain {plain} of {qkv.numel() // 3}")
+    assert kernel <= plain
+
+
+def _attention_fp64(qkv, heads, scale):
+    """The qkv-mode attention of qkv's values in float64: no rounding between steps."""
+    batch, seq, triple = qkv.shape
+    width = triple // 3
+    x = qkv.double().reshape(batch, seq, 3, heads, width // heads).permute(2, 0, 3, 1, 4)
+    weights = torch.softmax((x[0] * scale) @ x[1].transpose(-1, -2), -1)
+    return (weights @ x[2]).transpose(1, 2).reshape(batch, seq, width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,head_dim", [(6, 32), (12, 64)])
+def test_bf16_attention_is_no_further_from_fp64_than_plain(cuda, heads, head_dim):
+    """The bf16 forward (qkv mode) against the function in float64 on the same
+    bf16 inputs, over 20 seeds at 32 x 197: it puts no more outputs past the
+    float rule than the plain version with the same casts does. At head_dim 32
+    both miss it on a few outputs (the bf16 casts' own error, magnified by the
+    scale 32^-1/2), so a check of that shape against the fp32 plain version
+    depends on its inputs; ``-s`` prints the counts."""
+    scale = head_dim ** -0.5
+    kernel = plain = 0
+    for seed in range(20):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        qkv = (1.5 * torch.randn(32, 197, 3 * heads * head_dim, generator=gen, device=cuda)).to(
+            torch.bfloat16)
+        exact = _attention_fp64(qkv, heads, scale)
+        rule = FLOAT_TOL + FLOAT_TOL * exact.abs()
+        misses = [int(((out.double() - exact).abs() > rule).sum())
+                  for out in (A.fused_attention_qkv(qkv, heads, scale),
+                              A.attention_core_plain(qkv, heads, scale, False))]
+        kernel, plain = kernel + misses[0], plain + misses[1]
+    print(f"head_dim {head_dim}: outputs past the float rule against fp64, 20 seeds x "
+          f"{32 * 197 * heads * head_dim}: kernel {kernel}, plain with the same casts {plain}")
     assert kernel <= plain
 
 
