@@ -42,8 +42,11 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    its plain time, its bound (bytes over 3.35 TB/s or operations over the
    peak of their type) and, where one PyTorch call computes the same function
    (scaled_dot_product_attention; torch._int_mm for the int8 GEMMs' product
-   only; torch.addmm for the bf16 bias GEMM; F.layer_norm for ln_cast), that
-   call's time;
+   only; torch.addmm for the bf16 bias GEMM, torch.mm, the product only, for
+   its residual and GELU GEMMs; F.layer_norm for ln_cast), that call's time.
+   The QKV GEMMs are also timed at the encode's M = 25,216 (32 clips x 4
+   frames). The int8 bias and residual GEMMs are bit-identical to their plain
+   versions, and two launches of each bf16 GEMM give the same bits;
 4. the CLIP slice: load, fold the pixel normalization, calibrate on 8 clips and
    32 token rows, encode 8 clips and 8 token rows. The launch counters, zeroed
    just before and read just after, must show calibration through the qkv-mode
@@ -55,7 +58,10 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    profile and those of phases 7 and 9 require the tensor-core attention
    bodies (attention_mma_kernel, space_mma_kernel) by kernel name, and no
    CUDA-core attention body (attention_kernel_f32, space_kernel_f32): every
-   bf16 attention runs on the tensor cores;
+   bf16 attention runs on the tensor cores; the int8 and K2 paths' profiles
+   require the wgmma GEMM kernels (int8_gemm_wgmma_kernel,
+   bf16_gemm_wgmma_kernel), and no profile may show the mma.sync GEMM kernels
+   they replaced (int8_gemm_kernel, bf16_gemm_kernel);
 6. training: bf16 compute, fp32 master weights, fused attention, fused AdamW,
    synthetic uint8 video and token ids from a seed, through ``run_train``:
    (a) contrastive, 32 clips x 4 frames, config/trainer.yaml's optimizer and
@@ -273,6 +279,23 @@ def min_cosine(a, b) -> float:
     return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
 
 
+def print_encode_row(name, timed) -> None:
+    print(f"  {name} at {timed['shape']}: {timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} ms, "
+          f"bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}), library "
+          f"{timed['library_ms']:.4f} ms")
+
+
+def bit_identical_to_plain(name, what, kernel_out, plain_out) -> None:
+    """The int8 GEMM's bias and residual outputs round where their plain
+    versions do (the exact int32 sum as fp32, then * scale, + bias, + residual,
+    one rounding each): they must be bit-identical."""
+    import torch
+
+    require(torch.equal(kernel_out, plain_out), f"{name} {what}: not bit-identical to the plain "
+            f"version (max |diff| {float((kernel_out.float() - plain_out.float()).abs().max())})")
+    print(f"  {name} {what}: bit-identical to the plain version")
+
+
 class KernelChecks:
     """Kernel-vs-plain comparisons, with the largest error seen per kernel."""
 
@@ -405,21 +428,43 @@ def kernel_phase(torch, checks: KernelChecks):
         out = K.int8_gemm_bias(a_w, wq, sq, bq, torch.bfloat16)
         checks.float("int8_gemm_bias", f"{tag} qkv", out,
                       K.int8_gemm_bias_plain(a_w, wq, sq, bq, torch.float32))
+        bit_identical_to_plain("int8_gemm_bias", f"{tag} qkv", out,
+                               K.int8_gemm_bias_plain(a_w, wq, sq, bq, torch.bfloat16))
         if timed:  # library: torch._int_mm, the product only, no epilogue
             times["int8_gemm_bias"] = timing(
                 cuda_ms(lambda: K.int8_gemm_bias(a_w, wq, sq, bq, torch.bfloat16)),
                 cuda_ms(lambda: K.int8_gemm_bias_plain(a_w, wq, sq, bq, torch.bfloat16)),
                 cuda_ms(lambda: torch._int_mm(a_w, wq.t())),
                 bound(m * w + 3 * w * w + 3 * w * 8 + m * 3 * w * 2, 2 * m * 3 * w * w, "int8"))
+            # The encode's QKV GEMM: 32 clips x 4 frames x 197 tokens (its own
+            # generator, so that the checks after it keep their inputs).
+            me = 4 * m
+            a_e = torch.randint(-127, 128, (me, w), device=dev, dtype=torch.int8,
+                                generator=torch.Generator(device=dev).manual_seed(13))
+            checks.float("int8_gemm_bias", f"{tag} qkv at the encode's M = {me}",
+                         K.int8_gemm_bias(a_e, wq, sq, bq, torch.bfloat16),
+                         K.int8_gemm_bias_plain(a_e, wq, sq, bq, torch.float32))
+            times["int8_gemm_bias"]["encode"] = dict(timing(
+                cuda_ms(lambda: K.int8_gemm_bias(a_e, wq, sq, bq, torch.bfloat16)),
+                cuda_ms(lambda: K.int8_gemm_bias_plain(a_e, wq, sq, bq, torch.bfloat16), iters=5),
+                cuda_ms(lambda: torch._int_mm(a_e, wq.t())),
+                bound(me * w + 3 * w * w + 3 * w * 8 + me * 3 * w * 2, 2 * me * 3 * w * w, "int8")),
+                shape=f"{me} x {3 * w} x {w}")
+            print_encode_row("int8_gemm_bias", times["int8_gemm_bias"]["encode"])
+            del a_e
 
         so, bo, x_in = scale(w, w), normal(w, std=0.1), normal(m, w, dtype=torch.bfloat16)
         out = K.int8_gemm_residual(a_w, wo, so, bo, x_in, torch.float32)
         checks.float("int8_gemm_residual", f"{tag} out-proj (bf16 -> fp32)", out,
                      K.int8_gemm_residual_plain(a_w, wo, so, bo, x_in, torch.float32))
+        bit_identical_to_plain("int8_gemm_residual", f"{tag} out-proj (bf16 -> fp32)", out,
+                               K.int8_gemm_residual_plain(a_w, wo, so, bo, x_in, torch.float32))
         sp, bp, x32 = scale(w, 4 * w), normal(w, std=0.1), normal(m, w)
         out = K.int8_gemm_residual(a_4w, wp, sp, bp, x32, torch.bfloat16)
         checks.float("int8_gemm_residual", f"{tag} proj (fp32 -> bf16)", out,
                      K.int8_gemm_residual_plain(a_4w, wp, sp, bp, x32, torch.float32))
+        bit_identical_to_plain("int8_gemm_residual", f"{tag} proj (fp32 -> bf16)", out,
+                               K.int8_gemm_residual_plain(a_4w, wp, sp, bp, x32, torch.bfloat16))
         if timed:
             times["int8_gemm_residual"] = timing(
                 cuda_ms(lambda: K.int8_gemm_residual(a_4w, wp, sp, bp, x32, torch.bfloat16)),
@@ -561,14 +606,32 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
     wq, wo, wf, wp = weight(3 * w, w), weight(w, w), weight(4 * w, w), weight(w, 4 * w)
     qb, ob, fb, pb = (normal(n, std=0.1) for n in (3 * w, w, 4 * w, w))
     a_w, a_4w = normal(m, w, dtype=torch.bfloat16), normal(m, 4 * w, dtype=torch.bfloat16)
-    checks.float("bf16_gemm_bias", "vision qkv (6304 x 2304 x 768)", K.bf16_gemm_bias(a_w, wq, qb),
+    out = K.bf16_gemm_bias(a_w, wq, qb)
+    checks.float("bf16_gemm_bias", "vision qkv (6304 x 2304 x 768)", out,
                  K._dense_plain(a_w, wq, qb))
+    require(torch.equal(out, K.bf16_gemm_bias(a_w, wq, qb)), "bf16_gemm_bias: two launches differ")
+    print("  bf16_gemm_bias vision qkv: two launches bit-identical")
     qb16 = qb.bfloat16()
     times["bf16_gemm_bias"] = timing(
         cuda_ms(lambda: K.bf16_gemm_bias(a_w, wq, qb)),
         cuda_ms(lambda: K.bf16_gemm_bias_plain(a_w, wq, qb)),
         cuda_ms(lambda: torch.addmm(qb16, a_w, wq.t())),
         bound(m * w * 2 + 3 * w * w * 2 + 3 * w * 4 + m * 3 * w * 2, 2 * m * 3 * w * w, "bf16"))
+    # The encode's QKV GEMM: 32 clips x 4 frames x 197 tokens (its own
+    # generator, so that the checks after it keep their inputs).
+    me = 4 * m
+    a_e = torch.randn(me, w, device=dev, generator=torch.Generator(device=dev).manual_seed(14))
+    a_e = a_e.to(torch.bfloat16)
+    checks.float("bf16_gemm_bias", f"vision qkv at the encode's M = {me}",
+                 K.bf16_gemm_bias(a_e, wq, qb), K._dense_plain(a_e, wq, qb))
+    times["bf16_gemm_bias"]["encode"] = dict(timing(
+        cuda_ms(lambda: K.bf16_gemm_bias(a_e, wq, qb)),
+        cuda_ms(lambda: K.bf16_gemm_bias_plain(a_e, wq, qb), iters=5),
+        cuda_ms(lambda: torch.addmm(qb16, a_e, wq.t())),
+        bound(me * w * 2 + 3 * w * w * 2 + 3 * w * 4 + me * 3 * w * 2, 2 * me * 3 * w * w, "bf16")),
+        shape=f"{me} x {3 * w} x {w}")
+    print_encode_row("bf16_gemm_bias", times["bf16_gemm_bias"]["encode"])
+    del a_e
     out = K.bf16_gemm_residual(a_w, wo, ob, x_bf16, torch.float32)
     checks.float("bf16_gemm_residual", "vision out-proj (bf16 -> fp32)", out,
                  K.bf16_gemm_residual_plain(a_w, wo, ob, x_bf16, torch.float32))
@@ -576,9 +639,10 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
     checks.float("bf16_gemm_residual", "vision proj (fp32 -> bf16, K = 3072)",
                  K.bf16_gemm_residual(a_4w, wp, pb, x32, torch.bfloat16),
                  K.bf16_gemm_residual_plain(a_4w, wp, pb, x32, torch.float32))
-    times["bf16_gemm_residual"] = timing(
+    times["bf16_gemm_residual"] = timing(  # library: torch.mm, the product only
         cuda_ms(lambda: K.bf16_gemm_residual(a_4w, wp, pb, x32, torch.bfloat16)),
-        cuda_ms(lambda: K.bf16_gemm_residual_plain(a_4w, wp, pb, x32, torch.bfloat16)), None,
+        cuda_ms(lambda: K.bf16_gemm_residual_plain(a_4w, wp, pb, x32, torch.bfloat16)),
+        cuda_ms(lambda: torch.mm(a_4w, wp.t())),
         bound(m * 4 * w * 2 + 4 * w * w * 2 + w * 4 + m * w * 4 + m * w * 2, 2 * m * w * 4 * w,
               "bf16"))
     for quick in (True, False):
@@ -587,9 +651,10 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
         checks.float("bf16_gemm_gelu", f"vision fc ({'quick' if quick else 'exact'} GELU)",
                       K.bf16_gemm_gelu(a_w, wf, fb, quick), ref)
         del h, ref
-    times["bf16_gemm_gelu"] = timing(
+    times["bf16_gemm_gelu"] = timing(  # library: torch.mm, the product only
         cuda_ms(lambda: K.bf16_gemm_gelu(a_w, wf, fb, False)),
-        cuda_ms(lambda: K.bf16_gemm_gelu_plain(a_w, wf, fb, False)), None,
+        cuda_ms(lambda: K.bf16_gemm_gelu_plain(a_w, wf, fb, False)),
+        cuda_ms(lambda: torch.mm(a_w, wf.t())),
         bound(m * w * 2 + 4 * w * w * 2 + 4 * w * 4 + m * 4 * w * 2, 2 * m * 4 * w * w, "bf16"))
     del a_4w, x32
 
@@ -1199,6 +1264,11 @@ def step_chains(torch, fn, chains: int = 5, steps: int = 3, warmup: int = 2):
     return out
 
 
+# The port's GEMM kernels (csrc/gemm_wgmma.cuh's wgmma mainloop) by name, and
+# the mma.sync GEMM kernels they replaced, which no profile may show.
+INT8_GEMM, BF16_GEMM = "int8_gemm_wgmma_kernel", "bf16_gemm_wgmma_kernel"
+OLD_GEMMS = ("int8_gemm_kernel", "bf16_gemm_kernel")
+
 # A train step's device time by group (first match by kernel name): the attention
 # backward (K3b: the bf16 tensor-core kernels, or the fp32 CUDA-core ones), the
 # forward attention, the port's GEMM and LayerNorm kernels (the int8 teacher),
@@ -1206,7 +1276,7 @@ def step_chains(torch, fn, chains: int = 5, steps: int = 3, warmup: int = 2):
 STEP_GROUPS = (
     ("K3b", ("rows_mma_kernel", "columns_mma_kernel", "::rows_kernel<", "::columns_kernel<")),
     ("forward attention", ("attention_mma_kernel", "attention_kernel_f32")),
-    ("port GEMM + LN", ("int8_gemm_kernel", "bf16_gemm_kernel", "ln_kernel")),
+    ("port GEMM + LN", (INT8_GEMM, BF16_GEMM, "ln_kernel")),
     ("cuBLAS", ("nvjet", "cublas", "cutlass", "xmma", "gemm", "gemv")),
     ("optimizer", ("Adam", "multi_tensor_apply")),
 )
@@ -1438,22 +1508,25 @@ def profile_ms(torch, fn, calls: int = 3):
 CUDA_CORE_ATTENTION = ("attention_kernel_f32", "space_kernel_f32")
 
 
-def print_profile(torch, what, fn, top=10, mma=None):
+def print_profile(torch, what, fn, top=10, mma=None, gemm=()):
     """The profile's top kernels; with mma (kernel names), require that those
-    tensor-core attention bodies ran and no CUDA-core attention body did."""
+    tensor-core attention bodies ran and no CUDA-core attention body did; with
+    gemm, that those GEMM kernels ran. No profile may show an old GEMM kernel."""
     per_kernel, busy = profile_ms(torch, fn)
     total = sum(per_kernel.values())
     print(f"{what} profile, device {total:.3f} ms per call, busy share {busy:.3f} of the host "
           f"window; top kernels (ms per call, share):")
     for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
+    for name in (*(mma or ()), *gemm):
+        ms = sum(v for k, v in per_kernel.items() if name in k)
+        print(f"  {what}: {name} {ms:.3f} ms per call ({ms / total:.2%})")
+        require(ms > 0, f"{what}: the profile shows no {name}")
     if mma:
-        for name in mma:
-            ms = sum(v for k, v in per_kernel.items() if name in k)
-            print(f"  {what}: {name} {ms:.3f} ms per call ({ms / total:.2%})")
-            require(ms > 0, f"{what}: the profile shows no {name}")
         slow = [k for k in per_kernel if any(name in k for name in CUDA_CORE_ATTENTION)]
         require(not slow, f"{what}: a bf16 path ran a CUDA-core attention body: {slow}")
+    old = [k for k in per_kernel if any(name in k for name in OLD_GEMMS)]
+    require(not old, f"{what}: the profile shows a replaced GEMM kernel: {old}")
 
 
 def fit_phase(torch, wrappers):
@@ -1556,7 +1629,7 @@ def fit_phase(torch, wrappers):
           f"{timings['text_ms']:.3f} ms, {256e3 / timings['text_ms']:.1f} rows/s")
 
     print_profile(torch, "fit: int8 encode_video", lambda: int8_enc.encode_video(video), top=12,
-                  mma=("space_mma_kernel",))
+                  mma=("space_mma_kernel",), gemm=(INT8_GEMM,))
     print_profile(torch, "fit: bf16 encode_video", lambda: bf16_enc.encode_video(video), top=6,
                   mma=("space_mma_kernel",))
     return paths, timings
@@ -1749,7 +1822,7 @@ def clip_bf16_fused_phase(torch, wrappers, module_enc, video, text, video32):
     print(f"clip bf16 fused_block encode_video, 32 clips x 4 frames: {ms:.3f} ms, "
           f"{32e3 / ms:.1f} clips/s, peak {timings['clip_bf16_fused_peak_gib']:.2f} GiB")
     print_profile(torch, "clip bf16 fused_block encode_video", lambda: enc.encode_video(video32),
-                  mma=("attention_mma_kernel",))
+                  mma=("attention_mma_kernel",), gemm=(BF16_GEMM,))
     return {"clip_bf16_fused_encode": launches}, timings
 
 
@@ -1864,7 +1937,8 @@ def slip_phase(torch, wrappers, video, calib_text, text, video32):
               f"GiB; encode_text, 256 rows x 77: {timings[f'{tag}_text_ms']:.3f} ms, "
               f"{256e3 / timings[f'{tag}_text_ms']:.1f} rows/s")
     print_profile(torch, "slip int8 module path (K8) encode_video",
-                  lambda: int8_enc.encode_video(video32), mma=("attention_mma_kernel",))
+                  lambda: int8_enc.encode_video(video32), mma=("attention_mma_kernel",),
+                  gemm=(INT8_GEMM,))
     return paths, timings
 
 
@@ -2029,7 +2103,7 @@ def main() -> int:
           f"{32e3 / int8_ms:.1f} clips/s, peak {peak_gib:.2f} GiB; "
           f"bf16 float model: {float_ms:.3f} ms, {32e3 / float_ms:.1f} clips/s")
     print_profile(torch, "clip int8 encode_video", lambda: int8_enc.encode_video(video32),
-                  mma=("attention_mma_kernel",))
+                  mma=("attention_mma_kernel",), gemm=(INT8_GEMM,))
     print_profile(torch, "clip bf16 module path encode_video",
                   lambda: float_enc.encode_video(video32), top=6, mma=("attention_mma_kernel",))
 
@@ -2087,16 +2161,19 @@ def main() -> int:
                **{name: "bf16_gemm.cu" for name in K2_LAUNCHES_PER_LAYER if "gemm" in name},
                "fused_attention_qkv_backward": "attention_bwd.cu", "s3dg_stem": "s3dg_stem.cu",
                **{name: "fit_attention.cu" for name in fit_attention}}
-    # The __global__ bodies of the attention rows on the paths timed here (bf16):
-    # attention.cu's and the FiT space kernel's tensor-core core, attention_mma.cuh,
-    # and the backward's two kernels, attention_bwd_mma.cuh.
+    # The __global__ bodies of the rows on the paths timed here: attention.cu's
+    # and the FiT space kernel's tensor-core core, attention_mma.cuh (bf16), the
+    # backward's two kernels, attention_bwd_mma.cuh, and the GEMMs' wgmma kernels.
     bodies = {**{name: "attention_mma_kernel" for name in (
                   "attention_int8", "fused_attention_qkv", "attention_block",
-                  "fused_int8_qkv_attention",
                   *(n for n in BENCH_KERNELS if n.startswith("attention_") and "i8" not in n))},
               "fused_attention_qkv_gkv": "space_mma_kernel",
               "fit_space_attention_int8": "space_mma_kernel",
-              "fused_attention_qkv_backward": "+".join(K3B_MMA)}
+              "fused_attention_qkv_backward": "+".join(K3B_MMA),
+              "fused_int8_qkv_attention": f"{INT8_GEMM}+attention_mma_kernel",
+              **{name: INT8_GEMM for name in (*INT8_LAUNCHES_PER_LAYER, *BENCH_KERNELS)
+                 if name.startswith("int8_gemm")},
+              **{name: BF16_GEMM for name in K2_LAUNCHES_PER_LAYER if name.startswith("bf16_gemm")}}
     record = [{"name": name, "route": "cuda",
                "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",
                "replaces": replaces.get(name, "fitclip_tpu/ops/block.py:137"),

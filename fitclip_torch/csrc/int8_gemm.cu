@@ -11,28 +11,19 @@
 //              GELU through the A&S 7.1.26 erf polynomial, then rint/clip -> int8
 //
 // On the H100 these products are bound by compute: at M = B * L >= 6k rows the
-// ViT-B/16 shapes do ~100 int8 operations per byte moved. The simple design
-// uses mma.sync.m16n8k32 (s8 x s8 -> s32): 128 x 128 output tiles, eight warps
-// of 64 x 32 each, K in steps of 64 bytes through a two-stage cp.async ring in
-// shared memory (rows padded to 80 bytes, so the fragment loads hit 32 banks).
-// wgmma and TMA are later work.
-#include "common.cuh"
+// ViT-B/16 shapes do ~100 int8 operations per byte moved. The mainloop is
+// gemm_wgmma.cuh's: wgmma.m64n128k32 (s8 x s8 -> s32) on 128 x 128 tiles fed
+// by TMA through a six-stage mbarrier ring, on a persistent grid. This file
+// holds the epilogues, applied straight from the accumulator registers. The
+// int32 sum is exact in any order, so each output is the one the epilogue's
+// fp32 steps give, whatever the summation order.
+#include "gemm_wgmma.cuh"
 
 using namespace fitclip;
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 64, kThreads = 256;
-constexpr int kLds = kBK + 16;  // shared-memory row stride in bytes
-enum Epilogue : int { kBias = 0, kResidual = 1, kGelu = 2 };
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+enum Site : int { kBias = 0, kResidual = 1, kGelu = 2 };
 
 // The fc epilogues: acc -> int8. kExact and kQuick are the folded epilogues of
 // block.py:_layer_kernel, with its exact divides: t = acc * fs2 + fb2, then the
@@ -49,156 +40,148 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
 enum Act : int { kExact = 0, kQuick = 1, kSigmoid = 2, kBf16 = 3, kFold = 4, kFold16 = 5,
                  kSigmoidCast = 6 };
 
-template <int kAct>
-__device__ __forceinline__ int8_t gelu_quant(int acc, float scale, float bias, float kv) {
-  if (kAct == kBf16) {
-    const float h = bf16_round(add(bf16_round(mul(bf16_round(__int2float_rn(acc)), bf16_round(scale))),
-                                   bf16_round(bias)));
-    const float z = bf16_round(mul(bf16_round(1.702f), h));
-    const float sg = bf16_round(div(1.f, bf16_round(add(1.f, bf16_round(expf(-z))))));
-    const float g = bf16_round(mul(h, sg));
-    return quant_rint(bf16_round(mul(g, bf16_round(kv))));
-  }
-  if (kAct == kFold16) {
-    const float t = bf16_round(add(bf16_round(mul(bf16_round(__int2float_rn(acc)), bf16_round(scale))),
-                                   bf16_round(bias)));
-    const float e = bf16_round(exp2f(bf16_round(mul(t, bf16_round(kv)))));
-    const float r = bf16_round(div(1.f, bf16_round(add(1.f, e))));
-    return quant_rint(bf16_round(mul(t, r)));
-  }
-  const float t = add(mul(__int2float_rn(acc), scale), bias);
-  if (kAct == kSigmoid || kAct == kSigmoidCast) {
-    const float g = mul(t, div(1.f, add(1.f, expf(-mul(1.702f, t)))));
-    return kAct == kSigmoid ? quant_rint(mul(g, kv)) : trunc_int8(g);
-  }
-  if (kAct == kQuick || kAct == kFold) {
-    const float e = exp2f(mul(t, kv));
-    return quant_rint(kAct == kQuick ? div(t, add(1.f, e)) : mul(t, rcp_approx(add(1.f, e))));
-  }
-  const float z = mul(t, kv);
-  const float az = fabsf(z);
-  const float u = div(1.f, add(1.f, mul(0.3275911f, az)));
-  const float poly = mul(u, add(0.254829592f, mul(u, add(-0.284496736f, mul(u, add(
-      1.421413741f, mul(u, add(-1.453152027f, mul(u, 1.061405429f)))))))));
-  const float pe = mul(poly, exp2f(mul(mul(-1.4426950408889634f, az), az)));
-  const float erf = z < 0.f ? sub(pe, 1.f) : sub(1.f, pe);
-  return quant_rint(mul(mul(0.5f, t), add(1.f, erf)));
+// quant_rint(v) with one conversion where quant_rint takes two (rint, then the
+// truncating convert): cvt.rni rounds half to even as rintf does and saturates,
+// the clip is done on the integer, and NaN, which quant_rint's fmaxf sends to
+// -127, goes there too. The same int8 for every float.
+__device__ __forceinline__ int8_t quant_rn(float v) {
+  return static_cast<int8_t>(v != v ? -127 : min(max(__float2int_rn(v), -127), 127));
 }
 
+// Four outputs at once, each step written for all four before the next (the
+// same operations on each output, in the same order), the four divides in one
+// gemm::div4 (the IEEE divide's result without its per-quotient branch): the
+// steps overlap across the outputs instead of waiting on one output's chain of
+// exp, divide and round.
+#define FITCLIP_EACH _Pragma("unroll") for (int i = 0; i < 4; ++i)
+
+template <int kAct>
+__device__ __forceinline__ gemm::Quad<int8_t> gelu_quant(const gemm::Quad<int>& acc,
+                                                        const gemm::Four& scale,
+                                                        const gemm::Four& bias, float kv) {
+  constexpr float kOnes[4] = {1.f, 1.f, 1.f, 1.f};
+  gemm::Quad<int8_t> y;
+  float t[4], d[4], q[4];
+  if constexpr (kAct == kBf16) {  // h in t, then 1 + exp(-z) in d, sg in q
+    FITCLIP_EACH t[i] = bf16_round(add(bf16_round(mul(bf16_round(__int2float_rn(acc.v[i])),
+                                                       bf16_round(scale.v[i]))),
+                                        bf16_round(bias.v[i])));
+    FITCLIP_EACH d[i] = bf16_round(add(1.f, bf16_round(expf(-bf16_round(mul(bf16_round(1.702f), t[i]))))));
+    gemm::div4(kOnes, d, q);
+    FITCLIP_EACH y.v[i] = quant_rn(bf16_round(mul(bf16_round(mul(t[i], bf16_round(q[i]))), bf16_round(kv))));
+  } else if constexpr (kAct == kFold16) {
+    FITCLIP_EACH t[i] = bf16_round(add(bf16_round(mul(bf16_round(__int2float_rn(acc.v[i])),
+                                                       bf16_round(scale.v[i]))),
+                                        bf16_round(bias.v[i])));
+    FITCLIP_EACH d[i] = bf16_round(add(1.f, bf16_round(exp2f(bf16_round(mul(t[i], bf16_round(kv)))))));
+    gemm::div4(kOnes, d, q);
+    FITCLIP_EACH y.v[i] = quant_rn(bf16_round(mul(t[i], bf16_round(q[i]))));
+  } else {
+    FITCLIP_EACH t[i] = add(mul(__int2float_rn(acc.v[i]), scale.v[i]), bias.v[i]);
+    if constexpr (kAct == kSigmoid || kAct == kSigmoidCast) {
+      FITCLIP_EACH d[i] = add(1.f, expf(-mul(1.702f, t[i])));
+      gemm::div4(kOnes, d, q);
+      FITCLIP_EACH {
+        const float g = mul(t[i], q[i]);
+        y.v[i] = kAct == kSigmoid ? quant_rn(mul(g, kv)) : trunc_int8(g);
+      }
+    } else if constexpr (kAct == kQuick || kAct == kFold) {
+      FITCLIP_EACH d[i] = add(1.f, exp2f(mul(t[i], kv)));
+      if constexpr (kAct == kQuick) {
+        gemm::div4(t, d, q);
+      } else {
+        FITCLIP_EACH q[i] = mul(t[i], rcp_approx(d[i]));
+      }
+      FITCLIP_EACH y.v[i] = quant_rn(q[i]);
+    } else {  // kExact: z = t * kv, then u = 1 / (1 + 0.3275911 |z|) in q
+      float z[4];
+      FITCLIP_EACH z[i] = mul(t[i], kv);
+      FITCLIP_EACH d[i] = add(1.f, mul(0.3275911f, fabsf(z[i])));
+      gemm::div4(kOnes, d, q);
+      FITCLIP_EACH {
+        const float az = fabsf(z[i]), u = q[i];
+        const float poly = mul(u, add(0.254829592f, mul(u, add(-0.284496736f, mul(u, add(
+            1.421413741f, mul(u, add(-1.453152027f, mul(u, 1.061405429f)))))))));
+        const float pe = mul(poly, exp2f(mul(mul(-1.4426950408889634f, az), az)));
+        const float erf = z[i] < 0.f ? sub(pe, 1.f) : sub(1.f, pe);
+        y.v[i] = quant_rn(mul(mul(0.5f, t[i]), add(1.f, erf)));
+      }
+    }
+  }
+  return y;
+}
+
+#undef FITCLIP_EACH
+
+// The epilogue of csrc/gemm_wgmma.cuh's mainloop: acc * scale + bias (kBias),
+// residual + that (kResidual), or the fc epilogue gelu_quant<kAct> (kGelu).
 template <int kEpi, typename ResT, typename OutT, int kAct>
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w, int m, int n, int k,
-                 const float* __restrict__ scale, const float* __restrict__ bias,
-                 const ResT* __restrict__ residual, OutT* __restrict__ out, float kv) {
-  __shared__ __align__(16) int8_t as[2][kBM * kLds];
-  __shared__ __align__(16) int8_t ws[2][kBN * kLds];
+struct Epilogue {
+  const float* __restrict__ scale;
+  const float* __restrict__ bias;
+  const ResT* __restrict__ residual;
+  OutT* __restrict__ out;
+  float kv;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int g = lane >> 2, t = lane & 3;
+  struct Column { gemm::Four scale, bias; };
+  using Input = std::conditional_t<kEpi == kResidual, gemm::Four, gemm::None>;
+  static constexpr bool kHeavy = kEpi == kGelu;
 
-  // Each stage is 128 rows x 64 bytes of A and of W: 512 chunks of 16 bytes each.
-  auto load = [&](int stage, int k0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int c = tid + r * kThreads;
-      const int row = c >> 2, col = (c & 3) * 16;
-      const int kc = k0 + col;
-      const bool k_in = kc < k;
-      const int am = m0 + row, wr = n0 + row;
-      cp_async16(&as[stage][row * kLds + col],
-                 a + static_cast<size_t>(am < m ? am : 0) * k + (k_in ? kc : 0), am < m && k_in);
-      cp_async16(&ws[stage][row * kLds + col],
-                 w + static_cast<size_t>(wr < n ? wr : 0) * k + (k_in ? kc : 0), wr < n && k_in);
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  const int ktiles = (k + kBK - 1) / kBK;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < ktiles) load(cur ^ 1, (kt + 1) * kBK);
-    cp_async_commit();  // possibly empty, so that "all but the newest group" is tile kt
-    cp_async_wait_one();
-    __syncthreads();
-    const int8_t* at = as[cur];
-    const int8_t* wt = ws[cur];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* p0 = at + (wm + mi * 16 + g) * kLds + kk + t * 4;
-        const int8_t* p1 = p0 + 8 * kLds;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(p0);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(p1);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* q = wt + (wn + ni * 8 + g) * kLds + kk + t * 4;
-        bf[ni][0] = *reinterpret_cast<const uint32_t*>(q);
-        bf[ni][1] = *reinterpret_cast<const uint32_t*>(q + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
+  __device__ __forceinline__ Column column(int col, int count) const {
+    return {gemm::load4(scale, col, count, count == 4), gemm::load4(bias, col, count, count == 4)};
   }
 
-  // Accumulator fragment: registers 0,1 hold row g, columns 2t and 2t+1;
-  // registers 2,3 the same columns of row g + 8.
+  __device__ __forceinline__ Input input(size_t o, int count, bool vec) const {
+    if constexpr (kEpi == kResidual) {
+      return gemm::load4(residual, o, count, vec);
+    } else {
+      return {};
+    }
+  }
+
+  __device__ __forceinline__ void store(const Column& c, const Input& in, size_t o,
+                                        const gemm::Quad<int>& v, int count, bool vec) const {
+    if constexpr (kEpi == kGelu) {
+      gemm::store4(out, o, gelu_quant<kAct>(v, c.scale, c.bias, kv), count, vec);
+    } else {
+      gemm::Quad<OutT> y;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = m0 + wm + mi * 16 + g + (r >= 2 ? 8 : 0);
-        const int col = n0 + wn + ni * 8 + t * 2 + (r & 1);
-        if (row < m && col < n) {
-          const size_t o = static_cast<size_t>(row) * n + col;
-          if constexpr (kEpi == kGelu) {
-            out[o] = gelu_quant<kAct>(acc[mi][ni][r], scale[col], bias[col], kv);
-          } else {
-            const float y = add(mul(__int2float_rn(acc[mi][ni][r]), scale[col]), bias[col]);
-            if constexpr (kEpi == kBias) {
-              out[o] = from_float<OutT>(y);
-            } else {
-              out[o] = from_float<OutT>(add(to_float(residual[o]), y));
-            }
-          }
+      for (int i = 0; i < 4; ++i) {
+        const float t = add(mul(__int2float_rn(v.v[i]), c.scale.v[i]), c.bias.v[i]);
+        if constexpr (kEpi == kResidual) {
+          y.v[i] = from_float<OutT>(add(in.v[i], t));
+        } else {
+          y.v[i] = from_float<OutT>(t);
         }
       }
+      gemm::store4(out, o, y, count, vec);
+    }
+  }
+};
+
+template <int kEpi, typename ResT, typename OutT, int kAct>
+__global__ void __launch_bounds__(gemm::kThreads, 1)
+int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap a, const __grid_constant__ CUtensorMap w,
+                       int m, int n, int k, int cm, int cn, const float* __restrict__ scale,
+                       const float* __restrict__ bias, const ResT* __restrict__ residual,
+                       OutT* __restrict__ out, float kv) {
+  gemm::run<gemm::S8>(a, w, m, n, k, cm, cn, Epilogue<kEpi, ResT, OutT, kAct>{scale, bias, residual, out, kv});
 }
 
 template <int kEpi, typename ResT, typename OutT, int kAct = kExact>
-void launch(const void* a, const void* w, int m, int n, int k, const void* scale,
-            const void* bias, const void* residual, void* out, float kv, cudaStream_t s) {
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  int8_gemm_kernel<kEpi, ResT, OutT, kAct><<<grid, kThreads, 0, s>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w), m, n, k,
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
+int launch(const void* a, const void* w, int m, int n, int k, const void* scale, const void* bias,
+           const void* residual, void* out, float kv, cudaStream_t s) {
+  return gemm::launch<gemm::S8, int8_gemm_wgmma_kernel<kEpi, ResT, OutT, kAct>>(
+      a, w, m, n, k, s, static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<const ResT*>(residual), static_cast<OutT*>(out), kv);
 }
 
 }  // namespace
 
 // epilogue: kBias | kResidual | kGelu. res_dtype and out_dtype are DType codes
-// (out_dtype is ignored by kGelu, which writes int8). act: kGelu's Act.
+// (out_dtype is ignored by kGelu, which writes int8). act: kGelu's Act. K must be
+// a positive multiple of 16 and a and w 16-byte aligned (TMA's rule); any other
+// call returns cudaErrorInvalidValue without a launch.
 extern "C" int fitclip_int8_gemm(const void* a, const void* w, int m, int n, int k, int epilogue,
                                  const void* scale, const void* bias, const void* residual,
                                  int res_dtype, void* out, int out_dtype, float kv, int act,
@@ -206,21 +189,21 @@ extern "C" int fitclip_int8_gemm(const void* a, const void* w, int m, int n, int
   using bf16 = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epilogue == kBias && out_dtype == kBFloat16) {
-    launch<kBias, float, bf16>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
+    return launch<kBias, float, bf16>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
   } else if (epilogue == kBias && out_dtype == kFloat32) {
-    launch<kBias, float, float>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
+    return launch<kBias, float, float>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
   } else if (epilogue == kResidual && res_dtype == kBFloat16 && out_dtype == kFloat32) {
-    launch<kResidual, bf16, float>(a, w, m, n, k, scale, bias, residual, out, kv, s);
+    return launch<kResidual, bf16, float>(a, w, m, n, k, scale, bias, residual, out, kv, s);
   } else if (epilogue == kResidual && res_dtype == kFloat32 && out_dtype == kBFloat16) {
-    launch<kResidual, float, bf16>(a, w, m, n, k, scale, bias, residual, out, kv, s);
+    return launch<kResidual, float, bf16>(a, w, m, n, k, scale, bias, residual, out, kv, s);
   } else if (epilogue == kResidual && res_dtype == kFloat32 && out_dtype == kFloat32) {
-    launch<kResidual, float, float>(a, w, m, n, k, scale, bias, residual, out, kv, s);
+    return launch<kResidual, float, float>(a, w, m, n, k, scale, bias, residual, out, kv, s);
   } else if (epilogue == kResidual && res_dtype == kBFloat16 && out_dtype == kBFloat16) {
-    launch<kResidual, bf16, bf16>(a, w, m, n, k, scale, bias, residual, out, kv, s);
+    return launch<kResidual, bf16, bf16>(a, w, m, n, k, scale, bias, residual, out, kv, s);
   } else if (epilogue == kGelu) {
     switch (act) {
 #define FITCLIP_ACT(A) \
-  case A: launch<kGelu, float, int8_t, A>(a, w, m, n, k, scale, bias, nullptr, out, kv, s); break;
+  case A: return launch<kGelu, float, int8_t, A>(a, w, m, n, k, scale, bias, nullptr, out, kv, s);
       FITCLIP_ACT(kExact)
       FITCLIP_ACT(kQuick)
       FITCLIP_ACT(kSigmoid)
@@ -229,10 +212,7 @@ extern "C" int fitclip_int8_gemm(const void* a, const void* w, int m, int n, int
       FITCLIP_ACT(kFold16)
       FITCLIP_ACT(kSigmoidCast)
 #undef FITCLIP_ACT
-      default: return static_cast<int>(cudaErrorInvalidValue);
     }
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,7 +10,7 @@ kernels, launched seven times per layer:
 1. ``ln_quant`` (``csrc/ln_quant.cu``): fp32 LayerNorm, then static quantize
    to int8. Bound by memory: one read of the row, one int8 write.
 2. ``int8_gemm_*`` (``csrc/int8_gemm.cu``): int8 x int8 -> int32 on the
-   tensor cores (mma.sync), with the dequant/bias epilogue (QKV), the residual
+   tensor cores (wgmma fed by TMA, ``csrc/gemm_wgmma.cuh``), with the dequant/bias epilogue (QKV), the residual
    epilogue (out-projection into the fp32 residual, final projection back to
    x's dtype) or the folded fc epilogue (dequant and requant as one affine,
    QuickGELU or exact GELU, int8). Bound by compute at M = B * L >= 6k rows.
@@ -26,7 +26,7 @@ the same seven launches per layer, in bf16 on the card:
 
 1. ``ln_cast`` (``csrc/ln_quant.cu``): fp32 LayerNorm rounded to x's dtype.
 2. ``bf16_gemm_*`` (``csrc/bf16_gemm.cu``): bf16 x bf16 -> fp32 on the tensor
-   cores (mma.sync), bias added after the accumulate, with the bias epilogue
+   cores (the same wgmma mainloop), bias added after the accumulate, with the bias epilogue
    (QKV, bf16), the residual epilogue (out-projection into the fp32 residual,
    MLP projection back to x's dtype) or the GELU epilogue (QuickGELU or the
    exact GELU of ``block.py:_exact_gelu``, bf16).
@@ -131,10 +131,10 @@ def _gemm(a, w, scale, bias, epilogue, out, residual=None, kv=0.0, act=0):
     for name, t in (("scale", scale), ("bias", bias)):
         _build.check_cuda_operand(name, t, torch.float32, 1)
     (m, k), n = a.shape, w.shape[0]
-    if w.shape[1] != k or k % 16 or scale.numel() != n or bias.numel() != n:
+    if w.shape[1] != k or k <= 0 or k % 16 or scale.numel() != n or bias.numel() != n:
         raise ValueError(f"int8_gemm: a {tuple(a.shape)}, w {tuple(w.shape)}, "
                          f"{scale.numel()} scales, {bias.numel()} biases "
-                         "(w is (N, K) with K a multiple of 16)")
+                         "(w is (N, K) with K a positive multiple of 16)")
     _build.check_cuda_operand("out", out, ndim=2)
     res_ptr, res_code = 0, 0
     if residual is not None:
@@ -372,9 +372,9 @@ def _bf16_gemm(a, w, bias, epilogue, out, residual=None, quick_gelu=False):
     _build.check_cuda_operand("w", w, torch.bfloat16, 2)
     _build.check_cuda_operand("bias", bias, torch.float32, 1)
     (m, k), n = a.shape, w.shape[0]
-    if w.shape[1] != k or k % 8 or bias.numel() != n:
+    if w.shape[1] != k or k <= 0 or k % 8 or bias.numel() != n:
         raise ValueError(f"bf16_gemm: a {tuple(a.shape)}, w {tuple(w.shape)}, {bias.numel()} "
-                         "biases (w is (N, K) with K a multiple of 8)")
+                         "biases (w is (N, K) with K a positive multiple of 8)")
     _build.check_cuda_operand("out", out, ndim=2)
     res_ptr, res_code = 0, 0
     if residual is not None:

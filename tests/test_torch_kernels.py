@@ -271,6 +271,46 @@ def test_division_by_the_reciprocal_is_correctly_rounded(edge):
         assert _rn32(q + _rn32(e - q * d) * y) == _rn32(e / d), (float(e), float(d))
 
 
+def _ulp32(x):
+    """The spacing of float32 values at the positive rational x (normal range)."""
+    from fractions import Fraction
+
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    e += -1 if Fraction(2) ** e > x else (1 if Fraction(2) ** (e + 1) <= x else 0)
+    return Fraction(2) ** (e - 23)
+
+
+@pytest.mark.parametrize("edge", [False, True])
+def test_gemm_divide_sequence_is_correctly_rounded(edge):
+    """gemm_wgmma.cuh's div_in_range, the IEEE divide's fast sequence: r, the
+    hardware reciprocal of d (taken here anywhere within 2 ulp of 1 / d), y =
+    RN(r + r RN(1 - d r)), q = RN(a y), RN(q + y RN(a - d q)). Exact arithmetic
+    on random and edge-of-binade pairs with both operands inside the range the
+    GEMM epilogues take it in: the result is RN(a / d) every time."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(7 + int(edge))
+    for _ in range(600):
+        if edge:  # significands near 1 and 2, quotients near 1 and a binade edge
+            d = float(np.float32((2 - rng.random() * 2.0 ** -rng.integers(1, 24))
+                                 * 2.0 ** rng.integers(-30, 30)))
+            a = float(np.float32(d * (1 - rng.random() * 2.0 ** -rng.integers(1, 25))
+                                 * rng.choice([-1, 1])))
+        else:
+            d = float(np.float32(rng.uniform(1, 2) * 2.0 ** rng.integers(-30, 30)))
+            a = float(np.float32(rng.uniform(-2, 2) * 2.0 ** rng.integers(-30, 30)))
+        if a == 0:
+            continue
+        a, d = Fraction(a), Fraction(d)
+        want = _rn32(a / d)
+        for off in (-2, -1, 0, 1, 2):
+            r = _rn32(1 / d)
+            r += off * _ulp32(r)
+            y = _rn32(r + r * _rn32(1 - d * r))
+            q = _rn32(a * y)
+            assert _rn32(q + y * _rn32(a - d * q)) == want, (float(a), float(d), off)
+
+
 @pytest.mark.parametrize("head_dim", [32, 64])
 def test_nosoftmax_refinement_margin(head_dim):
     """The mma core refines a nosoftmax logit x (weight bf16(x)) when x lies
@@ -706,6 +746,122 @@ def test_bf16_gemm_epilogues_match_plain(cuda, rows, width):
         h = K._dense_plain(a, ops.wf, ops.fb)
         ref = h * torch.sigmoid(1.702 * h) if quick else K.exact_gelu_plain(h)
         close(K.bf16_gemm_gelu(a, ops.wf, ops.fb, quick), ref)
+
+
+# --- the wgmma GEMMs (csrc/gemm_wgmma.cuh) at ragged and narrow shapes ------
+
+_INT8_RAGGED = [(m, n, k) for m in (1, 37, 6304) for n in (8, 64, 304, 2304)
+                for k in (48, 480, 528, 3072)]
+# S3D-G's int8 sites (models/s3dg.py BLOCKS: merged and b3 of mixed_4b, 4c, 4f, 5c at
+# 2 clips of 16 frames, the fc on 2 rows).
+_S3DG_SITES = [(1568, 304, 480), (1568, 64, 480), (1568, 296, 512), (1568, 448, 528),
+               (196, 624, 832), (196, 128, 832), (2, 512, 1024)]
+
+
+def _int8_gemm_operands(gen, m, n, k, cuda):
+    a, w = _int8(gen, m, k, device=cuda), _int8(gen, n, k, device=cuda)
+    unit = (torch.rand(n, generator=gen) + 0.5) / (73.0 * 73.0 * k ** 0.5)
+    return a, w, unit.to(cuda), (0.1 * torch.randn(n, generator=gen)).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", _INT8_RAGGED)
+def test_int8_gemm_ragged_shapes_match_plain(cuda, m, n, k):
+    """Every epilogue and dtype pair of fitclip_int8_gemm at ragged M, N and K:
+    bias and residual bit-identical to the plain versions (the same roundings),
+    the fc epilogues (both GELUs and the five bench modes) under the int8 rule."""
+    from fitclip_torch.bench import kernels as P
+
+    gen = torch.Generator().manual_seed(m * 7 + n * 3 + k)
+    a, w, unit, bias = _int8_gemm_operands(gen, m, n, k, cuda)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        assert torch.equal(K.int8_gemm_bias(a, w, unit, bias, out_dtype),
+                           K.int8_gemm_bias_plain(a, w, unit, bias, out_dtype))
+    for res_dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(m, n, generator=gen).to(cuda, res_dtype)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            assert torch.equal(K.int8_gemm_residual(a, w, unit, bias, x, out_dtype),
+                               K.int8_gemm_residual_plain(a, w, unit, bias, x, out_dtype))
+    fs2, fb2 = unit * 20.0, (2.0 * torch.randn(n, generator=gen)).to(cuda)
+    for quick in (True, False):
+        kv = (-1.702 * K.LOG2E if quick else 0.7071067811865475) / (127.0 / 6.0)
+        _assert_int8_close(K.int8_gemm_gelu(a, w, fs2, fb2, kv, quick),
+                           K.int8_gemm_gelu_plain(a, w, fs2, fb2, kv, quick))
+    for act in ("sigmoid", "bf16", "fold", "fold16", "sigmoid_cast"):
+        scale, shift, kv = ((fs2, fb2, -1.702 * K.LOG2E / (127.0 / 6.0)) if act in ("fold", "fold16")
+                            else (unit, bias, 1.0 if act == "sigmoid_cast" else 127.0 / 6.0))
+        _assert_int8_close(getattr(P, f"int8_gemm_{act}")(a, w, scale, shift, kv),
+                           P.int8_gemm_act_plain(a, w, scale, shift, kv, act=act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", _S3DG_SITES)
+def test_int8_gemm_s3dg_site_shapes_match_plain(cuda, m, n, k):
+    gen = torch.Generator().manual_seed(n + k)
+    a, w, unit, bias = _int8_gemm_operands(gen, m, n, k, cuda)
+    assert torch.equal(K.int8_gemm_bias(a, w, unit, bias, torch.bfloat16),
+                       K.int8_gemm_bias_plain(a, w, unit, bias, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(m, n, k) for m in (1, 37, 6304) for n in (8, 64, 304, 2304)
+                                   for k in (8, 40, 768)])
+def test_bf16_gemm_ragged_shapes_match_plain(cuda, m, n, k):
+    """Every epilogue of fitclip_bf16_gemm at ragged M, N and K (a multiple of 8)
+    under the float rule against the plain version in fp32."""
+    gen = torch.Generator().manual_seed(m * 5 + n * 3 + k)
+    a = torch.randn(m, k, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(n, k, generator=gen) * k ** -0.5).to(cuda, torch.bfloat16)
+    bias = (0.1 * torch.randn(n, generator=gen)).to(cuda)
+
+    def close(out, ref):
+        torch.testing.assert_close(out.float(), ref.float(), atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+    h = K._dense_plain(a, w, bias)
+    close(K.bf16_gemm_bias(a, w, bias), h)
+    for res_dtype, out_dtype in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        x = torch.randn(m, n, generator=gen).to(cuda, res_dtype)
+        out = K.bf16_gemm_residual(a, w, bias, x, out_dtype)
+        assert out.dtype == out_dtype
+        close(out, K.bf16_gemm_residual_plain(a, w, bias, x, torch.float32))
+    close(K.bf16_gemm_gelu(a, w, bias, True), h * torch.sigmoid(1.702 * h))
+    close(K.bf16_gemm_gelu(a, w, bias, False), K.exact_gelu_plain(h))
+
+
+@pytest.mark.cuda
+def test_gemm_two_launches_bit_identical(cuda):
+    gen = torch.Generator().manual_seed(23)
+    a, w, unit, bias = _int8_gemm_operands(gen, 6304, 3072, 768, cuda)
+    kv = -1.702 * K.LOG2E / (127.0 / 6.0)
+    assert torch.equal(K.int8_gemm_gelu(a, w, unit * 20.0, bias, kv, True),
+                       K.int8_gemm_gelu(a, w, unit * 20.0, bias, kv, True))
+    a16 = torch.randn(6304, 3072, generator=gen).to(cuda, torch.bfloat16)
+    w16 = (torch.randn(768, 3072, generator=gen) / 55.0).to(cuda, torch.bfloat16)
+    x32 = torch.randn(6304, 768, generator=gen).to(cuda)
+    for fn in (lambda: K.bf16_gemm_bias(a16, w16, bias[:768]),
+               lambda: K.bf16_gemm_residual(a16, w16, bias[:768], x32, torch.bfloat16)):
+        assert torch.equal(fn(), fn())
+
+
+@pytest.mark.cuda
+def test_gemms_refuse_what_tma_does_not_take(cuda):
+    """A pointer off 16 bytes or a K whose rows are not a multiple of 16 bytes
+    (or is 0) raises ValueError before any launch."""
+    gen = torch.Generator().manual_seed(29)
+    a, w, unit, bias = _int8_gemm_operands(gen, 64, 32, 64, cuda)
+    shifted = torch.zeros(64 * 64 + 1, dtype=torch.int8, device=cuda)[1:].view(64, 64)
+    bad_k = torch.zeros(64, 40, dtype=torch.int8, device=cuda)
+    before = K.int8_gemm_bias.launches
+    for args in ((shifted, w), (a, shifted[:32]), (bad_k, bad_k[:32]),
+                 (a[:, :0].contiguous(), w[:, :0].contiguous())):
+        with pytest.raises(ValueError):
+            K.int8_gemm_bias(*args, unit, bias, torch.bfloat16)
+    assert K.int8_gemm_bias.launches == before
+    a16 = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda)
+    shifted16 = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(64, 64)
+    for a_, w_ in ((shifted16, a16[:32]), (a16[:, :12].contiguous(), a16[:32, :12].contiguous())):
+        with pytest.raises(ValueError):
+            K.bf16_gemm_bias(a_, w_, bias)
 
 
 @pytest.mark.cuda
