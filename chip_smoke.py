@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train-steps [DIR]   # phase 6 (d) alone, for DIR's package
+    python3 chip_smoke.py --row-passes [DIR]    # the LayerNorm and amax kernels alone
 
 Drives seven paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -235,9 +236,84 @@ def bound(bytes_moved: float, ops, kind: str = None):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def timing(kernel_ms, plain_ms, library_ms, bound_pair):
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_pair[0], "bound_by": bound_pair[1]}
+# A row whose kernel reads under DEVICE_BELOW_MS by events around 20 Python
+# calls is also timed by its device time (device_ms): at that size the
+# wrapper's host work (operand checks, torch.empty, the ctypes call) can set
+# the events' pace instead of the kernel.
+DEVICE_BELOW_MS = 0.1
+COLD_BYTES = 3 * 50e6  # three times the H100's 50 MB L2
+
+
+def device_ms(fn, *args, iters: int = 20, graph: bool = False) -> float:
+    """fn(*args)'s device time per call: the summed device durations of what
+    it launches (kernels and memsets), from torch.profiler, over at least
+    ``iters`` calls. The calls rotate among copies of the tensor arguments
+    that together exceed COLD_BYTES, so that each call finds its inputs out of
+    L2, as the bound (HBM bytes) assumes. Where the profiler shows no device
+    time (or with ``graph``), the same calls are captured in a CUDA graph and
+    its replays timed with events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    size = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
+    copies = min(256, max(1, -(-int(COLD_BYTES) // max(size, 1))))
+    sets = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                     for _ in range(copies - 1)]
+    calls = -(-max(iters, copies) // copies) * copies
+    for inputs in sets:  # warm-up: each copy once
+        fn(*inputs)
+    torch.cuda.synchronize()
+    if not graph:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(*sets[i % copies])
+            torch.cuda.synchronize()
+        total_us, launches = 0.0, 0
+        for event in prof.key_averages():
+            if str(getattr(event, "device_type", "")).endswith("CUDA"):
+                us = getattr(event, "self_device_time_total", None)
+                total_us += event.self_cuda_time_total if us is None else us
+                launches += event.count
+        # Every call launches the same work: a count that is no multiple of the
+        # calls means the profiler lost events.
+        if total_us > 0 and launches % calls == 0:
+            return total_us / 1e3 / calls
+        print(f"  device_ms: the profiler shows {launches} device events for {calls} calls of "
+              f"{getattr(fn, '__name__', fn)}; timing a CUDA graph of the calls")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*sets[0])
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(calls):
+            fn(*sets[i % copies])
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * calls)
+    del g
+    return ms
+
+
+def timing(kernel_ms, plain_ms, library_ms, bound_pair, kernel=None, library=None,
+           device=False):
+    """A row of the kernels' record. kernel and library are (fn, *args) of the
+    kernel's wrapper and of the library call: where the kernel reads under
+    DEVICE_BELOW_MS (or with ``device``), their device times are added as
+    device_ms and library_device_ms."""
+    entry = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+             "bound_ms": bound_pair[0], "bound_by": bound_pair[1]}
+    if kernel is not None and (device or kernel_ms < DEVICE_BELOW_MS):
+        entry["device_ms"] = device_ms(*kernel)
+        entry["library_device_ms"] = device_ms(*library) if library else None
+    return entry
 
 
 def sdpa_ms(torch, q, k, v, scale, backward=False, causal=False):
@@ -414,11 +490,6 @@ def kernel_phase(torch, checks: KernelChecks):
             inv = 127.0 / 4.0
             checks.int8("ln_quant", f"{tag} {what}", K.ln_quant(x, gamma, beta, inv),
                         K.ln_quant_plain(x, gamma, beta, inv))
-            if timed and what == "bf16 input":
-                times["ln_quant"] = timing(
-                    cuda_ms(lambda: K.ln_quant(x, gamma, beta, inv)),
-                    cuda_ms(lambda: K.ln_quant_plain(x, gamma, beta, inv)), None,
-                    bound(m * w * 2 + m * w + 2 * w * 4, 9 * m * w, "fp32"))
 
         # int8 GEMM, its three epilogues at the layer's four shapes.
         a_w, a_4w = int8(m, w), int8(m, 4 * w)
@@ -435,7 +506,8 @@ def kernel_phase(torch, checks: KernelChecks):
                 cuda_ms(lambda: K.int8_gemm_bias(a_w, wq, sq, bq, torch.bfloat16)),
                 cuda_ms(lambda: K.int8_gemm_bias_plain(a_w, wq, sq, bq, torch.bfloat16)),
                 cuda_ms(lambda: torch._int_mm(a_w, wq.t())),
-                bound(m * w + 3 * w * w + 3 * w * 8 + m * 3 * w * 2, 2 * m * 3 * w * w, "int8"))
+                bound(m * w + 3 * w * w + 3 * w * 8 + m * 3 * w * 2, 2 * m * 3 * w * w, "int8"),
+                (K.int8_gemm_bias, a_w, wq, sq, bq, torch.bfloat16), (torch._int_mm, a_w, wq.t()))
             # The encode's QKV GEMM: 32 clips x 4 frames x 197 tokens (its own
             # generator, so that the checks after it keep their inputs).
             me = 4 * m
@@ -472,7 +544,9 @@ def kernel_phase(torch, checks: KernelChecks):
                                                            torch.bfloat16)),
                 cuda_ms(lambda: torch._int_mm(a_4w, wp.t())),
                 bound(m * 4 * w + 4 * w * w + w * 8 + m * w * 4 + m * w * 2,
-                      2 * m * w * 4 * w, "int8"))
+                      2 * m * w * 4 * w, "int8"),
+                (K.int8_gemm_residual, a_4w, wp, sp, bp, x32, torch.bfloat16),
+                (torch._int_mm, a_4w, wp.t()))
 
         inv_p = 127.0 / 6.0
         fs2, fb2 = scale(4 * w, w) * 20.0, normal(4 * w, std=2.0)  # t ~ 20 N(0, 1)
@@ -486,7 +560,8 @@ def kernel_phase(torch, checks: KernelChecks):
                     cuda_ms(lambda: K.int8_gemm_gelu(a_w, wf, fs2, fb2, kv, True)),
                     cuda_ms(lambda: K.int8_gemm_gelu_plain(a_w, wf, fs2, fb2, kv, True)),
                     cuda_ms(lambda: torch._int_mm(a_w, wf.t())),
-                    bound(m * w + 4 * w * w + 4 * w * 8 + m * 4 * w, 2 * m * 4 * w * w, "int8"))
+                    bound(m * w + 4 * w * w + 4 * w * 8 + m * 4 * w, 2 * m * 4 * w * w, "int8"),
+                    (K.int8_gemm_gelu, a_w, wf, fs2, fb2, kv, True), (torch._int_mm, a_w, wf.t()))
 
         # Attention, both modes. Vision is not causal (and once with seq_valid < L);
         # text is causal.
@@ -518,12 +593,18 @@ def kernel_phase(torch, checks: KernelChecks):
             times["attention_int8"] = timing(
                 cuda_ms(lambda: A.attention_int8(qkv, heads, scale_q, causal, out_mul)),
                 cuda_ms(lambda: A.attention_int8_plain(qkv, heads, scale_q, causal, out_mul)),
-                None, bound(b * seq * 3 * w * 2 + b * seq * w, ops, "bf16"))
+                None, bound(b * seq * 3 * w * 2 + b * seq * w, ops, "bf16"),
+                (A.attention_int8, qkv, heads, scale_q, causal, out_mul))
+            q, k, v = heads_first(qkv, heads)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
             times["fused_attention_qkv"] = timing(
                 cuda_ms(lambda: A.fused_attention_qkv(qkv, heads, scale_q, causal)),
                 cuda_ms(lambda: A.attention_core_plain(qkv, heads, scale_q, causal)),
-                sdpa_ms(torch, *heads_first(qkv, heads), scale_q),
-                bound(b * seq * 3 * w * 2 + b * seq * w * 2, ops, "bf16"))
+                sdpa_ms(torch, q, k, v, scale_q),
+                bound(b * seq * 3 * w * 2 + b * seq * w * 2, ops, "bf16"),
+                (A.fused_attention_qkv, qkv, heads, scale_q, causal),
+                (lambda q, k, v: sdpa(q, k, v, scale=scale_q), q, k, v))
+            del q, k, v
 
     # The attention backward (K3b) at the training shapes, bf16 and fp32.
     name = "fused_attention_qkv_backward"
@@ -552,7 +633,8 @@ def kernel_phase(torch, checks: KernelChecks):
                     sdpa_ms(torch, *heads_first(qkv, heads), scale_q, backward=True,
                             causal=causal),
                     bound(b * seq * 3 * w * 2 * 2 + b * seq * w * 2,
-                          10 * b * heads * pairs * (w // heads), "bf16"))
+                          10 * b * heads * pairs * (w // heads), "bf16"),
+                    (A.fused_attention_qkv_backward, qkv, grad, heads, scale_q, causal))
                 print(f"  {name} {what}: {timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} "
                       f"ms, bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}), SDPA "
                       f"backward {timed['library_ms']:.4f} ms")
@@ -592,12 +674,6 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
     for what, x in (("bf16 input", x_bf16), ("fp32 residual", normal(m, w, std=3.0))):
         checks.float("ln_cast", f"vision {what}", K.ln_cast(x, gamma, beta, torch.bfloat16, 1e-6),
                      K.layer_norm_plain(x, gamma, beta, 1e-6))
-    g16, b16 = gamma.bfloat16(), beta.bfloat16()
-    times["ln_cast"] = timing(
-        cuda_ms(lambda: K.ln_cast(x_bf16, gamma, beta, torch.bfloat16, 1e-6)),
-        cuda_ms(lambda: K.ln_cast_plain(x_bf16, gamma, beta, torch.bfloat16, 1e-6)),
-        cuda_ms(lambda: F.layer_norm(x_bf16, (w,), g16, b16, 1e-6)),
-        bound(m * w * 2 * 2 + 2 * w * 4, 9 * m * w, "fp32"))
 
     # The bf16 GEMM: weights ~ N(0, 1/K), as LeCun-normal weights are.
     def weight(n, k):
@@ -616,7 +692,8 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
         cuda_ms(lambda: K.bf16_gemm_bias(a_w, wq, qb)),
         cuda_ms(lambda: K.bf16_gemm_bias_plain(a_w, wq, qb)),
         cuda_ms(lambda: torch.addmm(qb16, a_w, wq.t())),
-        bound(m * w * 2 + 3 * w * w * 2 + 3 * w * 4 + m * 3 * w * 2, 2 * m * 3 * w * w, "bf16"))
+        bound(m * w * 2 + 3 * w * w * 2 + 3 * w * 4 + m * 3 * w * 2, 2 * m * 3 * w * w, "bf16"),
+        (K.bf16_gemm_bias, a_w, wq, qb), (torch.addmm, qb16, a_w, wq.t()))
     # The encode's QKV GEMM: 32 clips x 4 frames x 197 tokens (its own
     # generator, so that the checks after it keep their inputs).
     me = 4 * m
@@ -644,7 +721,8 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
         cuda_ms(lambda: K.bf16_gemm_residual_plain(a_4w, wp, pb, x32, torch.bfloat16)),
         cuda_ms(lambda: torch.mm(a_4w, wp.t())),
         bound(m * 4 * w * 2 + 4 * w * w * 2 + w * 4 + m * w * 4 + m * w * 2, 2 * m * w * 4 * w,
-              "bf16"))
+              "bf16"),
+        (K.bf16_gemm_residual, a_4w, wp, pb, x32, torch.bfloat16), (torch.mm, a_4w, wp.t()))
     for quick in (True, False):
         h = K._dense_plain(a_w, wf, fb)
         ref = h * torch.sigmoid(1.702 * h) if quick else K.exact_gelu_plain(h)
@@ -655,7 +733,8 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
         cuda_ms(lambda: K.bf16_gemm_gelu(a_w, wf, fb, False)),
         cuda_ms(lambda: K.bf16_gemm_gelu_plain(a_w, wf, fb, False)),
         cuda_ms(lambda: torch.mm(a_w, wf.t())),
-        bound(m * w * 2 + 4 * w * w * 2 + 4 * w * 4 + m * 4 * w * 2, 2 * m * 4 * w * w, "bf16"))
+        bound(m * w * 2 + 4 * w * w * 2 + 4 * w * 4 + m * 4 * w * 2, 2 * m * 4 * w * w, "bf16"),
+        (K.bf16_gemm_gelu, a_w, wf, fb, False), (torch.mm, a_w, wf.t()))
     del a_4w, x32
 
     # The block-mode attention: vision full (and with seq_valid), text causal.
@@ -669,11 +748,16 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
         checks.float("attention_block", what,
                      A.attention_block(x, s["heads"], scale_q, causal, valid),
                      A.attention_core_plain(x.float(), s["heads"], scale_q, causal, 1.0, valid))
+    q, k, v = heads_first(qkv, heads)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     times["attention_block"] = timing(
         cuda_ms(lambda: A.attention_block(qkv, heads, scale_q, False)),
         cuda_ms(lambda: A.attention_block_plain(qkv, heads, scale_q, False)),
-        sdpa_ms(torch, *heads_first(qkv, heads), scale_q),
-        bound(b * seq * 3 * w * 2 + b * seq * w * 2, 4 * b * heads * seq * seq * d, "bf16"))
+        sdpa_ms(torch, q, k, v, scale_q),
+        bound(b * seq * 3 * w * 2 + b * seq * w * 2, 4 * b * heads * seq * seq * d, "bf16"),
+        (A.attention_block, qkv, heads, scale_q, False),
+        (lambda q, k, v: sdpa(q, k, v, scale=scale_q), q, k, v))
+    del q, k, v
 
     # K8: the int8 QKV projection and the attention, 32 x 197 x 768.
     x_q = torch.randint(-127, 128, (b, seq, w), generator=gen, device=dev, dtype=torch.int8)
@@ -689,7 +773,101 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
         cuda_ms(lambda: A.fused_int8_qkv_attention_plain(x_q, w_q, k8_scale, k8_bias, heads,
                                                          scale_q)), None,
         bound(m * w + 3 * w * w + 3 * w * 8 + m * w * 2,
-              {"int8": 2 * m * 3 * w * w, "bf16": 4 * b * heads * seq * seq * d}))
+              {"int8": 2 * m * 3 * w * w, "bf16": 4 * b * heads * seq * seq * d}),
+        (A.fused_int8_qkv_attention, x_q, w_q, k8_scale, k8_bias, heads, scale_q))
+    return times
+
+
+# The LayerNorm kernel (csrc/ln_quant.cu) by its __global__ name, and the names
+# of the kernels this tree's row passes replaced, which no profile may show.
+LN_KERNEL = "ln_rows_kernel"
+OLD_ROW_PASSES = ("::ln_kernel<", "::amax_kernel(")
+ENCODE_ROWS = 4 * VISION["batch"] * VISION["seq"]  # 32 clips x 4 frames x 197
+
+
+def ln_rows(torch, K, m, w, dtype, gen, inv):
+    """The LayerNorm rows of one phase-3 case: x (the layer input in bf16 or
+    the fp32 residual), gamma and beta; each mode's (kernel, plain) pair."""
+    from fitclip_torch.bench import kernels as P
+
+    x = (3.0 * torch.randn(m, w, generator=gen, device="cuda") + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(w, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(w, generator=gen, device="cuda")
+    modes = {"ln_quant": (lambda t: K.ln_quant(t, gamma, beta, inv),
+                          lambda t: K.ln_quant_plain(t, gamma, beta, inv)),
+             "ln_cast": (lambda t: K.ln_cast(t, gamma, beta, torch.bfloat16),
+                         lambda t: K.layer_norm_plain(t, gamma, beta))}
+    for mode in ("one", "fold", "cast"):
+        wrapper = getattr(P, f"ln_quant_{mode}")
+        modes[f"ln_quant_{mode}"] = (
+            lambda t, wrapper=wrapper: wrapper(t, gamma, beta, inv),
+            lambda t, mode=mode: P.ln_quant_variant_plain(t, gamma, beta, inv, K.LN_EPS, mode))
+    return x, gamma, beta, modes
+
+
+def ln_kernel_phase(torch, checks: KernelChecks):
+    """Phase 3, the LayerNorm kernel (csrc/ln_quant.cu's ln_rows_kernel) in
+    every mode (K1's ln_quant, K2's ln_cast, S1's one, fold and cast) on bf16
+    layer inputs and fp32 residuals at the vision rows (M = 6304), the
+    encode's (M = 25,216: 32 clips x 4 frames x 197) and widths 384 (ViT-S/16,
+    6304 rows) and 512 (text, 616 rows), under the int8 or float rule, with two
+    launches giving the same bits. Times ln_quant and ln_cast at M = 6304 and
+    25,216 from both input dtypes: the events' ms at M = 6304 from bf16 (the
+    record's row, as before) and everywhere device_ms, the kernel's own device
+    time with a cold L2, beside F.layer_norm's (ln_cast; bf16 weights for a
+    bf16 input). Returns {name: timing(...)}, the other sizes under "sizes"."""
+    import torch.nn.functional as F
+
+    from fitclip_torch.ops import block as K
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    inv = 127.0 / 4.0
+    times = {}
+    for m, w in ((VISION["batch"] * VISION["seq"], 768), (ENCODE_ROWS, 768),
+                 (VISION["batch"] * VISION["seq"], 384), (TEXT["batch"] * TEXT["seq"], 512)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, gamma, beta, modes = ln_rows(torch, K, m, w, dtype, gen, inv)
+            what = f"{m} x {w} {str(dtype)[6:]}"
+            for name, (kernel, plain) in modes.items():
+                out = kernel(x)
+                if name == "ln_cast":
+                    checks.float(name, what, out, plain(x))
+                else:
+                    checks.int8(name, what, out, plain(x))
+                require(torch.equal(out, kernel(x)), f"{name} {what}: two launches differ")
+            print(f"  {', '.join(modes)} {what}: two launches bit-identical")
+            if w != 768:
+                continue
+            in_bytes = m * w * x.element_size()
+            for name in ("ln_quant", "ln_cast"):
+                out_bytes = m * w * (1 if name == "ln_quant" else 2)
+                row = {"shape": what, **timing(
+                    cuda_ms(lambda: modes[name][0](x)), cuda_ms(lambda: modes[name][1](x)),
+                    None, bound(in_bytes + out_bytes + 2 * w * 4, 9 * m * w, "fp32"))}
+                if name == "ln_quant":
+                    row["device_ms"] = device_ms(K.ln_quant, x, gamma, beta, inv)
+                    row["library_device_ms"] = None
+                else:
+                    # F.layer_norm: bf16 weights for a bf16 input (its output bf16);
+                    # fp32 in, fp32 out for the residual (twice ln_cast's output bytes).
+                    g, b = (gamma, beta) if dtype == torch.float32 else (gamma.bfloat16(),
+                                                                        beta.bfloat16())
+                    row["library_ms"] = cuda_ms(lambda: F.layer_norm(x, (w,), g, b, K.LN_EPS))
+                    row["device_ms"] = device_ms(K.ln_cast, x, gamma, beta, torch.bfloat16)
+                    row["library_device_ms"] = device_ms(F.layer_norm, x, (w,), g, b, K.LN_EPS)
+                print(f"  {name} {what}: device {row['device_ms']:.4f} ms (events "
+                      f"{row['ms']:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                      f"library device {row['library_device_ms'] or float('nan'):.4f} ms")
+                if m == VISION["batch"] * VISION["seq"] and dtype == torch.bfloat16:
+                    times[name] = dict(row, sizes=[])
+                else:
+                    times[name]["sizes"].append(row)
+            if m == VISION["batch"] * VISION["seq"] and dtype == torch.bfloat16:
+                # The helper's two readings of one row: the profiler's and a CUDA graph's.
+                by_graph = device_ms(K.ln_quant, x, gamma, beta, inv, graph=True)
+                print(f"  device_ms of ln_quant {what}: profiler {times['ln_quant']['device_ms']:.4f}"
+                      f" ms, CUDA graph {by_graph:.4f} ms")
+            del x, modes
     return times
 
 
@@ -726,7 +904,8 @@ def fit_kernel_phase(torch, checks: KernelChecks):
     times["fit_cls_attention_int8"] = timing(
         cuda_ms(lambda: A.fit_cls_attention_int8(qkv, heads, out_mul, out)),
         cuda_ms(lambda: A.cls_attention_plain(qkv, heads, scale, out_mul)), None,
-        bound(b * (w + n * 2 * w) * 2 + b * w, 4 * b * heads * n * d, "bf16"))
+        bound(b * (w + n * 2 * w) * 2 + b * w, 4 * b * heads * n * d, "bf16"),
+        (A.fit_cls_attention_int8, qkv, heads, out_mul, out))
     for mode, keys in (("time", f + 1), ("space", p + 1)):
         name = f"fit_{mode}_attention_int8"
         wrapper = getattr(A, name)
@@ -820,7 +999,8 @@ def fault_kernel_phase(torch, checks: KernelChecks):
     gradient runs through both kernels), bf16 past 208 keys (the forward's and
     the backward rows kernel's sweep) and past 848 (the backward's global
     body), and every attention mode and the backward at head_dim 32 (SLIP
-    ViT-S/16: 32 x 197 x 384, 6 heads)."""
+    ViT-S/16: 32 x 197 x 384, 6 heads). Returns the fp32 L = 577 backward's
+    timing, for the K3b record's "f32_global"."""
     from fitclip_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -846,10 +1026,16 @@ def fault_kernel_phase(torch, checks: KernelChecks):
     require(torch.equal(again, leaf.grad), "fp32 L = 577 backward: two launches differ")
     print(f"  fused_attention_qkv_backward: fp32 L = 577 on the global variant, "
           f"{launched} launch through the function, two launches bit-identical")
-    kernel_ms = cuda_ms(lambda: A.fused_attention_qkv_backward(qkv, grad, heads, scale), iters=5)
-    plain_ms = cuda_ms(lambda: A.attention_backward_plain(qkv, grad, heads, scale, False), iters=5)
-    print(f"  fused_attention_qkv_backward {what}, global variant: {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
+    # Its time beside its bound and SDPA's fp32 backward (TF32 off) at the same shape.
+    f32_global = dict(timing(
+        cuda_ms(lambda: A.fused_attention_qkv_backward(qkv, grad, heads, scale), iters=5),
+        cuda_ms(lambda: A.attention_backward_plain(qkv, grad, heads, scale, False), iters=5),
+        sdpa_ms(torch, *heads_first(qkv, heads), scale, backward=True),
+        bound(b * seq * 3 * heads * d * 4 * 2 + b * seq * heads * d * 4,
+              10 * b * heads * seq * seq * d, "fp32")), shape=f"{b} x {seq} x {3 * heads * d} fp32")
+    print(f"  fused_attention_qkv_backward {what}, global variant: {f32_global['ms']:.4f} ms, "
+          f"plain {f32_global['plain_ms']:.4f} ms, bound {f32_global['bound_ms']:.4f} ms "
+          f"({f32_global['bound_by']}), SDPA fp32 backward {f32_global['library_ms']:.4f} ms")
 
     # bf16 past 208 keys: the mma sweep (ViT-L/14's 257, ViT-L/14@336's 577), also
     # causal with seq_valid, under the float and int8 rules.
@@ -911,6 +1097,7 @@ def fault_kernel_phase(torch, checks: KernelChecks):
         checks.float("fused_attention_qkv_backward", tag,
                      A.fused_attention_qkv_backward(qkv, grad, heads, d ** -0.5),
                      A.attention_backward_plain(qkv, grad, heads, d ** -0.5, False).float())
+    return {"f32_global": f32_global}
 
 
 # The ablation benches (fitclip_torch/bench): each new kernel, the TPU kernel
@@ -961,7 +1148,8 @@ def bench_kernel_phase(torch, checks: KernelChecks):
         times[name] = timing(
             cuda_ms(lambda: wrapper(x, gamma, beta, inv)),
             cuda_ms(lambda: P.ln_quant_variant_plain(x, gamma, beta, inv, K.LN_EPS, mode), iters=5),
-            None, bound(m * w * 2 + m * w + 2 * w * 4, 9 * m * w, "fp32"))
+            None, bound(m * w * 2 + m * w + 2 * w * 4, 9 * m * w, "fp32"),
+            (wrapper, x, gamma, beta, inv), device=True)
     del x
 
     # S1's fc epilogues at (M, 4W, W).
@@ -1010,13 +1198,18 @@ def bench_kernel_phase(torch, checks: KernelChecks):
                   core_ops, "bf16"))
 
     # S2's amax pass and s8 attention.
-    scales = P.attn_amax(qkv, 1)
-    checks.float("attn_amax", f"{frames} x {seq} x {3 * w}", scales, P.attn_amax_plain(qkv, 1))
+    for block in (3, 2, 1):  # max is exact in any order: the plain version's bits
+        scales, ref = P.attn_amax(qkv, block), P.attn_amax_plain(qkv, block)
+        checks.float("attn_amax", f"{frames} x {seq} x {3 * w}, block {block}", scales, ref)
+        require(torch.equal(scales, ref), f"attn_amax block {block}: not equal to the plain version")
+    print("  attn_amax blocks 3, 2, 1: equal to the plain version")
     parts = qkv.view(frames, seq, 3, w)
+    vector_norm = lambda t: torch.linalg.vector_norm(t, float("inf"), dim=(1, 3))  # noqa: E731
     times["attn_amax"] = timing(
         cuda_ms(lambda: P.attn_amax(qkv, 1)), cuda_ms(lambda: P.attn_amax_plain(qkv, 1)),
-        cuda_ms(lambda: torch.linalg.vector_norm(parts, float("inf"), dim=(1, 3))),
-        bound(qkv_bytes + frames * 3 * 4, frames * seq * 3 * w, "fp32"))
+        cuda_ms(lambda: vector_norm(parts)),
+        bound(qkv_bytes + frames * 3 * 4, frames * seq * 3 * w, "fp32"),
+        (P.attn_amax, qkv, 1), (vector_norm, parts), device=True)
     half = core_ops // 2
     v_step = float(scales[:, 2].max()) / 127.0
     for name, av8 in (("attention_i8qk", False), ("attention_i8qkav", True)):
@@ -1043,7 +1236,7 @@ def bench_kernel_phase(torch, checks: KernelChecks):
     times["slice_requant"] = timing(
         cuda_ms(lambda: P.slice_requant(joint, inv)),
         cuda_ms(lambda: P.slice_requant_plain(joint, inv)), None,
-        bound(clips * n * w * 3, clips * n * w * 2, "fp32"))
+        bound(clips * n * w * 3, clips * n * w * 2, "fp32"), (P.slice_requant, joint, inv))
     return times
 
 
@@ -1276,7 +1469,7 @@ OLD_GEMMS = ("int8_gemm_kernel", "bf16_gemm_kernel")
 STEP_GROUPS = (
     ("K3b", ("rows_mma_kernel", "columns_mma_kernel", "::rows_kernel<", "::columns_kernel<")),
     ("forward attention", ("attention_mma_kernel", "attention_kernel_f32")),
-    ("port GEMM + LN", (INT8_GEMM, BF16_GEMM, "ln_kernel")),
+    ("port GEMM + LN", (INT8_GEMM, BF16_GEMM, LN_KERNEL)),
     ("cuBLAS", ("nvjet", "cublas", "cutlass", "xmma", "gemm", "gemv")),
     ("optimizer", ("Adam", "multi_tensor_apply")),
 )
@@ -1508,25 +1701,26 @@ def profile_ms(torch, fn, calls: int = 3):
 CUDA_CORE_ATTENTION = ("attention_kernel_f32", "space_kernel_f32")
 
 
-def print_profile(torch, what, fn, top=10, mma=None, gemm=()):
+def print_profile(torch, what, fn, top=10, mma=None, kernels=()):
     """The profile's top kernels; with mma (kernel names), require that those
     tensor-core attention bodies ran and no CUDA-core attention body did; with
-    gemm, that those GEMM kernels ran. No profile may show an old GEMM kernel."""
+    kernels, that those kernels (GEMM, LayerNorm) ran. No profile may show a
+    replaced GEMM, LayerNorm or amax kernel."""
     per_kernel, busy = profile_ms(torch, fn)
     total = sum(per_kernel.values())
     print(f"{what} profile, device {total:.3f} ms per call, busy share {busy:.3f} of the host "
           f"window; top kernels (ms per call, share):")
     for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
-    for name in (*(mma or ()), *gemm):
+    for name in (*(mma or ()), *kernels):
         ms = sum(v for k, v in per_kernel.items() if name in k)
         print(f"  {what}: {name} {ms:.3f} ms per call ({ms / total:.2%})")
         require(ms > 0, f"{what}: the profile shows no {name}")
     if mma:
         slow = [k for k in per_kernel if any(name in k for name in CUDA_CORE_ATTENTION)]
         require(not slow, f"{what}: a bf16 path ran a CUDA-core attention body: {slow}")
-    old = [k for k in per_kernel if any(name in k for name in OLD_GEMMS)]
-    require(not old, f"{what}: the profile shows a replaced GEMM kernel: {old}")
+    old = [k for k in per_kernel if any(name in k for name in (*OLD_GEMMS, *OLD_ROW_PASSES))]
+    require(not old, f"{what}: the profile shows a replaced kernel: {old}")
 
 
 def fit_phase(torch, wrappers):
@@ -1629,7 +1823,7 @@ def fit_phase(torch, wrappers):
           f"{timings['text_ms']:.3f} ms, {256e3 / timings['text_ms']:.1f} rows/s")
 
     print_profile(torch, "fit: int8 encode_video", lambda: int8_enc.encode_video(video), top=12,
-                  mma=("space_mma_kernel",), gemm=(INT8_GEMM,))
+                  mma=("space_mma_kernel",), kernels=(INT8_GEMM, LN_KERNEL))
     print_profile(torch, "fit: bf16 encode_video", lambda: bf16_enc.encode_video(video), top=6,
                   mma=("space_mma_kernel",))
     return paths, timings
@@ -1822,7 +2016,7 @@ def clip_bf16_fused_phase(torch, wrappers, module_enc, video, text, video32):
     print(f"clip bf16 fused_block encode_video, 32 clips x 4 frames: {ms:.3f} ms, "
           f"{32e3 / ms:.1f} clips/s, peak {timings['clip_bf16_fused_peak_gib']:.2f} GiB")
     print_profile(torch, "clip bf16 fused_block encode_video", lambda: enc.encode_video(video32),
-                  mma=("attention_mma_kernel",), gemm=(BF16_GEMM,))
+                  mma=("attention_mma_kernel",), kernels=(BF16_GEMM, LN_KERNEL))
     return {"clip_bf16_fused_encode": launches}, timings
 
 
@@ -1938,7 +2132,7 @@ def slip_phase(torch, wrappers, video, calib_text, text, video32):
               f"{256e3 / timings[f'{tag}_text_ms']:.1f} rows/s")
     print_profile(torch, "slip int8 module path (K8) encode_video",
                   lambda: int8_enc.encode_video(video32), mma=("attention_mma_kernel",),
-                  gemm=(INT8_GEMM,))
+                  kernels=(INT8_GEMM,))
     return paths, timings
 
 
@@ -1979,6 +2173,60 @@ def train_steps_only(torch, package: Path) -> int:
     return 0
 
 
+def row_passes_only(torch, package: Path) -> int:
+    """``--row-passes [DIR]``: the two row passes alone for the fitclip_torch
+    package under DIR (default: this checkout), so that two trees' kernels are
+    read by the same helper in one run: every LayerNorm mode (K1's ln_quant,
+    K2's ln_cast, S1's one, fold and cast) at M = 6304 and 25,216 x 768 from bf16
+    and fp32 and at S1's M = 100,864 from bf16, and S2's amax pass at 512 x 197 x
+    2304, blocks 1, 2 and 3; each held to its plain version, then timed by
+    device_ms beside its library call (F.layer_norm, vector_norm). Prints one
+    JSON line of {case: device ms}."""
+    sys.path.insert(0, str(package))
+    import torch.nn.functional as F
+
+    from fitclip_torch import _build
+    from fitclip_torch.bench import attn_int8 as S2
+    from fitclip_torch.bench import kernels as P
+    from fitclip_torch.ops import block as K
+
+    print(f"row passes of {package}; device: {torch.cuda.get_device_name(0)}; "
+          f"nvidia-smi: {nvidia_smi()}")
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s")
+    checks, readings = KernelChecks(), {}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    inv = 127.0 / 4.0
+    for m, dtypes in ((VISION["batch"] * VISION["seq"], (torch.bfloat16, torch.float32)),
+                      (ENCODE_ROWS, (torch.bfloat16, torch.float32)),
+                      (S2.FRAMES * S2.SEQ, (torch.bfloat16,))):
+        for dtype in dtypes:
+            x, gamma, beta, modes = ln_rows(torch, K, m, 768, dtype, gen, inv)
+            what = f"{m} x 768 {str(dtype)[6:]}"
+            for name, (kernel, plain) in modes.items():
+                check = checks.float if name == "ln_cast" else checks.int8
+                check(name, what, kernel(x), plain(x))
+                readings[f"{name} {what}"] = device_ms(kernel, x)
+            g, b = (gamma, beta) if dtype == torch.float32 else (gamma.bfloat16(), beta.bfloat16())
+            readings[f"F.layer_norm {what}"] = device_ms(F.layer_norm, x, (768,), g, b, K.LN_EPS)
+            del x, modes
+    qkv = S2.make_qkv(S2.FRAMES)
+    what = f"{S2.FRAMES} x {S2.SEQ} x {3 * S2.WIDTH}"
+    for block in (1, 2, 3):
+        require(torch.equal(P.attn_amax(qkv, block), P.attn_amax_plain(qkv, block)),
+                f"attn_amax block {block}: not equal to the plain version")
+        readings[f"attn_amax {what} block {block}"] = device_ms(P.attn_amax, qkv, block)
+    parts = qkv.view(S2.FRAMES, S2.SEQ, 3, S2.WIDTH)
+    readings[f"vector_norm {what}"] = device_ms(
+        lambda t: torch.linalg.vector_norm(t, float("inf"), dim=(1, 3)), parts)
+    for case, ms in readings.items():
+        print(f"  {case}: device {ms:.4f} ms")
+    print(json.dumps({"row_passes_device_ms": readings, "package": str(package),
+                      "card": nvidia_smi()}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1986,10 +2234,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--train-steps"]:
+    if sys.argv[1:2] in (["--train-steps"], ["--row-passes"]):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        return train_steps_only(torch, Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
+        only = train_steps_only if sys.argv[1] == "--train-steps" else row_passes_only
+        return only(torch, Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
     sys.path.insert(0, str(ROOT))
     from fitclip_torch import _build
     from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
@@ -2020,7 +2269,8 @@ def main() -> int:
     times.update(float_layer_kernel_phase(torch, checks))
     times.update(fit_kernel_phase(torch, checks))
     times.update(s3dg_kernel_phase(torch, checks))
-    fault_kernel_phase(torch, checks)
+    times["fused_attention_qkv_backward"].update(fault_kernel_phase(torch, checks))
+    times.update(ln_kernel_phase(torch, checks))
     times.update(bench_kernel_phase(torch, checks))
     torch.cuda.empty_cache()
 
@@ -2103,7 +2353,7 @@ def main() -> int:
           f"{32e3 / int8_ms:.1f} clips/s, peak {peak_gib:.2f} GiB; "
           f"bf16 float model: {float_ms:.3f} ms, {32e3 / float_ms:.1f} clips/s")
     print_profile(torch, "clip int8 encode_video", lambda: int8_enc.encode_video(video32),
-                  mma=("attention_mma_kernel",), gemm=(INT8_GEMM,))
+                  mma=("attention_mma_kernel",), kernels=(INT8_GEMM, LN_KERNEL))
     print_profile(torch, "clip bf16 module path encode_video",
                   lambda: float_enc.encode_video(video32), top=6, mma=("attention_mma_kernel",))
 
@@ -2163,7 +2413,8 @@ def main() -> int:
                **{name: "fit_attention.cu" for name in fit_attention}}
     # The __global__ bodies of the rows on the paths timed here: attention.cu's
     # and the FiT space kernel's tensor-core core, attention_mma.cuh (bf16), the
-    # backward's two kernels, attention_bwd_mma.cuh, and the GEMMs' wgmma kernels.
+    # backward's two kernels, attention_bwd_mma.cuh, the GEMMs' wgmma kernels, the
+    # LayerNorm kernel of every LN mode and the amax pass.
     bodies = {**{name: "attention_mma_kernel" for name in (
                   "attention_int8", "fused_attention_qkv", "attention_block",
                   *(n for n in BENCH_KERNELS if n.startswith("attention_") and "i8" not in n))},
@@ -2173,7 +2424,10 @@ def main() -> int:
               "fused_int8_qkv_attention": f"{INT8_GEMM}+attention_mma_kernel",
               **{name: INT8_GEMM for name in (*INT8_LAUNCHES_PER_LAYER, *BENCH_KERNELS)
                  if name.startswith("int8_gemm")},
-              **{name: BF16_GEMM for name in K2_LAUNCHES_PER_LAYER if name.startswith("bf16_gemm")}}
+              **{name: BF16_GEMM for name in K2_LAUNCHES_PER_LAYER if name.startswith("bf16_gemm")},
+              **{name: LN_KERNEL for name in ("ln_quant", "ln_cast", "ln_quant_one",
+                                              "ln_quant_fold", "ln_quant_cast")},
+              "attn_amax": "amax_rows_kernel"}
     record = [{"name": name, "route": "cuda",
                "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",
                "replaces": replaces.get(name, "fitclip_tpu/ops/block.py:137"),
@@ -2189,9 +2443,14 @@ def main() -> int:
             entry["kernel"] = bodies[entry["name"]]
     for entry in record:
         library = entry["library_ms"]
+        device = (f", device {entry['device_ms']:.4f} ms (library "
+                  f"{entry['library_device_ms'] or float('nan'):.4f})" if "device_ms" in entry
+                  else "")
         print(f"  {entry['name']}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
               f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), library "
-              f"{'none' if library is None else f'{library:.4f} ms'}")
+              f"{'none' if library is None else f'{library:.4f} ms'}{device}")
+        require(entry["ms"] >= DEVICE_BELOW_MS or "device_ms" in entry,
+                f"{entry['name']}: {entry['ms']:.4f} ms by events and no device time")
     print(json.dumps({"kernels": record}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -313,6 +313,8 @@ def attn_amax(qkv: torch.Tensor, block: int) -> torch.Tensor:
         return attn_amax_plain(qkv, block)
     _build.check_cuda_operand("qkv", qkv, torch.bfloat16, 3)
     frames, seq, triple = qkv.shape
+    if triple % 24 or triple // 8 > 1024:
+        raise ValueError(f"attn_amax takes 3W with W a multiple of 8 and 3W <= 8192, not {triple}")
     scales = torch.empty(-(-frames // block), 3, dtype=torch.float32, device=qkv.device)
     _build.call("fitclip_attn_amax", qkv.data_ptr(), scales.data_ptr(), frames, seq, triple // 3,
                 int(block))

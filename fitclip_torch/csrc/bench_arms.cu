@@ -10,10 +10,14 @@
 //                  * inv_out`, then round and clip). Bound by memory: it reads W
 //                  of each row's 3W values and writes W bytes.
 //   attn_amax      per block of `block` frames, max(|x|) over every head's q, k
-//                  and v (floored at 1e-6): the dynamic per-block scales of the
-//                  int8 arms of scripts/bench_attn_int8.py:_variant_kernel (S2,
-//                  q_amax, k_amax, v_amax). One CTA per (block, part); bound by
-//                  memory, one read of qkv.
+//                  and v (floored at 1e-6, NaN propagated): the dynamic
+//                  per-block scales of the int8 arms of
+//                  scripts/bench_attn_int8.py:_variant_kernel (S2, q_amax,
+//                  k_amax, v_amax). Bound by memory: one streaming read of qkv
+//                  with 16-byte loads, four rows in flight a thread, the max
+//                  taken on the bf16 bit patterns two at a time (__vmaxu2), each
+//                  frame block spread over enough CTAs to fill the SMs and
+//                  combined with atomicMax.
 //   attention_s8   S2's `i8qk` and `i8qkav` cores. q and k are quantized on the
 //                  way into shared memory, rint(x * (127 / amax)) clipped to +-127,
 //                  and QK^T runs on the tensor cores as s8 mma.sync.m16n8k32 with
@@ -31,6 +35,8 @@
 //                  CUDA-core P.V walk each warp's rows serially, and the kernel is
 //                  bound by that latency, not by its 31 G int8 products per 512
 //                  frames (it reads 1.5x the bf16 qkv mode's time on an H100).
+#include <algorithm>
+
 #include "common.cuh"
 
 using namespace fitclip;
@@ -60,26 +66,62 @@ __global__ void slice_requant_kernel(const T* __restrict__ qkv, int8_t* __restri
 
 // --- attn_amax ------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256)
-amax_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ scales, int frames,
-            int seq, int width, int block) {
-  const int blk = blockIdx.x, part = blockIdx.y;
-  const int f0 = blk * block, f1 = min(f0 + block, frames);
-  const size_t per_frame = static_cast<size_t>(seq) * width;
-  const size_t total = (f1 - f0) * per_frame;
-  float m = 0.f;
-  for (size_t e = threadIdx.x; e < total; e += blockDim.x) {
-    const size_t row = f0 * static_cast<size_t>(seq) + e / width;
-    m = fmaxf(m, fabsf(__bfloat162float(qkv[row * 3 * width + part * width + e % width])));
-  }
-  m = warp_max(m);
-  __shared__ float warp_peaks[8];
-  if ((threadIdx.x & 31) == 0) warp_peaks[threadIdx.x >> 5] = m;
+constexpr int kAmaxUnroll = 4;         // rows in flight per thread
+constexpr int kAmaxMinRows = 16;       // fewest rows a CTA takes
+constexpr unsigned kAmaxFloor = 0x358637bdu;  // the bits of 1e-6f
+
+// |x| of two bf16 values as their bit patterns: sign cleared. As unsigned
+// integers these order like the magnitudes, and a NaN (0x7f81-0x7fff) lies
+// above +inf (0x7f80), so an integer max propagates NaN as jnp.max does.
+__device__ __forceinline__ unsigned abs_bf16x2(unsigned w) { return w & 0x7fff7fffu; }
+
+__device__ __forceinline__ unsigned max_abs(unsigned m, const uint4& v) {
+  return __vmaxu2(__vmaxu2(m, __vmaxu2(abs_bf16x2(v.x), abs_bf16x2(v.y))),
+                  __vmaxu2(abs_bf16x2(v.z), abs_bf16x2(v.w)));
+}
+
+__device__ __forceinline__ uint4 load_stream(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+// CTA (frame block, chunk) reads its chunk of the block's rows in address order;
+// thread t owns the row's 16-byte vector t (of 3W / 8), so its part (q, k or v)
+// is fixed: one divide per thread, none per element. The per-part maxima meet
+// in shared memory, then in `scales` (zeroed by the C entry) through atomicMax
+// on the bits of non-negative floats: max is exact in any order. Every CTA
+// brings the 1e-6 floor.
+__global__ void amax_rows_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                 unsigned* __restrict__ scales, int frames, int seq, int width,
+                                 int block, int chunks) {
+  const int fb = blockIdx.x / chunks, chunk = blockIdx.x - fb * chunks;
+  const int vrow = 3 * width / 8;  // 16-byte vectors per row
+  const long long r0 = static_cast<long long>(fb) * block * seq;
+  const long long n = static_cast<long long>(min(block, frames - fb * block)) * seq;
+  const long long begin = r0 + n * chunk / chunks, end = r0 + n * (chunk + 1) / chunks;
+  const int t = threadIdx.x;
+  __shared__ unsigned part_max[3];
+  if (t < 3) part_max[t] = kAmaxFloor;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < 8; ++w) m = fmaxf(m, warp_peaks[w]);
-    scales[blk * 3 + part] = fmaxf(m, 1e-6f);
+  if (t < vrow) {
+    const uint4* p = reinterpret_cast<const uint4*>(qkv) + begin * vrow + t;
+    unsigned m = 0;
+    long long r = begin;
+    for (; r + kAmaxUnroll <= end; r += kAmaxUnroll, p += kAmaxUnroll * vrow) {
+      uint4 v[kAmaxUnroll];
+#pragma unroll
+      for (int u = 0; u < kAmaxUnroll; ++u) v[u] = load_stream(p + u * vrow);
+#pragma unroll
+      for (int u = 0; u < kAmaxUnroll; ++u) m = max_abs(m, v[u]);
+    }
+    for (; r < end; ++r, p += vrow) m = max_abs(m, load_stream(p));
+    const unsigned half = max(m & 0xffffu, m >> 16);  // bf16 bits -> fp32 bits
+    atomicMax(&part_max[t / (width / 8)], half << 16);
   }
+  __syncthreads();
+  if (t < 3) atomicMax(&scales[fb * 3 + t], part_max[t]);
 }
 
 // --- attention_s8 ---------------------------------------------------------------
@@ -299,13 +341,38 @@ extern "C" int fitclip_slice_requant(const void* qkv, int dtype, void* out, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// scales (ceil(frames / block), 3) fp32 from bf16 qkv (frames, seq, 3 * width).
+// scales (ceil(frames / block), 3) fp32 from bf16 qkv (frames, seq, 3 * width):
+// width a multiple of 8 with 3 * width / 8 <= 1024 (one thread per 16-byte
+// vector of a row). The grid spreads each frame block over enough CTAs to fill
+// the SMs (at least kAmaxMinRows rows a CTA).
 extern "C" int fitclip_attn_amax(const void* qkv, void* scales, int frames, int seq, int width,
                                  int block, void* stream) {
-  const dim3 grid((frames + block - 1) / block, 3);
-  amax_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(scales), frames, seq, width,
-      block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vrow = 3 * width / 8;
+  if (width <= 0 || width % 8 != 0 || vrow > 1024 || frames <= 0 || seq <= 0 || block <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (frames + block - 1) / block;
+  cudaError_t err = cudaMemsetAsync(scales, 0, sizeof(float) * 3 * blocks, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = (vrow + 31) / 32 * 32;
+  static int resident = 0;  // CTAs the card holds at once at this CTA size
+  static int resident_threads = 0;
+  if (resident_threads != threads) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, amax_rows_kernel, threads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = sms * per_sm;
+    resident_threads = threads;
+  }
+  const long long rows = static_cast<long long>(std::min(block, frames)) * seq;
+  const int chunks = static_cast<int>(
+      std::max(1LL, std::min((resident + blocks - 1LL) / blocks, rows / kAmaxMinRows)));
+  amax_rows_kernel<<<blocks * chunks, threads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<unsigned*>(scales), frames, seq, width,
+      block, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

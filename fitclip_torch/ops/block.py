@@ -80,13 +80,26 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, inv: flo
     return out
 
 
+# The widths csrc/ln_quant.cu takes: multiples of 8 (whole 16-byte vectors of
+# a bf16 row), up to 4 vectors of 8 a lane (ViT-L/14's 1024).
+LN_MAX_WIDTH = 1024
+
+
+def _check_ln_operands(x, weight, bias) -> None:
+    _build.check_cuda_operand("x", x, ndim=2)
+    for name, t in (("weight", weight), ("bias", bias)):
+        _build.check_cuda_operand(name, t, torch.float32, 1)
+    width = x.shape[1]
+    if width % 8 or not 0 < width <= LN_MAX_WIDTH:
+        raise ValueError(f"the LayerNorm kernel takes widths that are multiples of 8 up to "
+                         f"{LN_MAX_WIDTH}, not {width}")
+
+
 def ln_quant_launch(x, weight, bias, inv, eps, mode: int) -> torch.Tensor:
     """One launch of csrc/ln_quant.cu's int8 kernel in ``mode`` (0: the
     shipped two-pass LN; 1-3: the modes of fitclip_torch/bench)."""
     rows, width = x.shape
-    _build.check_cuda_operand("x", x, ndim=2)
-    for name, t in (("weight", weight), ("bias", bias)):
-        _build.check_cuda_operand(name, t, torch.float32, 1)
+    _check_ln_operands(x, weight, bias)
     out = torch.empty(rows, width, dtype=torch.int8, device=x.device)
     _build.call("fitclip_ln_quant", x.data_ptr(), _build.dtype_code(x.dtype),
                 weight.data_ptr(), bias.data_ptr(), out.data_ptr(), rows, width,
@@ -322,9 +335,7 @@ def ln_cast(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, out_dtype
     if out_dtype != torch.bfloat16:
         raise TypeError(f"ln_cast writes bfloat16 on the card (K2's compute dtype), not {out_dtype}")
     rows, width = x.shape
-    _build.check_cuda_operand("x", x, ndim=2)
-    for name, t in (("weight", weight), ("bias", bias)):
-        _build.check_cuda_operand(name, t, torch.float32, 1)
+    _check_ln_operands(x, weight, bias)
     out = torch.empty(rows, width, dtype=out_dtype, device=x.device)
     _build.call("fitclip_ln_cast", x.data_ptr(), _build.dtype_code(x.dtype), weight.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), rows, width, float(eps))

@@ -1098,6 +1098,136 @@ def test_slice_requant_and_amax_match_plain(cuda):
         assert torch.equal(P.attn_amax(qkv, block), P.attn_amax_plain(qkv, block))
 
 
+# The LayerNorm kernel (csrc/ln_quant.cu, ln_rows_kernel) in every mode: K1's
+# ln_quant, K2's ln_cast and S1's one, fold and cast, on the encode's rows
+# (32 clips x 4 frames x 197), every width class of the kernel (384: 2 vectors
+# a lane on half the lanes, 1024: 4 on all) and row counts that are no
+# multiple of a CTA's four rows.
+LN_SHAPES = [(25216, 768), (6304, 384), (6301, 1024), (4099, 384), (37, 1024), (618, 512)]
+LN_MODES = ["two", "one", "fold", "cast", "ln_cast"]
+
+
+def _ln_modes(mode):
+    """(kernel wrapper, plain version) of a LayerNorm mode, both (x, gamma, beta, inv)."""
+    from fitclip_torch.bench import kernels as P
+
+    if mode == "ln_cast":
+        return (lambda x, g, b, inv: K.ln_cast(x, g, b, torch.bfloat16),
+                lambda x, g, b, inv: K.layer_norm_plain(x, g, b))
+    if mode == "two":
+        return K.ln_quant, K.ln_quant_plain
+    return (getattr(P, f"ln_quant_{mode}"),
+            lambda x, g, b, inv: P.ln_quant_variant_plain(x, g, b, inv, K.LN_EPS, mode))
+
+
+def _assert_ln_close(mode, out, ref):
+    if mode == "ln_cast":
+        assert out.dtype == torch.bfloat16
+        torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    else:
+        _assert_int8_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", LN_MODES)
+@pytest.mark.parametrize("rows,width", LN_SHAPES)
+def test_ln_kernel_modes_match_plain(cuda, rows, width, mode):
+    gen = torch.Generator().manual_seed(23)
+    gamma = (1 + 0.1 * torch.randn(width, generator=gen)).to(cuda)
+    beta = (0.1 * torch.randn(width, generator=gen)).to(cuda)
+    kernel, plain = _ln_modes(mode)
+    counter = K.ln_cast if mode == "ln_cast" else kernel
+    for x in (torch.randn(rows, width, generator=gen).to(cuda, torch.bfloat16),
+              (3 * torch.randn(rows, width, generator=gen) + 1).to(cuda)):
+        before = counter.launches
+        out = kernel(x, gamma, beta, 127.0 / 4.0)
+        assert counter.launches == before + 1 and out.shape == x.shape
+        _assert_ln_close(mode, out, plain(x, gamma, beta, 127.0 / 4.0))
+
+
+def _ln_edge_rows(width, dtype, gen):
+    """4096 ordinary rows and, among them, a constant row (var = 0), a row on a
+    common offset of 1e3 and two rows whose outputs fall on the .5 boundaries
+    of the quantization (gamma 1, beta 0, inv = sqrt(var + eps) of those rows:
+    LN(x) * inv is k + 0.5 up to rounding); returns x and inv."""
+    x = torch.randn(4096, width, generator=gen)
+    half = torch.arange(width // 2) % 20 + 0.5
+    ties = torch.cat([half, -half])
+    x[100] = 0.75
+    x[700] = 1e3 + torch.randn(width, generator=gen)
+    x[1200] = ties[torch.randperm(width, generator=gen)]
+    x[3000] = ties[torch.randperm(width, generator=gen)]
+    inv = float((ties.double() ** 2).mean().add(1e-5).sqrt())
+    return x.to(dtype), inv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["two", "fold", "cast", "ln_cast"])
+def test_ln_kernel_two_pass_modes_on_edge_rows(cuda, mode, dtype):
+    """The constant row gives beta (0) exactly; the offset row and the tie rows
+    stay within the int8 and float rules."""
+    gen = torch.Generator().manual_seed(24)
+    x, inv = _ln_edge_rows(768, dtype, gen)
+    x = x.to(cuda)
+    gamma, beta = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    kernel, plain = _ln_modes(mode)
+    out = kernel(x, gamma, beta, inv)
+    assert not out[100].any()
+    _assert_ln_close(mode, out, plain(x, gamma, beta, inv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", LN_MODES)
+def test_ln_kernel_two_launches_bit_identical(cuda, mode):
+    gen = torch.Generator().manual_seed(25)
+    kernel, _ = _ln_modes(mode)
+    gamma = (1 + 0.1 * torch.randn(768, generator=gen)).to(cuda)
+    beta = (0.1 * torch.randn(768, generator=gen)).to(cuda)
+    for x in (torch.randn(25216, 768, generator=gen).to(cuda, torch.bfloat16),
+              (3 * torch.randn(6304, 768, generator=gen)).to(cuda)):
+        assert torch.equal(kernel(x, gamma, beta, 127.0 / 4.0), kernel(x, gamma, beta, 127.0 / 4.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [0, 100, 1032])
+def test_ln_kernel_refuses_widths_it_does_not_take(cuda, width):
+    x = torch.zeros(4, width, device=cuda, dtype=torch.bfloat16)
+    ones = torch.ones(width, device=cuda)
+    for call in (lambda: K.ln_quant(x, ones, ones, 1.0),
+                 lambda: K.ln_cast(x, ones, ones, torch.bfloat16)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 2, 3])
+def test_amax_pass_matches_plain_on_edge_values(cuda, block):
+    """7 frames (no multiple of 2 or 3) of 197 x 3 x 768 bf16: a single large
+    value at the last element (v's), an all-zero q in frame 4 (the 1e-6
+    floor where frame 4 is a block alone), then a NaN in frame 3's k, which
+    its block's k scale carries (torch.equal is false on NaN: compared with
+    torch.isnan). One launch a call."""
+    from fitclip_torch.bench import kernels as P
+
+    gen = torch.Generator().manual_seed(26)
+    qkv = 0.7 * torch.randn(7, 197, 3 * 768, generator=gen)
+    qkv[-1, -1, -1] = 40.0
+    qkv[4, :, :768] = 0.0
+    qkv = qkv.to(cuda, torch.bfloat16)
+    before = P.attn_amax.launches
+    out = P.attn_amax(qkv, block)
+    assert P.attn_amax.launches == before + 1
+    assert torch.equal(out, P.attn_amax_plain(qkv, block)) and float(out[-1, 2]) == 40.0
+    if block == 1:
+        assert float(out[4, 0]) == float(torch.tensor(1e-6))
+    qkv[3, 5, 768 + 7] = float("nan")
+    out, ref = P.attn_amax(qkv, block), P.attn_amax_plain(qkv, block)
+    nan = torch.isnan(ref)
+    assert int(nan.sum()) == 1 and bool(nan[3 // block, 1])
+    assert torch.equal(torch.isnan(out), nan) and torch.equal(out[~nan], ref[~nan])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("av8,block", [(False, 1), (True, 1), (True, 2)])
 def test_s8_attention_matches_plain(cuda, av8, block):
