@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --train-steps [DIR]   # phase 6 (d) alone, for DIR's package
     python3 chip_smoke.py --row-passes [DIR]    # the LayerNorm and amax kernels alone
+    python3 chip_smoke.py --fp32-attention [DIR]  # the fp32 attention rows, encode and step
 
 Drives seven paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -26,8 +27,11 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    16 frames of 224^2; the float layer's kernels, K2, at 32 x 197 x 768 with its
    GEMMs at M = 6304 and (N, K) = (2304, 768), (768, 768), (3072, 768),
    (768, 3072), its attention also at 8 x 77 causal; K8 at 32 x 197 x 768;
-   the repaired shapes: fp32 attention at L = 577 (forward and backward on
-   their global variants, V and g read through L2) and every attention mode
+   the fp32 attention (the register-tiled kernels) in its three forward modes
+   at one vision layer of the fp32 encode and step (128 x 197 x 2304), at 32
+   frames, at the encode's text batch (256 x 77 x 1536 causal) and at L = 577,
+   and its backward at the step's shapes and L = 577, each beside SDPA's fp32
+   call with TF32 off; the repaired shapes: every attention mode
    and the backward at head_dim 32 (ViT-S/16, 32 x 197 x 384, 6 heads); bf16
    attention past 208 keys on the mma sweep (8 x 257 and 4 x 577, 16 heads,
    full and causal with seq_valid, every shipped mode, and the backward there
@@ -62,7 +66,15 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    bf16 attention runs on the tensor cores; the int8 and K2 paths' profiles
    require the wgmma GEMM kernels (int8_gemm_wgmma_kernel,
    bf16_gemm_wgmma_kernel), and no profile may show the mma.sync GEMM kernels
-   they replaced (int8_gemm_kernel, bf16_gemm_kernel);
+   they replaced (int8_gemm_kernel, bf16_gemm_kernel), nor the CUDA-core fp32
+   attention kernels the register-tiled ones replaced (attention_kernel_f32,
+   rows_kernel, columns_kernel);
+   (b) CLIP ViT-B/16 in fp32 as load_clip_encoder(dtype="float32") gives it
+   (run after phase 9): one fp32 forward launch per layer and tower and
+   nothing else of the port's; gate: min-row cosine > 0.999 against the same
+   model with fused_attention=False on the card, both towers; clips/s at 32
+   clips x 4 frames, text rows/s at 256 x 77, peak memory, and a profile that
+   requires attention_f32_kernel and prints its share;
 6. training: bf16 compute, fp32 master weights, fused attention, fused AdamW,
    synthetic uint8 video and token ids from a seed, through ``run_train``:
    (a) contrastive, 32 clips x 4 frames, config/trainer.yaml's optimizer and
@@ -81,9 +93,15 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
        backward (K3b), the forward attention, the port's GEMM and LN kernels,
        cuBLAS, the optimizer; the contrastive and teacher-student profiles
        require K3b's tensor-core kernels (rows_mma_kernel, columns_mma_kernel)
-       by name and no CUDA-core backward body. ``--train-steps DIR`` runs this
+       by name and no fp32 backward kernel. ``--train-steps DIR`` runs this
        part alone for the package under DIR (the parent's, say), on batches of
        its own;
+   (e) fp32 contrastive (the configs' default dtype), 32 clips x 4 frames, (a)'s
+       optimizer and temperature: 3 steps with 24 launches each of the fp32
+       forward and backward kernels per step, the losses within relative 2e-2
+       of the plain attention's; step ms as in (d), and a profile of one step
+       that requires attention_f32_kernel, rows_f32_kernel and
+       columns_f32_kernel and shows no bf16 attention kernel;
 7. Frozen-in-Time base (Bain et al., ICCV 2021: 12 SpaceTimeBlocks of width
    768, 4 frames of 196 patches, DistilBERT, projection 256): load int8 and
    bf16 from seed 0 with device="cuda", calibrate the int8 encoder on 8 clips,
@@ -139,6 +157,7 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
     must show launches there.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
+Each timed phase prints the card's SM and memory clocks beside its readings.
 The last two lines are the kernels' JSON record (the attention rows also
 name their __global__ body under "kernel") and the card line from nvidia-smi
 before the final {"ok": true, "device": {...}} line.
@@ -200,6 +219,15 @@ def nvidia_smi() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60)
+    require(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip()
+
+
+def clocks() -> str:
+    """The card's SM and memory clocks now, beside a timed phase's readings (so
+    that an A/B can tell clock drift from a change)."""
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem",
+                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     require(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip()
 
@@ -322,10 +350,27 @@ def sdpa_ms(torch, q, k, v, scale, backward=False, causal=False):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if not backward:
         return cuda_ms(lambda: sdpa(q, k, v, scale=scale, is_causal=causal))
-    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-    out = sdpa(q, k, v, scale=scale, is_causal=causal)
-    grad = torch.ones_like(out)
-    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True))
+    fn, *args = sdpa_backward(torch, q, k, v, scale, causal)
+    return cuda_ms(lambda: fn(*args))
+
+
+def sdpa_backward(torch, q, k, v, scale, causal=False):
+    """(fn, q, k, v, grad): SDPA's backward on (N, H, S, D) operands, as
+    timing() takes it. fn runs SDPA's forward on the first call with a set of
+    inputs (a warm-up call in cuda_ms and device_ms, which give each copy of
+    the inputs one) and the backward alone on every call."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    graphs = {}
+
+    def backward(q, k, v, grad):
+        key = tuple(t.data_ptr() for t in (q, k, v, grad))
+        if key not in graphs:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            graphs[key] = leaves, sdpa(*leaves, scale=scale, is_causal=causal)
+        leaves, out = graphs[key]
+        return torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+    return backward, q, k, v, torch.ones_like(q)
 
 
 def heads_first(qkv, heads):
@@ -355,10 +400,16 @@ def min_cosine(a, b) -> float:
     return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
 
 
-def print_encode_row(name, timed) -> None:
-    print(f"  {name} at {timed['shape']}: {timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} ms, "
-          f"bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}), library "
-          f"{timed['library_ms']:.4f} ms")
+def print_row(name, row) -> None:
+    """One row of the kernels' record: kernel, plain, bound, library (and the
+    device times where the row has them)."""
+    library = row["library_ms"]
+    device = (f", device {row['device_ms']:.4f} ms (library "
+              f"{row['library_device_ms'] or float('nan'):.4f})" if "device_ms" in row else "")
+    at = f" at {row['shape']}" if "shape" in row else ""
+    print(f"  {name}{at}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+          f"{'none' if library is None else f'{library:.4f} ms'}{device}")
 
 
 def bit_identical_to_plain(name, what, kernel_out, plain_out) -> None:
@@ -522,7 +573,7 @@ def kernel_phase(torch, checks: KernelChecks):
                 cuda_ms(lambda: torch._int_mm(a_e, wq.t())),
                 bound(me * w + 3 * w * w + 3 * w * 8 + me * 3 * w * 2, 2 * me * 3 * w * w, "int8")),
                 shape=f"{me} x {3 * w} x {w}")
-            print_encode_row("int8_gemm_bias", times["int8_gemm_bias"]["encode"])
+            print_row("int8_gemm_bias", times["int8_gemm_bias"]["encode"])
             del a_e
 
         so, bo, x_in = scale(w, w), normal(w, std=0.1), normal(m, w, dtype=torch.bfloat16)
@@ -625,16 +676,17 @@ def kernel_phase(torch, checks: KernelChecks):
             if dtype == torch.bfloat16:
                 # Under causal only the pairs at or below the diagonal are computed.
                 pairs = seq * (seq + 1) // 2 if causal else seq * seq
+                library = sdpa_backward(torch, *heads_first(qkv, heads), scale_q, causal)
                 timed = timing(
                     cuda_ms(lambda: A.fused_attention_qkv_backward(qkv, grad, heads, scale_q,
                                                                    causal)),
                     cuda_ms(lambda: A.attention_backward_plain(qkv, grad, heads, scale_q,
                                                                causal)),
-                    sdpa_ms(torch, *heads_first(qkv, heads), scale_q, backward=True,
-                            causal=causal),
+                    cuda_ms(lambda: library[0](*library[1:])),
                     bound(b * seq * 3 * w * 2 * 2 + b * seq * w * 2,
                           10 * b * heads * pairs * (w // heads), "bf16"),
-                    (A.fused_attention_qkv_backward, qkv, grad, heads, scale_q, causal))
+                    (A.fused_attention_qkv_backward, qkv, grad, heads, scale_q, causal), library)
+                del library
                 print(f"  {name} {what}: {timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} "
                       f"ms, bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}), SDPA "
                       f"backward {timed['library_ms']:.4f} ms")
@@ -707,7 +759,7 @@ def float_layer_kernel_phase(torch, checks: KernelChecks):
         cuda_ms(lambda: torch.addmm(qb16, a_e, wq.t())),
         bound(me * w * 2 + 3 * w * w * 2 + 3 * w * 4 + me * 3 * w * 2, 2 * me * 3 * w * w, "bf16")),
         shape=f"{me} x {3 * w} x {w}")
-    print_encode_row("bf16_gemm_bias", times["bf16_gemm_bias"]["encode"])
+    print_row("bf16_gemm_bias", times["bf16_gemm_bias"]["encode"])
     del a_e
     out = K.bf16_gemm_residual(a_w, wo, ob, x_bf16, torch.float32)
     checks.float("bf16_gemm_residual", "vision out-proj (bf16 -> fp32)", out,
@@ -934,6 +986,21 @@ def fit_kernel_phase(torch, checks: KernelChecks):
         sdpa_ms(torch, q, torch.cat([g_k, k], 2), torch.cat([g_v, v], 2), scale),
         bound(b * f * (p + 1) * 3 * w * 2 + b * f * p * w * 2,
               4 * b * f * heads * p * (p + 1) * d, "bf16"))
+    # K5 in fp32 (FiT's loader default): space_kernel_f32, timed only.
+    groups, gkv = groups.float(), gkv.float()
+    what = f"{b * f} x {p} x {3 * w} + gkv fp32"
+    checks.float("fused_attention_qkv_gkv", what, A.fused_attention_qkv_gkv(groups, gkv, heads, scale),
+                  A.attention_gkv_plain(groups, gkv, heads, scale))
+    q, k, v = heads_first(groups, heads)
+    g_k, g_v = (t.reshape(b * f, heads, 1, d) for t in gkv.split(w, dim=-1)[1:])
+    times["fused_attention_qkv_gkv"]["fp32"] = dict(timing(
+        cuda_ms(lambda: A.fused_attention_qkv_gkv(groups, gkv, heads, scale)),
+        cuda_ms(lambda: A.attention_gkv_plain(groups, gkv, heads, scale), iters=5),
+        sdpa_ms(torch, q, torch.cat([g_k, k], 2), torch.cat([g_v, v], 2), scale),
+        bound(b * f * (p + 1) * 3 * w * 4 + b * f * p * w * 4,
+              4 * b * f * heads * p * (p + 1) * d, "fp32")),
+        shape=what, kernel="space_kernel_f32")
+    print_row("fused_attention_qkv_gkv", times["fused_attention_qkv_gkv"]["fp32"])
     del groups, out, q, k, v
 
     # K6: 32 clips of 4 x 196 rows and their CLS rows.
@@ -956,6 +1023,23 @@ def fit_kernel_phase(torch, checks: KernelChecks):
                 torch.cat([g_v, v], 2).contiguous(), scale),
         bound(b * (f * p + 1) * 3 * w * 2 + b * f * p * w * 2,
               4 * b * p * heads * f * (f + 1) * d, "bf16"))
+    # K6 in fp32: time_kernel<float>, timed only.
+    rows, gkv = rows.float(), gkv.float()
+    what = f"{b} x {f * p} x {3 * w} + gkv fp32"
+    checks.float("fused_time_attention", what, A.fused_time_attention(rows, gkv, heads, f, scale),
+                 A.time_attention_plain(rows, gkv, heads, f, scale))
+    q, k, v = (t.float() for t in (q, k, v))
+    g_k, g_v = (t.reshape(b, 1, heads, 1, d).expand(b, p, heads, 1, d).reshape(b * p, heads, 1, d)
+                for t in gkv.split(w, dim=-1)[1:])
+    times["fused_time_attention"]["fp32"] = dict(timing(
+        cuda_ms(lambda: A.fused_time_attention(rows, gkv, heads, f, scale)),
+        cuda_ms(lambda: A.time_attention_plain(rows, gkv, heads, f, scale), iters=5),
+        sdpa_ms(torch, q.contiguous(), torch.cat([g_k, k], 2).contiguous(),
+                torch.cat([g_v, v], 2).contiguous(), scale),
+        bound(b * (f * p + 1) * 3 * w * 4 + b * f * p * w * 4,
+              4 * b * p * heads * f * (f + 1) * d, "fp32")),
+        shape=what, kernel="time_kernel<float>")
+    print_row("fused_time_attention", times["fused_time_attention"]["fp32"])
     return times
 
 
@@ -995,12 +1079,10 @@ def s3dg_kernel_phase(torch, checks: KernelChecks):
 
 def fault_kernel_phase(torch, checks: KernelChecks):
     """Phase 3, the repaired shapes: the fp32 attention at L = 577 (ViT-L/14@336;
-    the forward reads V through L2, the backward V and g; the function's
-    gradient runs through both kernels), bf16 past 208 keys (the forward's and
-    the backward rows kernel's sweep) and past 848 (the backward's global
-    body), and every attention mode and the backward at head_dim 32 (SLIP
-    ViT-S/16: 32 x 197 x 384, 6 heads). Returns the fp32 L = 577 backward's
-    timing, for the K3b record's "f32_global"."""
+    the function's gradient runs through both kernels), bf16 past 208 keys
+    (the forward's and the backward rows kernel's sweep) and past 848 (the
+    backward's global body), and every attention mode and the backward at
+    head_dim 32 (SLIP ViT-S/16: 32 x 197 x 384, 6 heads)."""
     from fitclip_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1008,7 +1090,7 @@ def fault_kernel_phase(torch, checks: KernelChecks):
     b, seq, heads, d = 2, 577, 16, 64
     qkv = (1.5 * torch.randn(b, seq, 3 * heads * d, generator=gen, device="cuda"))
     scale, out_mul = d ** -0.5, 127.0 / 2.5
-    what = f"fp32 {b} x {seq} x {3 * heads * d} (V through L2)"
+    what = f"fp32 {b} x {seq} x {3 * heads * d}"
     checks.float("fused_attention_qkv", what, A.fused_attention_qkv(qkv, heads, scale),
                  A.attention_core_plain(qkv, heads, scale, False))
     checks.int8("attention_int8", what, A.attention_int8(qkv, heads, scale, False, out_mul),
@@ -1024,18 +1106,8 @@ def fault_kernel_phase(torch, checks: KernelChecks):
                  A.attention_backward_plain(qkv, grad, heads, scale, False))
     again = A.fused_attention_qkv_backward(qkv, grad, heads, scale)
     require(torch.equal(again, leaf.grad), "fp32 L = 577 backward: two launches differ")
-    print(f"  fused_attention_qkv_backward: fp32 L = 577 on the global variant, "
-          f"{launched} launch through the function, two launches bit-identical")
-    # Its time beside its bound and SDPA's fp32 backward (TF32 off) at the same shape.
-    f32_global = dict(timing(
-        cuda_ms(lambda: A.fused_attention_qkv_backward(qkv, grad, heads, scale), iters=5),
-        cuda_ms(lambda: A.attention_backward_plain(qkv, grad, heads, scale, False), iters=5),
-        sdpa_ms(torch, *heads_first(qkv, heads), scale, backward=True),
-        bound(b * seq * 3 * heads * d * 4 * 2 + b * seq * heads * d * 4,
-              10 * b * heads * seq * seq * d, "fp32")), shape=f"{b} x {seq} x {3 * heads * d} fp32")
-    print(f"  fused_attention_qkv_backward {what}, global variant: {f32_global['ms']:.4f} ms, "
-          f"plain {f32_global['plain_ms']:.4f} ms, bound {f32_global['bound_ms']:.4f} ms "
-          f"({f32_global['bound_by']}), SDPA fp32 backward {f32_global['library_ms']:.4f} ms")
+    print(f"  fused_attention_qkv_backward: fp32 L = 577 on the {A.backward_body(qkv.dtype, seq, d)} "
+          f"body, {launched} launch through the function, two launches bit-identical")
 
     # bf16 past 208 keys: the mma sweep (ViT-L/14's 257, ViT-L/14@336's 577), also
     # causal with seq_valid, under the float and int8 rules.
@@ -1097,7 +1169,102 @@ def fault_kernel_phase(torch, checks: KernelChecks):
         checks.float("fused_attention_qkv_backward", tag,
                      A.fused_attention_qkv_backward(qkv, grad, heads, d ** -0.5),
                      A.attention_backward_plain(qkv, grad, heads, d ** -0.5, False).float())
-    return {"f32_global": f32_global}
+
+
+# The fp32 attention (the configs' default dtype) on phase 3's rows and under
+# --fp32-attention: (tag, batch, L, width, heads, causal) of the forward (one
+# vision layer of the fp32 encode and step, 32 clips x 4 frames; 32 frames; the
+# encode's text batch; ViT-L/14@336) and of the backward (the step's vision and
+# text batches, ViT-L/14@336).
+F32_FORWARD_SHAPES = (("vision", 128, 197, 768, 12, False), ("vision32", 32, 197, 768, 12, False),
+                      ("text", 256, 77, 512, 8, True), ("L577", 2, 577, 1024, 16, False))
+F32_BACKWARD_SHAPES = (("vision", 128, 197, 768, 12, False), ("text", 32, 77, 512, 8, True),
+                       ("L577", 2, 577, 1024, 16, False))
+
+
+def f32_attention_phase(torch, checks: KernelChecks, A):
+    """Phase 3, the fp32 attention kernels of the package ``A`` belongs to (K3f's
+    forward in the qkv, int8 and block modes; K3b's backward): each held to its
+    plain version in fp32 (int8 under the int8 rule), two launches bit-identical,
+    then timed beside the plain version, the bound (fp32 operations at 67
+    TFLOP/s; causal counts the pairs at or below the diagonal) and SDPA's fp32
+    call with TF32 off (none for the int8 mode), with device time for the text
+    rows and any row that reads under 0.1 ms. Returns {"attention_f32": row, "attention_bwd_f32":
+    row}: the first shape's qkv mode and backward, the others nested under
+    their tags."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    print(f"clocks (phase 3, fp32 attention): {clocks()}")
+    out_mul, rows = 127.0 / 2.5, {}
+    for tag, b, seq, w, heads, causal in F32_FORWARD_SHAPES:
+        d = w // heads
+        scale = d ** -0.5
+        qkv = 1.5 * torch.randn(b, seq, 3 * w, generator=gen, device="cuda")
+        what = f"fp32 {b} x {seq} x {3 * w}{' causal' if causal else ''}"
+        runs = {"qkv": (A.fused_attention_qkv, (qkv, heads, scale, causal),
+                        lambda: A.attention_core_plain(qkv, heads, scale, causal)),
+                "int8": (A.attention_int8, (qkv, heads, scale, causal, out_mul),
+                         lambda: A.attention_int8_plain(qkv, heads, scale, causal, out_mul)),
+                "block": (A.attention_block, (qkv, heads, scale, causal),
+                          lambda: A.attention_core_plain(qkv, heads, scale, causal, 1.0))}
+        for mode, (fn, args, plain) in runs.items():
+            out = fn(*args)
+            if mode == "int8":
+                checks.int8("attention_f32", f"{what} int8 mode", out, plain())
+            else:
+                checks.float("attention_f32", f"{what} {mode} mode", out, plain())
+            require(torch.equal(out, fn(*args)), f"{what} {mode} mode: two launches differ")
+            del out
+        print(f"  attention_f32 {what}: two launches bit-identical in every mode")
+        pairs = seq * (seq + 1) // 2 if causal else seq * seq
+        q, k, v = heads_first(qkv, heads)
+        for mode in ("qkv", "int8") if tag.startswith("vision") else ("qkv",):
+            fn, args, plain = runs[mode]
+            library = None if mode == "int8" else (
+                lambda q, k, v: sdpa(q, k, v, scale=scale, is_causal=causal), q, k, v)
+            row = dict(timing(
+                cuda_ms(lambda: fn(*args)), cuda_ms(plain, iters=5),
+                None if library is None else cuda_ms(lambda: library[0](*library[1:])),
+                bound(b * seq * 3 * w * 4 + b * seq * w * (1 if mode == "int8" else 4),
+                      4 * b * heads * pairs * d, "fp32"), (fn, *args), library,
+                device=tag == "text"),
+                shape=f"{what}, {mode} mode", kernel=F32_FORWARD,
+                body=A.attention_body(qkv.dtype, seq, d))
+            print_row(f"attention_f32 ({row['body']})", row)
+            rows[f"{tag} {mode}"] = row
+        del qkv, q, k, v
+    forward = rows.pop("vision qkv")
+    forward.update(rows)
+    rows = {}
+    for tag, b, seq, w, heads, causal in F32_BACKWARD_SHAPES:
+        d = w // heads
+        scale = d ** -0.5
+        qkv = 1.5 * torch.randn(b, seq, 3 * w, generator=gen, device="cuda")
+        grad = torch.randn(b, seq, w, generator=gen, device="cuda")
+        what = f"fp32 {b} x {seq} x {3 * w}{' causal' if causal else ''}"
+        out = A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal)
+        checks.float("attention_bwd_f32", what, out,
+                     A.attention_backward_plain(qkv, grad, heads, scale, causal))
+        require(torch.equal(out, A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal)),
+                f"attention_bwd_f32 {what}: two launches differ")
+        print(f"  attention_bwd_f32 {what}: two launches bit-identical")
+        del out
+        pairs = seq * (seq + 1) // 2 if causal else seq * seq
+        library = sdpa_backward(torch, *heads_first(qkv, heads), scale, causal)
+        rows[tag] = dict(timing(
+            cuda_ms(lambda: A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal),
+                    iters=10),
+            cuda_ms(lambda: A.attention_backward_plain(qkv, grad, heads, scale, causal), iters=5),
+            cuda_ms(lambda: library[0](*library[1:])),
+            bound(b * seq * 3 * w * 4 * 2 + b * seq * w * 4, 10 * b * heads * pairs * d, "fp32"),
+            (A.fused_attention_qkv_backward, qkv, grad, heads, scale, causal), library,
+            device=tag == "text"),
+            shape=what, kernel="+".join(F32_BACKWARD), body=A.backward_body(qkv.dtype, seq, d))
+        print_row(f"attention_bwd_f32 ({rows[tag]['body']})", rows[tag])
+        del qkv, grad, library
+    backward = rows.pop("vision")
+    backward.update(rows)
+    return {"attention_f32": forward, "attention_bwd_f32": backward}
 
 
 # The ablation benches (fitclip_torch/bench): each new kernel, the TPU kernel
@@ -1463,23 +1630,27 @@ INT8_GEMM, BF16_GEMM = "int8_gemm_wgmma_kernel", "bf16_gemm_wgmma_kernel"
 OLD_GEMMS = ("int8_gemm_kernel", "bf16_gemm_kernel")
 
 # A train step's device time by group (first match by kernel name): the attention
-# backward (K3b: the bf16 tensor-core kernels, or the fp32 CUDA-core ones), the
-# forward attention, the port's GEMM and LayerNorm kernels (the int8 teacher),
-# cuBLAS and the fused AdamW.
+# backward (K3b: the bf16 tensor-core kernels, or the fp32 register-tiled ones),
+# the forward attention, the port's GEMM and LayerNorm kernels (the int8
+# teacher), cuBLAS and the fused AdamW.
+F32_FORWARD = "attention_f32_kernel"
+F32_BACKWARD = ("rows_f32_kernel", "columns_f32_kernel")
 STEP_GROUPS = (
-    ("K3b", ("rows_mma_kernel", "columns_mma_kernel", "::rows_kernel<", "::columns_kernel<")),
-    ("forward attention", ("attention_mma_kernel", "attention_kernel_f32")),
+    ("K3b", ("rows_mma_kernel", "columns_mma_kernel", *F32_BACKWARD)),
+    ("forward attention", ("attention_mma_kernel", F32_FORWARD)),
     ("port GEMM + LN", (INT8_GEMM, BF16_GEMM, LN_KERNEL)),
     ("cuBLAS", ("nvjet", "cublas", "cutlass", "xmma", "gemm", "gemv")),
     ("optimizer", ("Adam", "multi_tensor_apply")),
 )
 K3B_MMA = ("rows_mma_kernel", "columns_mma_kernel")
+# The CUDA-core attention kernels of the fp32 bodies that the register-tiled
+# ones replaced: no profile may show them.
+OLD_F32_ATTENTION = ("attention_kernel_f32", "::rows_kernel<", "::columns_kernel<")
 
 
-def step_profile(torch, what, fn, require_mma):
+def step_profile(torch, what, fn, needs=(), forbid=()):
     """torch.profiler over one step: its device ms by group and the top kernels.
-    With require_mma, the bf16 backward must show both tensor-core kernels and
-    no CUDA-core body."""
+    Every kernel named in ``needs`` must show; none in ``forbid`` may."""
     per_kernel, busy = profile_ms(torch, fn, calls=1)
     total = sum(per_kernel.values())
     groups = {name: 0.0 for name, _ in STEP_GROUPS}
@@ -1493,20 +1664,22 @@ def step_profile(torch, what, fn, require_mma):
           ", ".join(f"{name} {ms:.3f} ({ms / total:.2%})" for name, ms in groups.items()))
     for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
-    if require_mma:
-        for name in K3B_MMA:
-            ms = sum(v for k, v in per_kernel.items() if name in k)
-            require(ms > 0, f"{what}: the profile shows no {name}")
-        slow = [k for k in per_kernel if "::rows_kernel<" in k or "::columns_kernel<" in k]
-        require(not slow, f"{what}: the bf16 backward ran a CUDA-core body: {slow}")
+    for name in needs:
+        ms = sum(v for k, v in per_kernel.items() if name in k)
+        print(f"  {what}: {name} {ms:.3f} ms ({ms / total:.2%})")
+        require(ms > 0, f"{what}: the profile shows no {name}")
+    bad = [k for k in per_kernel if any(name in k for name in forbid)]
+    require(not bad, f"{what}: the profile shows {bad}")
     return {"device_ms": total, "busy": busy, "groups_ms": groups}
 
 
-def step_timings(torch, student_template, teacher, batch, ts_batch, require_mma):
+def step_timings(torch, student_template, teacher, batch, ts_batch, needs=(), forbid=(),
+                 tag="(d)"):
     """Phase 6 (d): the contrastive (32 clips) and teacher-student (8 + 8, the
-    int8 teacher) steps that run_train drives, on fresh states: ms per step as
-    the median of 5 chains of 3 steps after warm-up (with min and max), peak
-    memory, and a profile of one step of each."""
+    int8 teacher; none without a teacher) steps that run_train drives, on fresh
+    states: ms per step as the median of 5 chains of 3 steps after warm-up
+    (with min and max), peak memory, and a profile of one step of each that
+    shows the kernels in ``needs`` and none in ``forbid``."""
     from fitclip_torch.training.state import init_train_state, make_optimizer
     from fitclip_torch.training.steps import (make_contrastive_train_step,
                                               make_teacher_student_train_step)
@@ -1515,7 +1688,7 @@ def step_timings(torch, student_template, teacher, batch, ts_batch, require_mma)
     frames = student_template.encoder.num_frames
     optimizer = make_optimizer(3e-6, weight_decay=0.01, eps=1e-8, fused=True)
     timings = {}
-    for kind in ("contrastive", "teacher_student"):
+    for kind in ("contrastive", "teacher_student") if teacher else ("contrastive",):
         torch.cuda.empty_cache()
         encoder = copy.deepcopy(student_template.encoder)
         if kind == "contrastive":
@@ -1535,11 +1708,11 @@ def step_timings(torch, student_template, teacher, batch, ts_batch, require_mma)
         timings[kind] = {"ms": median, "min_ms": min(chains), "max_ms": max(chains),
                          "chains_ms": chains, "peak_gib": peak}
         clips = 32 if kind == "contrastive" else 16
-        print(f"train (d) {kind} step, {'32' if clips == 32 else '8 + 8'} clips x {frames} "
+        print(f"train {tag} {kind} step, {'32' if clips == 32 else '8 + 8'} clips x {frames} "
               f"frames: median {median:.3f} ms (min {min(chains):.3f}, max {max(chains):.3f}; "
               f"5 chains of 3 steps), {clips * 1e3 / median:.1f} clips/s, peak {peak:.2f} GiB")
-        timings[kind]["profile"] = step_profile(torch, f"train (d) {kind}",
-                                                lambda: step(state, device_batch), require_mma)
+        timings[kind]["profile"] = step_profile(torch, f"train {tag} {kind}",
+                                                lambda: step(state, device_batch), needs, forbid)
         del state, step, encoder, device_batch
     return timings
 
@@ -1657,9 +1830,160 @@ def training_phase(torch, student_template, teacher, wrappers, workdir: Path):
     shutil.rmtree(workdir)
 
     # (d) Timings and a profile of the steps run_train drives, on fresh states.
+    print(f"clocks (phase 6 (d)): {clocks()}")
     timings = step_timings(torch, student_template, teacher, batches[0], ts_batches[0],
-                           require_mma=True)
+                           needs=K3B_MMA, forbid=(*F32_BACKWARD, *OLD_F32_ATTENTION))
     return totals, timings
+
+
+def fp32_training_phase(torch, wrappers, workdir: Path):
+    """Phase 6 (e): the fp32 contrastive step (the configs' default dtype: fp32
+    compute on K3f's and K3b's register-tiled fp32 kernels), CLIP ViT-B/16 from
+    seed 0 at 32 clips x 4 frames through run_train with (a)'s optimizer and
+    temperature: 3 steps with 24 + 24 counted launches of each fp32 kernel per
+    step, losses within LOSS_RTOL of the same steps on the plain attention;
+    then step ms (median of 5 chains of 3, min and max), peak memory and a
+    profile of one step that shows both fp32 kernels. Returns ({path:
+    launches}, timings)."""
+    import fitclip_torch.models.clip.model as model_module
+    from fitclip_torch.models.clip.load import LoadedEncoder, load_clip_encoder
+
+    def counters():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    template = load_clip_encoder("ViT-B/16", dtype="float32", device="cuda", seed=0)
+    rng = np.random.default_rng(5)
+    size, frames = template.encoder.config.vision.image_size, template.encoder.num_frames
+    batches = [{"video": rng.integers(0, 256, size=(32, frames, size, size, 3), dtype=np.uint8),
+                "text": token_ids(32, rng)} for _ in range(3)]
+    cfg = {"init_temperature": 0.015, "min_temperature": 0.001, "fit_temperature": False}
+    zero()
+    _, losses, launches = train(torch, LoadedEncoder(copy.deepcopy(template.encoder)), batches,
+                                cfg, counters, workdir / "fp32")
+    totals = counters()
+    per_layer = {"fused_attention_qkv": 1, "fused_attention_qkv_backward": 1, "attention_f32": 1,
+                 "attention_bwd_f32": 1}
+    expected = {k: 2 * LAYERS * per_layer.get(k, 0) for k in wrappers}
+    print(f"train (e) fp32 contrastive, 32 clips x {frames} frames: losses {losses}; launches "
+          f"per step { {k: n for k, n in launches[0].items() if n} }")
+    require(len(losses) == 3 and all(np.isfinite(losses)), f"fp32 contrastive losses {losses}")
+    require(all(step == expected for step in launches),
+            f"fp32 contrastive launches per step {launches}, expected {expected}")
+    zero()
+    with swapped(model_module, fused_attention_qkv=plain_attention_function(torch)):
+        _, plain_losses, plain_launches = train(
+            torch, LoadedEncoder(copy.deepcopy(template.encoder)), batches, cfg, counters,
+            workdir / "fp32_plain")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    print(f"train (e) fp32 plain attention: losses {plain_losses}; relative differences {rel}")
+    require(not any(any(step.values()) for step in plain_launches),
+            "the fp32 plain-attention run launched a kernel")
+    require(len(plain_losses) == 3 and max(rel) <= LOSS_RTOL,
+            f"fp32 kernel vs plain attention losses beyond relative {LOSS_RTOL}: {rel}")
+    shutil.rmtree(workdir)
+    torch.cuda.empty_cache()
+    print(f"clocks (phase 6 (e)): {clocks()}")
+    timings = step_timings(torch, template, None, batches[0], None,
+                           needs=(F32_FORWARD, *F32_BACKWARD),
+                           forbid=(*K3B_MMA, "attention_mma_kernel", *OLD_F32_ATTENTION),
+                           tag="(e) fp32")
+    return {"fp32_contrastive": totals}, timings
+
+
+def fp32_encode_timing(torch, enc):
+    """An fp32 CLIP encoder's clips/s at 32 clips x 4 frames and text rows/s at
+    256 x 77 (CUDA events over 10 calls after warm-up), and peak memory.
+    Returns (timings, the 32 clips)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    video32 = torch.randint(0, 256, (32, 4, 224, 224, 3), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+    text256 = torch.from_numpy(token_ids(256, np.random.default_rng(23))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    video_ms = cuda_ms(lambda: enc.encode_video(video32), iters=10)
+    text_ms = cuda_ms(lambda: enc.encode_text(text256), iters=10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = {"video_ms": video_ms, "clips_per_s": 32e3 / video_ms, "text_ms": text_ms,
+             "text_rows_per_s": 256e3 / text_ms, "peak_gib": peak}
+    print(f"clip fp32 encode: encode_video 32 clips x 4 frames {video_ms:.3f} ms, "
+          f"{timed['clips_per_s']:.1f} clips/s; encode_text 256 x 77 {text_ms:.3f} ms, "
+          f"{timed['text_rows_per_s']:.1f} rows/s; peak {peak:.2f} GiB")
+    return timed, video32
+
+
+def clip_fp32_phase(torch, wrappers, video, text):
+    """Phase 5 (b): CLIP ViT-B/16 in fp32, the configs' default dtype, loaded as
+    a user gets it (load_clip_encoder(dtype="float32"), fused attention on the
+    card): one launch of the fp32 forward kernel per layer and tower in an
+    encode of 8 clips and 8 rows and nothing else of the port; gate: min-row
+    cosine > 0.999 against the same model with fused_attention=False on the
+    card, both towers; clips/s, text rows/s, peak memory and a profile that
+    shows the fp32 kernel and its share. Returns ({path: launches}, timings)."""
+    from fitclip_torch.models.clip.load import load_clip_encoder
+
+    print(f"clocks (phase 5 (b), fp32 encode): {clocks()}")
+    enc = load_clip_encoder("ViT-B/16", dtype="float32", device="cuda", seed=0).encoder
+    for fn in wrappers.values():
+        fn.launches = 0
+    video_emb, text_emb = enc.encode_video(video), enc.encode_text(text)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expected = {name: 0 for name in wrappers}
+    expected.update(fused_attention_qkv=2 * LAYERS, attention_f32=2 * LAYERS)
+    print(f"clip fp32: launches per encode of both towers "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    require(launches == expected, f"clip fp32 launch counts {launches}, expected {expected}")
+    plain = load_clip_encoder("ViT-B/16", dtype="float32", device="cuda", seed=0,
+                              fused_attention=False).encoder
+    for tower, kernel_emb, plain_emb in (("vision", video_emb, plain.encode_video(video)),
+                                         ("text", text_emb, plain.encode_text(text))):
+        cos = min_cosine(kernel_emb, plain_emb)
+        print(f"clip fp32 gate {tower}: fused vs unfused attention on the card, min cosine "
+              f"{cos:.6f}")
+        require(cos > GATE_COSINE, f"clip fp32 {tower}: fused vs unfused cosine {cos}")
+    del plain
+    torch.cuda.empty_cache()
+    timed, video32 = fp32_encode_timing(torch, enc)
+    print_profile(torch, "clip fp32 encode_video", lambda: enc.encode_video(video32), top=6,
+                  kernels=(F32_FORWARD,))
+    return {"fp32_encode": launches}, timed
+
+
+def fp32_attention_only(torch, package: Path) -> int:
+    """``--fp32-attention [DIR]``: the fp32 attention alone for the fitclip_torch
+    package under DIR (default: this checkout), so that two trees' kernels are
+    timed by the same code in one run: phase 3's fp32 rows (forward and
+    backward, each against its plain version, bound and SDPA's fp32 call), the
+    fp32 CLIP ViT-B/16 encode's clips/s and text rows/s, and phase 6 (e)'s fp32
+    contrastive step ms (its profile requires no kernel by name, so that the
+    parent's kernels pass). Prints one JSON line of the readings."""
+    sys.path.insert(0, str(package))
+    from fitclip_torch import _build
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.ops import attention as A
+
+    print(f"fp32 attention of {package}; device: {torch.cuda.get_device_name(0)}; "
+          f"nvidia-smi: {nvidia_smi()}; clocks {clocks()}")
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s")
+    rows = f32_attention_phase(torch, KernelChecks(), A)
+    torch.cuda.empty_cache()
+    print(f"clocks (fp32 encode): {clocks()}")
+    template = load_clip_encoder("ViT-B/16", dtype="float32", device="cuda", seed=0)
+    with torch.no_grad():
+        encode, _ = fp32_encode_timing(torch, template.encoder)
+    rng = np.random.default_rng(5)
+    batch = {"video": rng.integers(0, 256, size=(32, 4, 224, 224, 3), dtype=np.uint8),
+             "text": token_ids(32, rng)}
+    print(f"clocks (fp32 step): {clocks()}")
+    step = step_timings(torch, template, None, batch, None, tag="(e) fp32")
+    print(json.dumps({"fp32_attention": rows, "fp32_encode": encode, "fp32_step": step,
+                      "package": str(package), "card": nvidia_smi()}))
+    return 0
 
 
 def wordpiece_ids(rows: int, rng: np.random.Generator, context: int = 77, vocab: int = 30522):
@@ -1698,7 +2022,7 @@ def profile_ms(torch, fn, calls: int = 3):
 
 # The CUDA-core forward attention bodies by their kernel names (fp32 only; every
 # bf16 path runs attention_mma.cuh's attention_mma_kernel or space_mma_kernel).
-CUDA_CORE_ATTENTION = ("attention_kernel_f32", "space_kernel_f32")
+CUDA_CORE_ATTENTION = (F32_FORWARD, "space_kernel_f32")
 
 
 def print_profile(torch, what, fn, top=10, mma=None, kernels=()):
@@ -1719,7 +2043,8 @@ def print_profile(torch, what, fn, top=10, mma=None, kernels=()):
     if mma:
         slow = [k for k in per_kernel if any(name in k for name in CUDA_CORE_ATTENTION)]
         require(not slow, f"{what}: a bf16 path ran a CUDA-core attention body: {slow}")
-    old = [k for k in per_kernel if any(name in k for name in (*OLD_GEMMS, *OLD_ROW_PASSES))]
+    old = [k for k in per_kernel
+           if any(name in k for name in (*OLD_GEMMS, *OLD_ROW_PASSES, *OLD_F32_ATTENTION))]
     require(not old, f"{what}: the profile shows a replaced kernel: {old}")
 
 
@@ -2146,7 +2471,7 @@ def train_steps_only(torch, package: Path) -> int:
     from fitclip_torch.models.clip.load import LoadedEncoder, load_clip_encoder
 
     print(f"train steps of {package}; device: {torch.cuda.get_device_name(0)}; "
-          f"nvidia-smi: {nvidia_smi()}")
+          f"nvidia-smi: {nvidia_smi()}; clocks {clocks()}")
     start = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - start:.1f} s")
@@ -2167,8 +2492,7 @@ def train_steps_only(torch, package: Path) -> int:
                        "text_teacher": part["text_student"]}
                 for half, part in (("labeled", sub()), ("unlabeled", sub()))}
     timings = step_timings(torch, student, LoadedEncoder(teacher),
-                           {"video": clips(32), "text": token_ids(32, rng)}, ts_batch,
-                           require_mma=False)
+                           {"video": clips(32), "text": token_ids(32, rng)}, ts_batch)
     print(json.dumps({"train_steps": timings, "package": str(package)}))
     return 0
 
@@ -2191,7 +2515,7 @@ def row_passes_only(torch, package: Path) -> int:
     from fitclip_torch.ops import block as K
 
     print(f"row passes of {package}; device: {torch.cuda.get_device_name(0)}; "
-          f"nvidia-smi: {nvidia_smi()}")
+          f"nvidia-smi: {nvidia_smi()}; clocks {clocks()}")
     start = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - start:.1f} s")
@@ -2234,11 +2558,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    if sys.argv[1:2] in (["--train-steps"], ["--row-passes"]):
+    alone = {"--train-steps": train_steps_only, "--row-passes": row_passes_only,
+             "--fp32-attention": fp32_attention_only}
+    if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        only = train_steps_only if sys.argv[1] == "--train-steps" else row_passes_only
-        return only(torch, Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
+        return alone[sys.argv[1]](torch, Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
     sys.path.insert(0, str(ROOT))
     from fitclip_torch import _build
     from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
@@ -2263,13 +2588,14 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     # Phase 3: each kernel against its plain version.
-    print("kernels against their plain versions:")
+    print(f"kernels against their plain versions (clocks {clocks()}):")
     checks = KernelChecks()
     times = kernel_phase(torch, checks)
     times.update(float_layer_kernel_phase(torch, checks))
     times.update(fit_kernel_phase(torch, checks))
     times.update(s3dg_kernel_phase(torch, checks))
-    times["fused_attention_qkv_backward"].update(fault_kernel_phase(torch, checks))
+    fault_kernel_phase(torch, checks)
+    times.update(f32_attention_phase(torch, checks, A))
     times.update(ln_kernel_phase(torch, checks))
     times.update(bench_kernel_phase(torch, checks))
     torch.cuda.empty_cache()
@@ -2302,7 +2628,8 @@ def main() -> int:
                 "s3dg_stem": s3dg_stem, "ln_cast": K.ln_cast, "bf16_gemm_bias": K.bf16_gemm_bias,
                 "bf16_gemm_residual": K.bf16_gemm_residual, "bf16_gemm_gelu": K.bf16_gemm_gelu,
                 "attention_block": A.attention_block,
-                "fused_int8_qkv_attention": A.fused_int8_qkv_attention}
+                "fused_int8_qkv_attention": A.fused_int8_qkv_attention,
+                "attention_f32": A.attention_f32, "attention_bwd_f32": A.attention_bwd_f32}
     for fn in wrappers.values():
         fn.launches = 0
     int8_enc.calibrate(video, calib_text)
@@ -2343,6 +2670,7 @@ def main() -> int:
           f"diagonal mean {float(scores.diagonal().mean()):.4f}")
 
     # Phase 5: the slice's throughput at 32 clips.
+    print(f"clocks (phase 5): {clocks()}")
     video32 = torch.randint(0, 256, (32, 4, 224, 224, 3), generator=gen, device="cuda",
                             dtype=torch.uint8)
     torch.cuda.reset_peak_memory_stats()
@@ -2359,9 +2687,13 @@ def main() -> int:
 
     # Phase 9 runs here, while phase 4's inputs and bf16 encoder are at hand.
     # (a) CLIP ViT-B/16 bf16 with fused_block=True (K2); (b) SLIP ViT-B/16.
+    print(f"clocks (phase 9): {clocks()}")
     clip_k2_paths, clip_k2_times = clip_bf16_fused_phase(torch, wrappers, float_enc, video, text,
                                                          video32)
     slip_paths, slip_times = slip_phase(torch, wrappers, video, calib_text, text, video32)
+    torch.cuda.empty_cache()
+    # Phase 5 (b): CLIP ViT-B/16 in fp32 (the configs' default dtype).
+    fp32_paths, fp32_encode_times = clip_fp32_phase(torch, wrappers, video, text)
     torch.cuda.empty_cache()
 
     # Phase 6: training.
@@ -2369,23 +2701,29 @@ def main() -> int:
     student = load_clip_encoder("ViT-B/16", dtype="bfloat16", device="cuda", seed=0)
     paths, train_times = training_phase(torch, student, LoadedEncoder(int8_enc), wrappers,
                                         ROOT / "build" / "chip_smoke_train")
+    del student
+    torch.cuda.empty_cache()
+    fp32_train_paths, fp32_train_times = fp32_training_phase(torch, wrappers,
+                                                             ROOT / "build" / "chip_smoke_fp32")
 
     # Phase 7: Frozen-in-Time. Inference: no autograd graph.
     torch.set_grad_enabled(False)
-    del student
     torch.cuda.empty_cache()
+    print(f"clocks (phase 7): {clocks()}")
     fit_paths, fit_times = fit_phase(torch, wrappers)
 
     # Phase 8: the S3D-G family (MIL-NCE, VideoCLIP).
     torch.cuda.empty_cache()
+    print(f"clocks (phase 8): {clocks()}")
     s3dg_paths, s3dg_times = s3dg_phase(torch, wrappers)
 
     # Phase 10: the bench path (python -m fitclip_torch.bench's arms and encode).
     torch.cuda.empty_cache()
+    print(f"clocks (phase 10): {clocks()}")
     bench_paths, bench_times, _ = bench_phase(torch, checks, wrappers)
     times.update(bench_times)
     paths = {"encode": launches, **paths, **fit_paths, **s3dg_paths, **clip_k2_paths,
-             **slip_paths, **bench_paths}
+             **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:
@@ -2399,6 +2737,8 @@ def main() -> int:
                      "fit_space_attention_int8")
     replaces = {"fused_attention_qkv": "fitclip_tpu/ops/attention.py:41",
                 "fused_attention_qkv_backward": "fitclip_tpu/ops/attention.py:349",
+                "attention_f32": "fitclip_tpu/ops/attention.py:41",
+                "attention_bwd_f32": "fitclip_tpu/ops/attention.py:349",
                 "fused_attention_qkv_gkv": "fitclip_tpu/ops/attention.py:85",
                 "fused_time_attention": "fitclip_tpu/ops/attention.py:168",
                 "s3dg_stem": "fitclip_tpu/ops/s3dg_stem.py:322",
@@ -2410,6 +2750,7 @@ def main() -> int:
                "attention_block": "attention.cu", "fused_int8_qkv_attention": "attention.cu",
                **{name: "bf16_gemm.cu" for name in K2_LAUNCHES_PER_LAYER if "gemm" in name},
                "fused_attention_qkv_backward": "attention_bwd.cu", "s3dg_stem": "s3dg_stem.cu",
+               "attention_f32": "attention.cu", "attention_bwd_f32": "attention_bwd.cu",
                **{name: "fit_attention.cu" for name in fit_attention}}
     # The __global__ bodies of the rows on the paths timed here: attention.cu's
     # and the FiT space kernel's tensor-core core, attention_mma.cuh (bf16), the
@@ -2421,6 +2762,7 @@ def main() -> int:
               "fused_attention_qkv_gkv": "space_mma_kernel",
               "fit_space_attention_int8": "space_mma_kernel",
               "fused_attention_qkv_backward": "+".join(K3B_MMA),
+              "attention_f32": F32_FORWARD, "attention_bwd_f32": "+".join(F32_BACKWARD),
               "fused_int8_qkv_attention": f"{INT8_GEMM}+attention_mma_kernel",
               **{name: INT8_GEMM for name in (*INT8_LAUNCHES_PER_LAYER, *BENCH_KERNELS)
                  if name.startswith("int8_gemm")},
@@ -2442,13 +2784,7 @@ def main() -> int:
         if entry["name"] in bodies:
             entry["kernel"] = bodies[entry["name"]]
     for entry in record:
-        library = entry["library_ms"]
-        device = (f", device {entry['device_ms']:.4f} ms (library "
-                  f"{entry['library_device_ms'] or float('nan'):.4f})" if "device_ms" in entry
-                  else "")
-        print(f"  {entry['name']}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
-              f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), library "
-              f"{'none' if library is None else f'{library:.4f} ms'}{device}")
+        print_row(entry["name"], entry)
         require(entry["ms"] >= DEVICE_BELOW_MS or "device_ms" in entry,
                 f"{entry['name']}: {entry['ms']:.4f} ms by events and no device time")
     print(json.dumps({"kernels": record}))

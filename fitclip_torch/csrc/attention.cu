@@ -44,22 +44,31 @@
 //   mma_sweep  bf16, L > 208 (ViT-L/14, ViT-L/14@336): the same core sweeping
 //              the keys in tiles of 64, QK^T recomputed in each of its three
 //              passes (max, sum, weights and P.V).
-//   f32        fp32, the shipped modes: attention_kernel_f32 on the CUDA cores
-//              (tensor cores would take fp32 as TF32). Each warp takes one query
-//              row at a time: lane j computes the logits of keys j, j + 32, ...
-//              against K stored transposed, then accumulates D / 32 output
-//              columns over P.V.
-//   f32_v_global  fp32 where K and V do not fit (L = 577: 296 KB of the 227 KB):
-//              attention_kernel_f32 with only K^T in shared memory (148 KB) and
-//              V read through L2.
-#include "attention_mma.cuh"
+//   f32_64, f32_32  fp32, the shipped modes: attention_f32_kernel, register-tiled
+//              on the CUDA cores (tensor cores would take fp32 as TF32; see
+//              attention_f32.cuh). A block takes 64 query rows (f32_64), or 32
+//              past the length where 64 rows of logits no longer fit beside
+//              the Q tile and the K/V ring (L > 680 at head_dim 64, > 776 at
+//              32; f32_32 takes up to 1448 and 1608). K tiles of 64 keys stream
+//              by cp.async into a double buffer for QK^T (4 x 4 logits a thread
+//              at 64 rows), the logits of every key the block sees land in a
+//              row buffer, warps take whole rows for the exact softmax, and V
+//              tiles stream through the same buffer for P.V, accumulated in
+//              registers. Logits sum over d and P.V over keys in ascending
+//              order, and the softmax sums as the CUDA-core body it replaced
+//              did (lane-strided, then the warp's butterfly), so the outputs
+//              are that body's bits. Under causal, whole 32-key column blocks
+//              past a warp's last row are skipped. Its bound is the FFMA
+//              rate (4 B H L^2 D operations against 67 TFLOP/s); its 4 x 4
+//              tiles are held back by shared-memory bandwidth first.
+#include "attention_f32.cuh"
 
 using namespace fitclip;
 using namespace fitclip::attn;
 
 namespace {
 
-enum Body : int { kBodyMma = 0, kBodyMmaSweep = 1, kBodyF32 = 2, kBodyF32VGlobal = 3 };
+enum Body : int { kBodyMma = 0, kBodyMmaSweep = 1, kBodyF32Rows64 = 2, kBodyF32Rows32 = 3 };
 
 constexpr size_t kSmemLimit = 232448;  // shared memory a block can use on an H100
 
@@ -157,131 +166,46 @@ int dispatch_mma(int mode, int body, const void* qkv, void* out, int batch, int 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// --- the fp32 bodies (CUDA cores) ------------------------------------------------
+// --- the fp32 tiers (CUDA cores, register-tiled: attention_f32.cuh) ---------------
 
-constexpr int kF32Warps = 8;
-constexpr int kF32QueryTile = 64;
+namespace fa = fitclip::f32attn;
 
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
+size_t f32_smem_bytes(int seq, int head_dim, int rows) { return fa::forward_smem_bytes(seq, head_dim, rows); }
 
-// Shared memory: K^T (D x lp), V (L x D) unless read through L2, per-warp row
-// buffers (kF32Warps x lp fp32).
-size_t f32_smem_bytes(int seq, int head_dim, bool v_global) {
-  const int lp = seq + (seq & 1);
-  return align16(sizeof(float) * head_dim * lp) +
-         (v_global ? 0 : align16(sizeof(float) * static_cast<size_t>(seq) * head_dim)) +
-         sizeof(float) * kF32Warps * lp;
-}
-
-template <int D, int kMode, bool kVGlobal>
-__global__ void __launch_bounds__(kF32Warps * 32)
-attention_kernel_f32(const float* __restrict__ qkv, void* __restrict__ out, int seq, int lp, int heads,
-                     float scale, int causal, int seq_valid, float out_mul) {
-  constexpr int kCols = D / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* kt = reinterpret_cast<float*>(smem);
-  float* vs = reinterpret_cast<float*>(smem + align16(sizeof(float) * D * lp));
-  float* rows = reinterpret_cast<float*>(
-      smem + align16(sizeof(float) * D * lp) +
-      (kVGlobal ? 0 : align16(sizeof(float) * static_cast<size_t>(seq) * D)));
-
-  const int width = heads * D;
-  const int q0 = blockIdx.x * kF32QueryTile, h = blockIdx.y, b = blockIdx.z;
-  const int q1 = min(q0 + kF32QueryTile, seq);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* base = qkv + static_cast<size_t>(b) * seq * 3 * width;
-  const float* vg = base + 2 * width + h * D;  // V of key j at vg[j * 3 * width]
-
-  // The keys any row of this tile can see.
-  const int keys = min(causal ? q1 : seq, seq_valid);
-  for (int idx = tid; idx < keys * D; idx += kF32Warps * 32) {
-    const int j = idx / D, d = idx % D;
-    const float* src = base + static_cast<size_t>(j) * 3 * width + h * D + d;
-    kt[d * lp + j] = src[width];
-    if (!kVGlobal) vs[j * D + d] = src[2 * width];
-  }
-  __syncthreads();
-
-  float* p = rows + warp * lp;
-  for (int i = q0 + warp; i < q1; i += kF32Warps) {
-    const float* qrow = base + static_cast<size_t>(i) * 3 * width + h * D;
-    float q[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) q[d] = mul(qrow[d], scale);
-
-    const int nk = min(causal ? i + 1 : seq, seq_valid);
-    float peak = -INFINITY;
-    for (int j = lane; j < nk; j += 32) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(q[d], kt[d * lp + j], s);
-      p[j] = s;
-      peak = fmaxf(peak, s);
-    }
-    peak = warp_max(peak);
-    float denom = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      const float e = softmax_exp<kMode>(p[j], peak);
-      p[j] = e;
-      denom += e;
-    }
-    denom = warp_sum(denom);
-    const float norm = softmax_norm<kMode>(denom, out_mul);
-    for (int j = lane; j < nk; j += 32) p[j] = softmax_weight<kMode>(p[j], denom, norm);
-    __syncwarp();
-
-    float o[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) o[c] = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float wgt = p[j];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float v = kVGlobal ? vg[static_cast<size_t>(j) * 3 * width + lane + 32 * c] : vs[j * D + lane + 32 * c];
-        o[c] = fmaf(wgt, v, o[c]);
-      }
-    }
-    const size_t o_row = (static_cast<size_t>(b) * seq + i) * width + h * D + lane;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if constexpr (int8_out<kMode>()) {
-        static_cast<int8_t*>(out)[o_row + 32 * c] = requant<kMode>(o[c], out_mul);
-      } else {
-        static_cast<float*>(out)[o_row + 32 * c] = o[c];
-      }
-    }
-    __syncwarp();  // the next row overwrites p
-  }
-}
-
-template <int D, int kMode, bool kVGlobal>
+template <int D, int R, int kMode>
 int launch_f32(const void* qkv, void* out, int batch, int seq, int heads, float scale, int causal, int seq_valid,
                float out_mul, cudaStream_t s) {
-  const int lp = seq + (seq & 1);
-  const size_t smem = f32_smem_bytes(seq, D, kVGlobal);
-  auto kernel = attention_kernel_f32<D, kMode, kVGlobal>;
+  const size_t smem = f32_smem_bytes(seq, D, R);
+  auto kernel = fa::attention_f32_kernel<D, R / 16, kMode>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((seq + kF32QueryTile - 1) / kF32QueryTile, heads, batch);
-  kernel<<<grid, kF32Warps * 32, smem, s>>>(static_cast<const float*>(qkv), out, seq, lp, heads, scale, causal,
-                                            seq_valid, out_mul);
+  const dim3 grid((seq + R - 1) / R, heads, batch);
+  kernel<<<grid, fa::kThreads, smem, s>>>(static_cast<const float*>(qkv), out, seq, heads, scale, causal,
+                                          seq_valid, out_mul);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The shipped modes; V in shared memory, or through L2 (head_dim 64 only: the
-// shape that overflows shared memory is L = 577).
-template <int D, bool kVGlobal>
+// The shipped modes at one head_dim and tier.
+template <int D, int R>
 int dispatch_f32(int mode, const void* qkv, void* out, int batch, int seq, int heads, float scale, int causal,
                  int seq_valid, float out_mul, cudaStream_t s) {
   switch (mode) {
-    case kQkv: return launch_f32<D, kQkv, kVGlobal>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-    case kInt8: return launch_f32<D, kInt8, kVGlobal>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-    case kBlock: return launch_f32<D, kBlock, kVGlobal>(qkv, out, batch, seq, heads, scale, causal, seq_valid, 1.f, s);
+    case kQkv: return launch_f32<D, R, kQkv>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    case kInt8: return launch_f32<D, R, kInt8>(qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    case kBlock: return launch_f32<D, R, kBlock>(qkv, out, batch, seq, heads, scale, causal, seq_valid, 1.f, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int D>
+int dispatch_f32_tier(int body, int mode, const void* qkv, void* out, int batch, int seq, int heads, float scale,
+                      int causal, int seq_valid, float out_mul, cudaStream_t s) {
+  if (body == kBodyF32Rows64)
+    return dispatch_f32<D, 64>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+  return dispatch_f32<D, 32>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
 }
 
 }  // namespace
@@ -295,8 +219,8 @@ extern "C" int fitclip_attention_body(int dtype, int seq, int head_dim) {
     return seq <= kResidentKeys ? kBodyMma : kBodyMmaSweep;
   }
   if (dtype == kFloat32) {
-    if (f32_smem_bytes(seq, head_dim, false) <= kSmemLimit) return kBodyF32;
-    if (head_dim == 64 && f32_smem_bytes(seq, head_dim, true) <= kSmemLimit) return kBodyF32VGlobal;
+    if (f32_smem_bytes(seq, head_dim, 64) <= kSmemLimit) return kBodyF32Rows64;
+    if (f32_smem_bytes(seq, head_dim, 32) <= kSmemLimit) return kBodyF32Rows32;
   }
   return -1;
 }
@@ -317,11 +241,9 @@ extern "C" int fitclip_attention(const void* qkv, int dtype, void* out, int mode
       return dispatch_mma<64>(mode, body, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
     return dispatch_mma<32>(mode, body, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
   }
-  // The fp32 bodies: fp32 and the shipped modes only; a bf16 call never reaches them.
+  // The fp32 tiers: fp32 and the shipped modes only; a bf16 call never reaches them.
   if (dtype != kFloat32 || mode > kBlock) return static_cast<int>(cudaErrorInvalidValue);
-  if (body == kBodyF32VGlobal)
-    return dispatch_f32<64, true>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
   if (head_dim == 64)
-    return dispatch_f32<64, false>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
-  return dispatch_f32<32, false>(mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+    return dispatch_f32_tier<64>(body, mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
+  return dispatch_f32_tier<32>(body, mode, qkv, out, batch, seq, heads, scale, causal, seq_valid, out_mul, s);
 }

@@ -28,29 +28,28 @@
 //   mma_global  bf16 past that: the same kernels with K alone in the rows
 //               kernel's shared memory and q_s alone in the columns kernel's,
 //               V and g read from device memory through L2.
-//   f32         fp32 on the CUDA cores (the tensor cores would take fp32 as
-//               TF32): rows_kernel and columns_kernel below. A warp takes one
-//               query row (rows) or one key (columns) against the head's two
-//               transposed operands in shared memory; the columns kernel
-//               recomputes the column's logits, W32 and dW with the rows
-//               kernel's arithmetic in the same order (bit for bit its values).
-//               Per pair and head that is four 64-long dot products and three
-//               64-long axpys, about 900 FLOP: bound by issue rate and
-//               shared-memory bandwidth. The column reads (lane * pitch + j)
-//               use an odd row pitch, so that the 32 lanes hit 32 banks.
-//   f32_global  fp32 where the two transposed operands of one head exceed a
-//               block's shared memory (L = 577, ViT-L/14@336: 2 x 148 KB): only
-//               the first (K^T in the rows kernel, (q_s)^T in the columns
-//               kernel) stays in shared memory, and the second (V, g) is read
-//               from device memory through L2, with the same arithmetic in the
-//               same order.
+//   f32_32, f32_16  fp32, register-tiled on the CUDA cores (the tensor cores
+//               would take fp32 as TF32; see attention_f32.cuh):
+//               rows_f32_kernel with 32 query rows a block, or 16 where its two
+//               row buffers of logits/W32 and dW/dL no longer fit (past L = 680
+//               at head_dim 64, 776 at 32; 16 rows take up to 1448 and 1608),
+//               then columns_f32_kernel, 64 keys a block whatever L
+//               (flash-style: q_s, g and the statistics stream past the
+//               block's K and V). Both recompute the logits and dW in the same
+//               fmaf chains, so the columns kernel's W32 and dL are the rows
+//               kernel's bits. The sums over keys and rows run in the order of
+//               the CUDA-core kernels these replaced, so dqkv is their bits.
+//               Per pair and head the split does 7 products of D (two
+//               recomputed) for the 5 of the function: at most ~70% of the
+//               FFMA rate reaches the 10 B H L^2 D bound.
 #include "attention_bwd_mma.cuh"
+#include "attention_f32.cuh"
 
 using namespace fitclip;
 
 namespace {
 
-enum Body : int { kBodyMma = 0, kBodyMmaGlobal = 1, kBodyF32 = 2, kBodyF32Global = 3 };
+enum Body : int { kBodyMma = 0, kBodyMmaGlobal = 1, kBodyF32Rows32 = 2, kBodyF32Rows16 = 3 };
 
 constexpr size_t kSmemLimit = 232448;  // shared memory a block can use on an H100
 
@@ -103,234 +102,47 @@ int launch_mma_body(int body, const void* qkv, const void* grad, void* dqkv, flo
   return launch_mma<D, attn::kSweepSteps, true, false>(qkv, grad, dqkv, stats, batch, seq, heads, scale, causal, s);
 }
 
-// --- the fp32 bodies (CUDA cores) ------------------------------------------------
+// --- the fp32 tiers (CUDA cores, register-tiled: attention_f32.cuh) ---------------
 
-constexpr int kWarps = 8;
-constexpr int kTile = 64;
+namespace fa = fitclip::f32attn;
 
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
+// Query rows per block of the rows kernel, by body code.
+constexpr int f32_rows(int body) { return body == kBodyF32Rows32 ? 32 : 16; }
 
-// Row pitch of the transposed operands: odd, so that lane * pitch spreads the
-// 32 lanes over the 32 banks.
-int row_pitch(int seq) { return seq | 1; }
-
-// Shared memory of either kernel: two transposed operands (D x lp; one in the
-// global variant), three per-row statistics (lp fp32 each) and two fp32 row
-// buffers per warp.
-size_t f32_smem_bytes(int seq, int head_dim, bool global) {
-  const int lp = row_pitch(seq);
-  return (global ? 1 : 2) * align16(sizeof(float) * head_dim * lp) + sizeof(float) * 3 * lp +
-         sizeof(float) * 2 * kWarps * lp;
+size_t f32_smem_bytes(int seq, int head_dim, int body) {
+  const size_t rows = fa::rows_smem_bytes(seq, head_dim, f32_rows(body));
+  const size_t columns = fa::columns_smem_bytes(head_dim);
+  return rows > columns ? rows : columns;
 }
 
-template <int D>
-__device__ inline void load_scaled(const float* src, float scale, float* r) {
-#pragma unroll
-  for (int d = 0; d < D; ++d) r[d] = mul(src[d], scale);
-}
-
-template <int D>
-__device__ inline void load_row(const float* src, float* r) {
-#pragma unroll
-  for (int d = 0; d < D; ++d) r[d] = src[d];
-}
-
-// stats: (3, B, H, L) fp32 -- peak, denominator, inner. G: V from device memory.
-template <int D, bool G>
-__global__ void __launch_bounds__(kWarps * 32)
-rows_kernel(const float* __restrict__ qkv, const float* __restrict__ grad, float* __restrict__ dqkv,
-            float* __restrict__ stats, int seq, int lp, int heads, float scale, int causal,
-            size_t stat_plane) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* kt = reinterpret_cast<float*>(smem);
-  float* vt = reinterpret_cast<float*>(smem + align16(sizeof(float) * D * lp));
-  float* bufs = reinterpret_cast<float*>(smem + (G ? 1 : 2) * align16(sizeof(float) * D * lp) +
-                                         sizeof(float) * 3 * lp);
-
-  const int width = heads * D;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int q1 = min(q0 + kTile, seq);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* base = qkv + static_cast<size_t>(b) * seq * 3 * width;
-  const float* gbase = grad + static_cast<size_t>(b) * seq * width;
-  float* dbase = dqkv + static_cast<size_t>(b) * seq * 3 * width;
-  float* st = stats + (static_cast<size_t>(b) * heads + h) * seq;
-
-  // The keys any row of this tile can see.
-  const int keys = causal ? q1 : seq;
-  for (int idx = tid; idx < keys * D; idx += kWarps * 32) {
-    const int j = idx / D, d = idx % D;
-    const float* src = base + static_cast<size_t>(j) * 3 * width + h * D + d;
-    kt[d * lp + j] = src[width];
-    if (!G) vt[d * lp + j] = src[2 * width];
-  }
-  __syncthreads();
-
-  float* p = bufs + warp * 2 * lp;  // exps, then W32
-  float* e = p + lp;                // dW, then dL
-  for (int i = q0 + warp; i < q1; i += kWarps) {
-    const int nk = causal ? i + 1 : seq;
-    float r[D];
-    load_scaled<D>(base + static_cast<size_t>(i) * 3 * width + h * D, scale, r);
-    float peak = -INFINITY;
-    for (int j = lane; j < nk; j += 32) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(r[d], kt[d * lp + j], s);
-      p[j] = s;
-      peak = fmaxf(peak, s);
-    }
-    peak = warp_max(peak);
-    float denom = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      const float ex = expf(sub(p[j], peak));
-      p[j] = ex;
-      denom += ex;
-    }
-    denom = warp_sum(denom);
-
-    load_row<D>(gbase + static_cast<size_t>(i) * width + h * D, r);
-    float inner = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      float dw = 0.f;
-      const float* vrow = base + static_cast<size_t>(j) * 3 * width + 2 * width + h * D;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dw = fmaf(r[d], G ? vrow[d] : vt[d * lp + j], dw);
-      const float w = div(p[j], denom);
-      p[j] = w;
-      e[j] = dw;
-      inner = fmaf(w, dw, inner);
-    }
-    inner = warp_sum(inner);
-    for (int j = lane; j < nk; j += 32) e[j] = mul(p[j], sub(e[j], inner));
-    __syncwarp();
-
-    float a[D / 32];
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) a[c] = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float dl = e[j];
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) a[c] = fmaf(dl, kt[(lane + 32 * c) * lp + j], a[c]);
-    }
-    float* drow = dbase + static_cast<size_t>(i) * 3 * width + h * D;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) drow[lane + 32 * c] = mul(a[c], scale);
-    if (lane == 0) {
-      st[i] = peak;
-      st[stat_plane + i] = denom;
-      st[2 * stat_plane + i] = inner;
-    }
-    __syncwarp();  // the next row overwrites p and e
-  }
-}
-
-// G: g from device memory.
-template <int D, bool G>
-__global__ void __launch_bounds__(kWarps * 32)
-columns_kernel(const float* __restrict__ qkv, const float* __restrict__ grad, float* __restrict__ dqkv,
-               const float* __restrict__ stats, int seq, int lp, int heads, float scale,
-               int causal, size_t stat_plane) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qt = reinterpret_cast<float*>(smem);
-  float* gt = reinterpret_cast<float*>(smem + align16(sizeof(float) * D * lp));
-  float* st = reinterpret_cast<float*>(smem + (G ? 1 : 2) * align16(sizeof(float) * D * lp));
-  float* bufs = st + 3 * lp;
-
-  const int width = heads * D;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int k1 = min(k0 + kTile, seq);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* base = qkv + static_cast<size_t>(b) * seq * 3 * width;
-  const float* gbase = grad + static_cast<size_t>(b) * seq * width;
-  float* dbase = dqkv + static_cast<size_t>(b) * seq * 3 * width;
-  const float* gst = stats + (static_cast<size_t>(b) * heads + h) * seq;
-
-  // The query rows that see any key of this tile.
-  const int r0 = causal ? k0 : 0;
-  for (int idx = tid; idx < (seq - r0) * D; idx += kWarps * 32) {
-    const int l = r0 + idx / D, d = idx % D;
-    qt[d * lp + l] = mul(base[static_cast<size_t>(l) * 3 * width + h * D + d], scale);
-    if (!G) gt[d * lp + l] = gbase[static_cast<size_t>(l) * width + h * D + d];
-  }
-  for (int l = r0 + tid; l < seq; l += kWarps * 32) {
-    st[l] = gst[l];
-    st[lp + l] = gst[stat_plane + l];
-    st[2 * lp + l] = gst[2 * stat_plane + l];
-  }
-  __syncthreads();
-
-  float* p = bufs + warp * 2 * lp;  // W32
-  float* e = p + lp;                // dL
-  for (int s = k0 + warp; s < k1; s += kWarps) {
-    const int l0 = causal ? s : 0;
-    const float* krow = base + static_cast<size_t>(s) * 3 * width + width + h * D;
-    float r[D];
-    load_row<D>(krow, r);
-    for (int l = l0 + lane; l < seq; l += 32) {
-      float x = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) x = fmaf(qt[d * lp + l], r[d], x);
-      p[l] = div(expf(sub(x, st[l])), st[lp + l]);
-    }
-    load_row<D>(krow + width, r);  // v
-    for (int l = l0 + lane; l < seq; l += 32) {
-      float dw = 0.f;
-      const float* grow = gbase + static_cast<size_t>(l) * width + h * D;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dw = fmaf(G ? grow[d] : gt[d * lp + l], r[d], dw);
-      e[l] = mul(p[l], sub(dw, st[2 * lp + l]));
-    }
-    __syncwarp();
-
-    float v[D / 32], g[D / 32];
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) v[c] = g[c] = 0.f;
-    for (int l = l0; l < seq; ++l) {
-      const float wt = p[l], dl = e[l];
-      const float* grow = gbase + static_cast<size_t>(l) * width + h * D;
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
-        const int d = lane + 32 * c;
-        v[c] = fmaf(wt, G ? grow[d] : gt[d * lp + l], v[c]);
-        g[c] = fmaf(dl, qt[(lane + 32 * c) * lp + l], g[c]);
-      }
-    }
-    float* drow = dbase + static_cast<size_t>(s) * 3 * width + h * D;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
-      drow[width + lane + 32 * c] = g[c];
-      drow[2 * width + lane + 32 * c] = v[c];
-    }
-    __syncwarp();  // the next key overwrites p and e
-  }
-}
-
-template <int D, bool G>
+template <int D, int R>
 int launch_f32(const void* qkv, const void* grad, void* dqkv, float* stats, int batch, int seq, int heads,
                float scale, int causal, cudaStream_t s) {
-  const int lp = row_pitch(seq);
-  const size_t smem = f32_smem_bytes(seq, D, G);
-  cudaError_t err = allow_smem(rows_kernel<D, G>, smem);
-  if (err == cudaSuccess) err = allow_smem(columns_kernel<D, G>, smem);
+  auto rows = fa::rows_f32_kernel<D, R / 16>;
+  auto columns = fa::columns_f32_kernel<D>;
+  const size_t rows_smem = fa::rows_smem_bytes(seq, D, R);
+  const size_t columns_smem = fa::columns_smem_bytes(D);
+  cudaError_t err = allow_smem(rows, rows_smem);
+  if (err == cudaSuccess) err = allow_smem(columns, columns_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + kTile - 1) / kTile, heads, batch);
   const size_t plane = static_cast<size_t>(batch) * heads * seq;
   const float* q = static_cast<const float*>(qkv);
   const float* g = static_cast<const float*>(grad);
   float* d = static_cast<float*>(dqkv);
-  rows_kernel<D, G><<<grid, kWarps * 32, smem, s>>>(q, g, d, stats, seq, lp, heads, scale, causal, plane);
+  rows<<<dim3((seq + R - 1) / R, heads, batch), fa::kThreads, rows_smem, s>>>(q, g, d, stats, seq, heads, scale,
+                                                                              causal, plane);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  columns_kernel<D, G><<<grid, kWarps * 32, smem, s>>>(q, g, d, stats, seq, lp, heads, scale, causal, plane);
+  columns<<<dim3((seq + fa::kTile - 1) / fa::kTile, heads, batch), fa::kThreads, columns_smem, s>>>(
+      q, g, d, stats, seq, heads, scale, causal, plane);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool G>
-int launch_f32_head_dim(int head_dim, const void* qkv, const void* grad, void* dqkv, float* stats, int batch,
-                        int seq, int heads, float scale, int causal, cudaStream_t s) {
-  if (head_dim == 64) return launch_f32<64, G>(qkv, grad, dqkv, stats, batch, seq, heads, scale, causal, s);
-  return launch_f32<32, G>(qkv, grad, dqkv, stats, batch, seq, heads, scale, causal, s);
+template <int D>
+int launch_f32_tier(int body, const void* qkv, const void* grad, void* dqkv, float* stats, int batch, int seq,
+                    int heads, float scale, int causal, cudaStream_t s) {
+  if (body == kBodyF32Rows32) return launch_f32<D, 32>(qkv, grad, dqkv, stats, batch, seq, heads, scale, causal, s);
+  return launch_f32<D, 16>(qkv, grad, dqkv, stats, batch, seq, heads, scale, causal, s);
 }
 
 }  // namespace
@@ -344,8 +156,8 @@ extern "C" int fitclip_attention_bwd_body(int dtype, int seq, int head_dim) {
     if (attn::bwd::columns_smem_bytes(seq, head_dim, true) <= kSmemLimit) return kBodyMmaGlobal;
   }
   if (dtype == kFloat32) {
-    if (f32_smem_bytes(seq, head_dim, false) <= kSmemLimit) return kBodyF32;
-    if (f32_smem_bytes(seq, head_dim, true) <= kSmemLimit) return kBodyF32Global;
+    for (int body = kBodyF32Rows32; body <= kBodyF32Rows16; ++body)
+      if (f32_smem_bytes(seq, head_dim, body) <= kSmemLimit) return body;
   }
   return -1;
 }
@@ -354,7 +166,7 @@ extern "C" int fitclip_attention_bwd_body(int dtype, int seq, int head_dim) {
 extern "C" size_t fitclip_attention_bwd_smem_bytes(int seq, int head_dim, int body) {
   if (body == kBodyMma || body == kBodyMmaGlobal)
     return attn::bwd::columns_smem_bytes(seq, head_dim, body == kBodyMmaGlobal);
-  return f32_smem_bytes(seq, head_dim, body == kBodyF32Global);
+  return f32_smem_bytes(seq, head_dim, body);
 }
 
 // stats: scratch of 3 * batch * heads * seq fp32 (written by the rows kernel,
@@ -372,7 +184,6 @@ extern "C" int fitclip_attention_bwd(const void* qkv, const void* grad, int dtyp
       return launch_mma_body<64>(body, qkv, grad, dqkv, st, batch, seq, heads, scale, causal, s);
     return launch_mma_body<32>(body, qkv, grad, dqkv, st, batch, seq, heads, scale, causal, s);
   }
-  if (body == kBodyF32Global)
-    return launch_f32_head_dim<true>(head_dim, qkv, grad, dqkv, st, batch, seq, heads, scale, causal, s);
-  return launch_f32_head_dim<false>(head_dim, qkv, grad, dqkv, st, batch, seq, heads, scale, causal, s);
+  if (head_dim == 64) return launch_f32_tier<64>(body, qkv, grad, dqkv, st, batch, seq, heads, scale, causal, s);
+  return launch_f32_tier<32>(body, qkv, grad, dqkv, st, batch, seq, heads, scale, causal, s);
 }

@@ -11,10 +11,7 @@ Three Hopper kernels serve the CLIP wrappers, and K8 is composed of two:
   weights are exps / denom, the output is in qkv's dtype. Its backward,
   ``fused_attention_qkv_backward`` (``csrc/attention_bwd.cu``), replaces
   ``attention.py:_packed_bwd_kernel``: it recomputes the softmax from the saved
-  qkv, as ``_fwd`` saves only qkv. Where the fp32 K and V of one head exceed a
-  block's shared memory (L = 577, ViT-L/14@336), both read their second operand
-  through L2 (the v_global body of ``attention.cu``, the f32_global body of
-  ``attention_bwd.cu``), each picked by shape.
+  qkv, as ``_fwd`` saves only qkv.
 - ``attention_int8``: replaces the attention core of ``block.py:_layer_kernel``
   (K1). The out-projection's requant multiplier rides the softmax normalizer
   (weights = exps * (out_mul / denom)), and the fp32 output is rounded and
@@ -41,17 +38,21 @@ refuses any other:
 - ``mma_sweep`` (bf16, L > 208: ViT-L/14's 257, ViT-L/14@336's 577): the same
   core over tiles of 64 keys, QK^T recomputed in each of three passes (max,
   sum, weights and P.V), so the function stays exact.
-- ``f32`` and ``f32_v_global`` (fp32): the CUDA-core bodies (tensor cores would
-  take fp32 as TF32), one query row per warp against K and V in shared memory;
-  where fp32 K and V exceed a block's shared memory (L = 577) K alone, with V
-  read through L2.
+- ``f32_64`` and ``f32_32`` (fp32, the dtype the configs default to): the
+  register-tiled CUDA-core kernel of ``csrc/attention_f32.cuh`` (tensor cores
+  would take fp32 as TF32). A block of 64 query rows (32 past L = 680 at
+  head_dim 64, 776 at 32) streams K and V in 64-key tiles through a double
+  buffer; QK^T and P.V run in 4 x 4 register micro-tiles fed by 128-bit shared
+  loads, the logits of every key it sees go to a row buffer, and warps take
+  whole rows for the exact softmax. Its outputs are the bits of the CUDA-core
+  kernel it replaced (the same sums in the same order).
 
 Every bf16 mode runs on the tensor cores: K1's int8 core, K2's block mode,
 K3f and K8's attention, and the bench arms' modes. FiT's space kernel (K5, K4
 space) runs the same core on bf16 with a loader of its own (the global row
 then the group rows).
 
-The backward (``attention_bwd.cu``) runs one of three bodies, picked by
+The backward (``attention_bwd.cu``) runs one of four bodies, picked by
 ``backward_body`` from (dtype, L, head_dim) alone; the kernel entry refuses
 any other:
 
@@ -63,10 +64,14 @@ any other:
   memory) takes dK and dV from those statistics. Every product is an
   ``mma.sync``; no atomics, so two launches give the same bits.
   ``mma_global`` past that reads V and g through L2.
-- ``f32`` and ``f32_global`` (fp32): the same two-kernel split on the CUDA
-  cores, one query row or one key per warp against the head's two transposed
-  operands in shared memory; where they exceed a block's shared memory (past
-  L = 395 at head_dim 64) the first alone, with V and g read through L2.
+- ``f32_32`` and ``f32_16`` (fp32): the same two-kernel split, register-tiled
+  on the CUDA cores (``csrc/attention_f32.cuh``). The rows kernel takes 32
+  query rows a block (16 past L = 680 at head_dim 64, 776 at 32, so that its
+  two row buffers fit) and streams K, V and K again; the columns kernel takes
+  64 keys a block and streams the q_s, g and statistics tiles of the rows that
+  see them (its shared memory does not grow with L). The columns kernel
+  recomputes the rows kernel's logits and dW bit for bit; dqkv is the bits of
+  the CUDA-core kernels these replaced.
 
 head_dim is 32 or 64 (ViT-S/16's and every other preset's); the FiT kernels
 take 64, FiT base's.
@@ -98,10 +103,10 @@ HEAD_DIM = 64  # fit_attention.cu's: FiT base's
 SMEM_LIMIT = 232448  # shared memory a block can use on an H100
 # attention.cu's bodies (its Body codes) and the bf16 length past which the
 # logits no longer stay in registers (attention_mma.cuh: kResidentKeys).
-BODIES = {"mma": 0, "mma_sweep": 1, "f32": 2, "f32_v_global": 3}
-BACKWARD_BODIES = {"mma": 0, "mma_global": 1, "f32": 2, "f32_global": 3}  # attention_bwd.cu's
+BODIES = {"mma": 0, "mma_sweep": 1, "f32_64": 2, "f32_32": 3}
+BACKWARD_BODIES = {"mma": 0, "mma_global": 1, "f32_32": 2, "f32_16": 3}  # attention_bwd.cu's
 MMA_RESIDENT_KEYS = 208
-_F32_WARPS = 8  # the fp32 bodies' warps per block (attention.cu, attention_bwd.cu)
+F32_TILE = 64  # attention_f32.cuh: keys (or rows) per streamed tile
 MAX_FRAMES = 16  # the time kernel keeps each location's frames in registers
 
 
@@ -148,20 +153,30 @@ def _mma_smem_bytes(seq: int, head_dim: int) -> int:
     return 2 * 2 * (-(-seq // 16) * 16) * head_dim
 
 
-def _f32_smem_bytes(seq: int, head_dim: int, v_global: bool) -> int:
-    """The fp32 bodies': K^T, V (unless read through L2) and the row buffers."""
-    lp = seq + (seq & 1)
-    align = lambda n: -(-n // 16) * 16  # noqa: E731
-    return (align(4 * head_dim * lp) + (0 if v_global else align(4 * seq * head_dim))
-            + 4 * _F32_WARPS * lp)
+def _buffer_pitch(cols: int) -> int:
+    """attention_f32.cuh's row-buffer pitch: round4(cols) rounded up to 8 mod 32 floats."""
+    return ((-(-cols // 4) * 4 + 23) & ~31) + 8
+
+
+def _f32_rows(body: str) -> int:
+    """Query rows per block of an fp32 tier ("f32_64": 64, ...)."""
+    return int(body.split("_")[1])
+
+
+def _f32_smem_bytes(seq: int, head_dim: int, rows: int) -> int:
+    """The fp32 forward's shared memory: the scaled Q tile (rows x (D + 4)),
+    two 64-key K/V tiles and the rows x buffer_pitch(L) logits buffer."""
+    pitch = head_dim + 4
+    return 4 * (rows * pitch + 2 * F32_TILE * pitch + rows * _buffer_pitch(seq))
 
 
 def attention_body(dtype: torch.dtype, seq: int, head_dim: int) -> str:
     """The body of ``csrc/attention.cu`` that takes (dtype, L, head_dim): bf16
     runs on the tensor cores ("mma", or "mma_sweep" past MMA_RESIDENT_KEYS),
-    fp32 on the CUDA cores ("f32", or "f32_v_global" where K and V overflow a
-    block's shared memory). Raises where no body takes the shape. The kernel
-    entry holds its launch to the same rule (``fitclip_attention_body``)."""
+    fp32 on the register-tiled CUDA-core kernel with 64 query rows a block
+    ("f32_64"), or 32 where 64 rows of logits no longer fit ("f32_32"). Raises
+    where no body takes the shape. The kernel entry holds its launch to the
+    same rule (``fitclip_attention_body``)."""
     if head_dim not in HEAD_DIMS or seq < 1:
         raise ValueError(f"the attention kernels take head_dim {HEAD_DIMS} and L >= 1, got "
                          f"head_dim {head_dim}, L {seq}")
@@ -170,15 +185,27 @@ def attention_body(dtype: torch.dtype, seq: int, head_dim: int) -> str:
         if smem <= SMEM_LIMIT:
             return "mma" if seq <= MMA_RESIDENT_KEYS else "mma_sweep"
     elif dtype == torch.float32:
-        if _f32_smem_bytes(seq, head_dim, False) <= SMEM_LIMIT:
-            return "f32"
-        smem = _f32_smem_bytes(seq, head_dim, True)
-        if head_dim == 64 and smem <= SMEM_LIMIT:
-            return "f32_v_global"
+        for body in ("f32_64", "f32_32"):
+            smem = _f32_smem_bytes(seq, head_dim, _f32_rows(body))
+            if smem <= SMEM_LIMIT:
+                return body
     else:
         raise TypeError(f"the attention kernels take float32 or bfloat16, not {dtype}")
     raise ValueError(f"sequence length {seq} at head_dim {head_dim} in {dtype} needs {smem} "
                      f"bytes of shared memory per block; an H100 block has {SMEM_LIMIT}")
+
+
+class KernelLaunches:
+    """The launch count of one kernel that several wrappers launch, beside
+    each wrapper's own count: the fp32 forward serves the qkv, int8 and block
+    modes, the fp32 backward runs under ``fused_attention_qkv_backward``."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+attention_f32 = KernelLaunches()  # attention_f32.cuh: attention_f32_kernel
+attention_bwd_f32 = KernelLaunches()  # attention_f32.cuh: rows_f32_kernel + columns_f32_kernel
 
 
 def _launch(qkv, heads, scale, causal, seq_valid, out, mode, out_mul):
@@ -193,6 +220,8 @@ def _launch(qkv, heads, scale, causal, seq_valid, out, mode, out_mul):
     _build.call("fitclip_attention", qkv.data_ptr(), _build.dtype_code(qkv.dtype), out.data_ptr(),
                 mode, batch, seq, heads, head_dim, float(scale), int(causal), valid,
                 float(out_mul), body)
+    if qkv.dtype == torch.float32:
+        attention_f32.launches += 1
 
 
 def attention_backward_plain(qkv: torch.Tensor, grad_out: torch.Tensor, heads: int,
@@ -245,38 +274,50 @@ def _check_head_dim(qkv, heads, head_dims=HEAD_DIMS):
     return head_dim
 
 
+def _rows_f32_smem_bytes(seq: int, head_dim: int, rows: int) -> int:
+    """The fp32 rows kernel's: q_s and g tiles (rows x (D + 4)), two 64-key K/V
+    tiles and two rows x buffer_pitch(L) row buffers."""
+    pitch = head_dim + 4
+    return 4 * (2 * rows * pitch + 2 * F32_TILE * pitch + 2 * rows * _buffer_pitch(seq))
+
+
+def _columns_f32_smem_bytes(head_dim: int) -> int:
+    """The fp32 columns kernel's, whatever L: the block's K and V tiles, one
+    stage of q_s, g and three statistics of 64 rows, the staged W and dL."""
+    tile = F32_TILE * (head_dim + 4)
+    return 4 * (2 * tile + (2 * tile + 3 * F32_TILE) + 2 * F32_TILE * _buffer_pitch(F32_TILE))
+
+
 def backward_smem_bytes(seq: int, head_dim: int, body: str) -> int:
     """Shared memory per block of a body of ``csrc/attention_bwd.cu`` at (L,
     head_dim), the larger of its two kernels'. mma: q_s and g (q_s alone where
     g is read through L2), ceil(L / 16) * 16 rows of bf16, and four fp32
-    statistics per row. f32: two transposed fp32 operands at an odd pitch (the
-    first alone where the second is read through L2), three statistics and
-    two row buffers per warp."""
+    statistics per row. f32_R: the rows kernel's at R query rows a block, or
+    the columns kernel's."""
     if body in ("mma", "mma_global"):
         rows = -(-seq // 16) * 16
         return (1 if body == "mma_global" else 2) * 2 * rows * head_dim + 4 * 4 * rows
-    if body in ("f32", "f32_global"):
-        lp = seq | 1
-        operand = -(-4 * head_dim * lp // 16) * 16
-        return ((1 if body == "f32_global" else 2) * operand + 4 * 3 * lp
-                + 4 * 2 * _F32_WARPS * lp)
+    if body in BACKWARD_BODIES:
+        return max(_rows_f32_smem_bytes(seq, head_dim, _f32_rows(body)),
+                   _columns_f32_smem_bytes(head_dim))
     raise ValueError(f"no backward body {body!r}; the bodies are {sorted(BACKWARD_BODIES)}")
 
 
 def backward_body(dtype: torch.dtype, seq: int, head_dim: int) -> str:
     """The body of ``csrc/attention_bwd.cu`` that takes (dtype, L, head_dim): bf16
-    runs the tensor-core kernels, fp32 the CUDA-core ones; each reads its second
-    operand (V and g) through L2 where both overflow a block's shared memory
-    ("mma" or "mma_global", "f32" or "f32_global"). Raises where no body takes
-    the shape. The kernel entry holds its launch to the same rule
-    (``fitclip_attention_bwd_body``)."""
+    runs the tensor-core kernels ("mma", or "mma_global", V and g read through
+    L2, where q_s and g overflow a block's shared memory); fp32 the
+    register-tiled CUDA-core ones with 32 query rows a block in the rows
+    kernel, or 16 where two row buffers of 32 no longer fit ("f32_32",
+    "f32_16"). Raises where no body takes the shape. The kernel entry holds its
+    launch to the same rule (``fitclip_attention_bwd_body``)."""
     if head_dim not in HEAD_DIMS or seq < 1:
         raise ValueError(f"the attention backward takes head_dim {HEAD_DIMS} and L >= 1, got "
                          f"head_dim {head_dim}, L {seq}")
     if dtype == torch.bfloat16:
         candidates = ("mma", "mma_global")
     elif dtype == torch.float32:
-        candidates = ("f32", "f32_global")
+        candidates = ("f32_32", "f32_16")
     else:
         raise TypeError(f"the attention backward takes float32 or bfloat16, not {dtype}")
     for body in candidates:
@@ -320,6 +361,8 @@ def fused_attention_qkv_backward(qkv: torch.Tensor, grad_out: torch.Tensor, head
                 _build.dtype_code(qkv.dtype), dqkv.data_ptr(), stats.data_ptr(), batch, seq,
                 heads, head_dim, float(scale), int(causal), body)
     fused_attention_qkv_backward.launches += 1
+    if qkv.dtype == torch.float32:
+        attention_bwd_f32.launches += 1
     return dqkv
 
 

@@ -215,20 +215,31 @@ def _taken_before(dtype, seq, head_dim):
     return None
 
 
+# The longest L of each fp32 forward tier (64 query rows a block, then 32),
+# by head_dim: where 64 rows of logits no longer fit beside the Q tile and the
+# K/V ring, and where 32 no longer do.
+F32_FORWARD_TIERS = {64: {"f32_64": 680, "f32_32": 1448}, 32: {"f32_64": 776, "f32_32": 1608}}
+
+
+def _f32_forward_tier(seq, head_dim):
+    return next((body for body, last in F32_FORWARD_TIERS[head_dim].items() if seq <= last), None)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("head_dim", [32, 64])
 @pytest.mark.parametrize("seq", [9, 50, 77, 197, 257, 577])
 def test_attention_body_choice(dtype, seq, head_dim):
     """The wrapper's body is a function of (dtype, L, head_dim): bf16 goes to a
     tensor-core body, register-resident up to 208 keys and swept past it; fp32
-    stays on the CUDA-core body it took before."""
+    to the register-tiled CUDA-core kernel, 64 query rows a block at every
+    CLIP length (the tier of 32 rows starts past 680 keys at head_dim 64)."""
     body = A.attention_body(dtype, seq, head_dim)
     before = _taken_before(dtype, seq, head_dim)
     assert before is not None
     if dtype == torch.bfloat16:
         assert body == ("mma" if seq <= A.MMA_RESIDENT_KEYS else "mma_sweep")
     else:
-        assert body == before
+        assert body == _f32_forward_tier(seq, head_dim) == "f32_64"
 
 
 def _rn32(x):
@@ -345,7 +356,10 @@ def test_nosoftmax_refinement_margin(head_dim):
 @pytest.mark.parametrize("head_dim", [32, 64])
 def test_no_bf16_attention_shape_taken_before_is_refused(head_dim):
     """Over every length: a bf16 shape that the CUDA-core kernel took is taken on a
-    tensor-core body, never on an fp32 one; fp32 keeps its body and its limit."""
+    tensor-core body, never on an fp32 one; an fp32 shape that the CUDA-core
+    bodies took (up to 806 keys at both head dims) is taken on a register-tiled
+    tier, the first whose shared memory fits, and the tiers end where
+    F32_FORWARD_TIERS says."""
     for seq in range(1, 2049):
         for dtype in (torch.bfloat16, torch.float32):
             before = _taken_before(dtype, seq, head_dim)
@@ -356,7 +370,9 @@ def test_no_bf16_attention_shape_taken_before_is_refused(head_dim):
             if dtype == torch.bfloat16:
                 assert body in (("mma", "mma_sweep") if before else ("mma", "mma_sweep", None))
             else:
-                assert body == before, (seq, head_dim)
+                if before:
+                    assert body is not None, (seq, head_dim)
+                assert body == _f32_forward_tier(seq, head_dim), (seq, head_dim)
 
 
 @pytest.mark.cuda
@@ -390,11 +406,9 @@ def test_attention_backward_kernel_matches_plain(cuda, dtype, batch, seq, heads,
     if dtype == torch.bfloat16:
         assert body == "mma"
     elif seq == 577:
-        # fp32 K^T and V^T of L = 577 exceed a block's shared memory: the
-        # global body keeps one operand there and reads the other through L2.
-        assert body == "f32_global"
-        assert A.backward_smem_bytes(seq, head_dim, "f32") > A.SMEM_LIMIT
-        assert A.backward_smem_bytes(seq, head_dim, "f32_global") <= A.SMEM_LIMIT
+        # The rows kernel's two fp32 row buffers of 32 rows fit at L = 577.
+        assert body == "f32_32"
+        assert A.backward_smem_bytes(seq, head_dim, "f32_32") <= A.SMEM_LIMIT
     before = A.fused_attention_qkv_backward.launches
     out = A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal)
     # At head_dim 32 the scale 32^-1/2 magnifies the bf16 rounding of dL that the
@@ -467,6 +481,85 @@ def test_attention_backward_body_rule_matches_the_kernel_entry(cuda):
                     want = -1
                 got = lib.fitclip_attention_bwd_body(_build.dtype_code(dtype), seq, head_dim)
                 assert got == want, (dtype, seq, head_dim)
+
+
+F32_TOL = 2e-4  # the reference's float tolerance: fp32 kernel against its fp32 plain version
+
+# (L, causal, seq_valid, head_dim) of the fp32 forward's card tests: short and
+# ragged lengths around a 64-key tile, the text tower (causal), ViT-B/16's 197,
+# the bf16 core's 208 and 209, ViT-L/14@336's 577, both sides of each tier's
+# last length and the longest L each tier takes, at both head dims.
+F32_FORWARD_CASES = [
+    (1, False, None, 64), (63, False, None, 64), (64, True, None, 64), (65, False, 40, 64),
+    (77, True, None, 64), (77, True, 60, 32), (197, False, None, 64), (197, False, 150, 32),
+    (208, True, None, 64), (209, False, None, 32), (577, False, None, 64), (577, True, 500, 32),
+    (680, False, None, 64), (681, True, None, 64), (776, False, 700, 32), (777, False, None, 32),
+    (1448, True, None, 64), (1608, False, None, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,causal,seq_valid,head_dim", F32_FORWARD_CASES)
+def test_f32_attention_kernel_matches_plain(cuda, seq, causal, seq_valid, head_dim):
+    """The register-tiled fp32 forward in its three modes against the plain
+    version in fp32 (the int8 mode under the int8 rule), on the tier its L
+    takes; every mode gives the same bits twice and counts one launch."""
+    heads = 2 if seq > 600 else 4
+    batch = 1 if seq > 600 else 2
+    gen = torch.Generator().manual_seed(seq)
+    qkv = (1.5 * torch.randn(batch, seq, 3 * heads * head_dim, generator=gen)).to(cuda)
+    scale, out_mul = head_dim ** -0.5, 127.0 / 2.5
+    assert A.attention_body(torch.float32, seq, head_dim) == _f32_forward_tier(seq, head_dim)
+    before = A.attention_f32.launches
+    runs = {
+        "int8": (lambda: A.attention_int8(qkv, heads, scale, causal, out_mul, seq_valid),
+                 A.attention_int8_plain(qkv, heads, scale, causal, out_mul, seq_valid)),
+        "qkv": (lambda: A.fused_attention_qkv(qkv, heads, scale, causal),
+                A.attention_core_plain(qkv, heads, scale, causal)),
+        "block": (lambda: A.attention_block(qkv, heads, scale, causal, seq_valid),
+                  A.attention_core_plain(qkv, heads, scale, causal, 1.0, seq_valid))}
+    for mode, (run, ref) in runs.items():
+        out = run()
+        if mode == "int8":
+            _assert_int8_close(out, ref)
+        else:
+            assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+            torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
+        assert torch.equal(out, run()), mode
+    assert A.attention_f32.launches == before + 6
+
+
+# (batch, L, heads, causal, head_dim) of the fp32 backward's card tests: the
+# same lengths, both sides of the rows kernel's tier end (32 rows a block to
+# 680 keys at head_dim 64 and 776 at 32) and the longest L of each tier.
+F32_BACKWARD_TIERS = {64: {"f32_32": 680, "f32_16": 1448}, 32: {"f32_32": 776, "f32_16": 1608}}
+F32_BACKWARD_CASES = [
+    (2, 1, 4, False, 64), (2, 63, 4, True, 64), (2, 64, 4, False, 32), (2, 65, 4, True, 64),
+    (4, 77, 8, True, 64), (4, 197, 12, False, 64), (4, 197, 6, False, 32), (2, 208, 4, True, 32),
+    (2, 209, 4, False, 64), (2, 296, 4, False, 64), (2, 297, 4, True, 64), (2, 360, 4, True, 32),
+    (2, 361, 4, False, 32), (1, 577, 8, False, 64), (1, 577, 8, True, 32), (1, 680, 2, True, 64),
+    (1, 681, 2, False, 64), (1, 776, 2, False, 32), (1, 777, 2, True, 32), (1, 1448, 2, True, 64),
+    (1, 1608, 2, False, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,seq,heads,causal,head_dim", F32_BACKWARD_CASES)
+def test_f32_attention_backward_kernel_matches_plain(cuda, batch, seq, heads, causal, head_dim):
+    """The register-tiled fp32 backward (rows kernel on the tier its L takes,
+    then the columns kernel) against the plain version in fp32; two launches
+    give the same bits (no atomics) and each counts one fp32 launch."""
+    tier = next(body for body, last in F32_BACKWARD_TIERS[head_dim].items() if seq <= last)
+    assert A.backward_body(torch.float32, seq, head_dim) == tier
+    gen = torch.Generator().manual_seed(seq + head_dim)
+    width, scale = heads * head_dim, head_dim ** -0.5
+    qkv = (1.5 * torch.randn(batch, seq, 3 * width, generator=gen)).to(cuda)
+    grad = torch.randn(batch, seq, width, generator=gen).to(cuda)
+    before = A.attention_bwd_f32.launches
+    out = A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal)
+    ref = A.attention_backward_plain(qkv, grad, heads, scale, causal)
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
+    assert torch.equal(out, A.fused_attention_qkv_backward(qkv, grad, heads, scale, causal))
+    assert A.attention_bwd_f32.launches == before + 2
 
 
 @pytest.mark.cuda
