@@ -5,11 +5,12 @@
     python3 chip_smoke.py --train-steps [DIR]   # phase 6 (d) alone, for DIR's package
     python3 chip_smoke.py --row-passes [DIR]    # the LayerNorm and amax kernels alone
     python3 chip_smoke.py --fp32-attention [DIR]  # the fp32 attention rows, encode and step
+    python3 chip_smoke.py --fit-attention [DIR]   # FiT's attention rows and encodes
 
 Drives seven paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
 teacher-student, through ``run_train``), Frozen-in-Time base zero-shot
-encoding (int8 and bf16), the S3D-G family (MIL-NCE bf16 and int8, VideoCLIP
+encoding (int8, bf16 and fp32), the S3D-G family (MIL-NCE bf16 and int8, VideoCLIP
 bf16), CLIP ViT-B/16 bf16 on the float layer kernels (K2), SLIP ViT-B/16 in
 four configurations, and the port's benchmarks (``python -m
 fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
@@ -22,8 +23,11 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    text: 8 x 77 x 512; the attention backward at the training shapes, 128
    frames x 197 x 2304 and 32 x 77 x 1536 causal, in bf16 and fp32, timed in
    bf16 at both; FiT base:
-   K4's int8 attention cores on the joint 32 x 785 x 2304 qkv, K5 on 128 frame
-   groups of 196 rows, K6 on 32 x 784 x 2304; the S3D-G stem, K7, on 32 clips x
+   K4's int8 attention cores on the joint 32 x 785 x 2304 qkv (its space core
+   also on the qkv in fp32), K5 on 128 frame groups of 196 rows and K6 on 32 x
+   784 x 2304, each in bf16 and fp32, all timed by device time too, and the
+   time kernel's frame tiers at F = 1, 8 and 16 (8 clips of F x 196 rows,
+   bf16, fp32 and int8 out); the S3D-G stem, K7, on 32 clips x
    16 frames of 224^2; the float layer's kernels, K2, at 32 x 197 x 768 with its
    GEMMs at M = 6304 and (N, K) = (2304, 768), (768, 768), (3072, 768),
    (768, 3072), its attention also at 8 x 77 causal; K8 at 32 x 197 x 768;
@@ -62,8 +66,11 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    and profiler tables of the int8 and bf16 (module path) encodes. This
    profile and those of phases 7 and 9 require the tensor-core attention
    bodies (attention_mma_kernel, space_mma_kernel) by kernel name, and no
-   CUDA-core attention body (attention_kernel_f32, space_kernel_f32): every
-   bf16 attention runs on the tensor cores; the int8 and K2 paths' profiles
+   CUDA-core attention body (attention_f32_kernel, space_f32_kernel and the
+   replaced space_kernel_f32): every bf16 attention runs on the tensor cores;
+   the FiT profiles require the time kernel (time_rows_kernel) and no profile
+   may show the kernels it and space_f32_kernel replaced (time_kernel,
+   space_kernel_f32); the int8 and K2 paths' profiles
    require the wgmma GEMM kernels (int8_gemm_wgmma_kernel,
    bf16_gemm_wgmma_kernel), and no profile may show the mma.sync GEMM kernels
    they replaced (int8_gemm_kernel, bf16_gemm_kernel), nor the CUDA-core fp32
@@ -113,6 +120,14 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    int8 against bf16, both > 0.999; finite text embeddings. Timings: int8 and
    bf16 clips/s, text rows/s, peak memory, and torch.profiler breakdowns of
    the int8 and bf16 encodes by kernel with the device's busy share;
+   (b) FiT base in fp32 as load_frozen_in_time_encoder() gives it (the
+   default dtype, fused attention on the card): K5 and K6 once per block and
+   nothing else of the port's in an encode of 32 clips and 256 rows; gate:
+   min-row cosine > 0.999 against the same model with fused_attention=False
+   on the card; clips/s, text rows/s, peak memory, and a profile that requires
+   space_f32_kernel and time_rows_kernel and prints their shares.
+   ``--fit-attention DIR`` runs phase 3's FiT rows and the int8, bf16 and fp32
+   encodes' clips/s alone for the package under DIR (the parent's, say);
 8. the S3D-G family, from seed 0 with device="cuda": MIL-NCE (Miech et al.,
    CVPR 2020: S3D-G on 16 frames of 224^2, 512-d, word-embedding text tower)
    bf16 and int8 (calibrated on 8 clips), 32 clips and 256 rows x 20 ids;
@@ -923,18 +938,32 @@ def ln_kernel_phase(torch, checks: KernelChecks):
     return times
 
 
-def fit_kernel_phase(torch, checks: KernelChecks):
-    """Phase 3, Frozen-in-Time: csrc/fit_attention.cu against its plain
-    versions at FiT base shapes: K4's three int8-mode cores on the joint
-    (32, 785, 2304) qkv, K5 on 128 frame groups of 196 rows, K6 on (32, 784,
-    2304); each launched twice for bit-identity. Returns {name: timing(...)}."""
-    from fitclip_torch.ops import attention as A
+# The FiT kernels' __global__ bodies (csrc/fit_attention.cu) and the ones they
+# replaced, which no profile may show.
+SPACE_F32 = "space_f32_kernel"
+TIME_ROWS = "time_rows_kernel"
+OLD_FIT_ATTENTION = ("::space_kernel_f32<", "::time_kernel<")
+
+
+def fit_kernel_phase(torch, checks: KernelChecks, A):
+    """Phase 3, Frozen-in-Time: csrc/fit_attention.cu of the package ``A``
+    belongs to against its plain versions at FiT base shapes: K4's three
+    int8-mode cores on the joint (32, 785, 2304) bf16 qkv and its space core on
+    the same qkv in fp32, K5 on 128 frame groups of 196 rows (bf16 and fp32),
+    K6 on (32, 784, 2304) (bf16 and fp32), and the time kernel's frame tiers
+    at F = 1, 8 and 16 (8 clips of F x 196 rows, bf16 and fp32 and int8 out);
+    each launched twice for bit-identity. Each FiT base row is timed by events
+    and by device time (cold L2) beside its plain version, bound and SDPA
+    (none for the int8 cores). Returns {name: timing(...)}, the fp32 rows
+    nested under "fp32"."""
     from fitclip_torch.ops.quant import quantize_rint
 
     gen = torch.Generator(device="cuda").manual_seed(4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     b, f, p, w, heads = (FIT[k] for k in ("clips", "frames", "patches", "width", "heads"))
     d, n = w // heads, 1 + f * p
     scale, out_mul = d ** -0.5, 127.0 / 2.5
+    print(f"clocks (phase 3, FiT attention): {clocks()}")
 
     def normal(*shape):
         return (1.5 * torch.randn(*shape, generator=gen, device="cuda")).to(torch.bfloat16)
@@ -945,6 +974,18 @@ def fit_kernel_phase(torch, checks: KernelChecks):
         print(f"  {name} {what}: two launches bit-identical")
         return out
 
+    def row(fn, args, plain, library, bound_pair, plain_iters=20, **extra):
+        """timing() of fn(*args), its plain version and the library call
+        (fn, *args) with device times; extra keys (shape, kernel) added."""
+        entry = timing(cuda_ms(lambda: fn(*args)), cuda_ms(plain, iters=plain_iters),
+                       None if library is None else cuda_ms(lambda: library[0](*library[1:])),
+                       bound_pair, (fn, *args), library, device=True)
+        return dict(entry, **extra)
+
+    def sdpa_call(q, k, v):
+        return (lambda q, k, v: sdpa(q, k, v, scale=scale), q.contiguous(), k.contiguous(),
+                v.contiguous())
+
     times = {}
     qkv = normal(b, n, 3 * w)
     rows_in = b * n * 3 * w * 2
@@ -953,93 +994,108 @@ def fit_kernel_phase(torch, checks: KernelChecks):
                                                                                    out_mul))
     checks.int8("fit_cls_attention_int8", what, out[:, :1],
                 quantize_rint(A.cls_attention_plain(qkv, heads, scale, out_mul)))
-    times["fit_cls_attention_int8"] = timing(
-        cuda_ms(lambda: A.fit_cls_attention_int8(qkv, heads, out_mul, out)),
-        cuda_ms(lambda: A.cls_attention_plain(qkv, heads, scale, out_mul)), None,
-        bound(b * (w + n * 2 * w) * 2 + b * w, 4 * b * heads * n * d, "bf16"),
-        (A.fit_cls_attention_int8, qkv, heads, out_mul, out))
+    times["fit_cls_attention_int8"] = row(
+        A.fit_cls_attention_int8, (qkv, heads, out_mul, out),
+        lambda: A.cls_attention_plain(qkv, heads, scale, out_mul), None,
+        bound(b * (w + n * 2 * w) * 2 + b * w, 4 * b * heads * n * d, "bf16"))
     for mode, keys in (("time", f + 1), ("space", p + 1)):
         name = f"fit_{mode}_attention_int8"
         wrapper = getattr(A, name)
         out = twice(name, what, lambda: wrapper(qkv, heads, f, out_mul))
         checks.int8(name, what, out[:, 1:],
                     quantize_rint(A.fit_rows_attention_int8_plain(qkv, heads, f, mode, out_mul)))
-        times[name] = timing(
-            cuda_ms(lambda: wrapper(qkv, heads, f, out_mul, out)),
-            cuda_ms(lambda: A.fit_rows_attention_int8_plain(qkv, heads, f, mode, out_mul)),
-            None, bound(rows_in + b * (n - 1) * w, 4 * b * f * p * heads * keys * d, "bf16"))
+        times[name] = row(
+            wrapper, (qkv, heads, f, out_mul, out),
+            lambda: A.fit_rows_attention_int8_plain(qkv, heads, f, mode, out_mul), None,
+            bound(rows_in + b * (n - 1) * w, 4 * b * f * p * heads * keys * d, "bf16"),
+            kernel=TIME_ROWS if mode == "time" else "space_mma_kernel")
+    # K4's space core on an fp32 qkv (the fp32 space kernel's int8 mode), checked only.
+    qkv = qkv.float()
+    what = f"{b} x {n} x {3 * w} fp32"
+    out = twice("fit_space_attention_int8", what,
+                lambda: A.fit_space_attention_int8(qkv, heads, f, out_mul))
+    checks.int8("fit_space_attention_int8", what, out[:, 1:],
+                quantize_rint(A.fit_rows_attention_int8_plain(qkv, heads, f, "space", out_mul)))
     del qkv, out
 
-    # K5: 128 frame groups of 196 rows and a global row each.
+    # K5: 128 frame groups of 196 rows and a global row each, bf16 then fp32.
     groups = normal(b * f, p, 3 * w)
     gkv = normal(b * f, 3 * w)
-    what = f"{b * f} x {p} x {3 * w} + gkv bf16"
-    out = twice("fused_attention_qkv_gkv", what,
-                lambda: A.fused_attention_qkv_gkv(groups, gkv, heads, scale))
-    checks.float("fused_attention_qkv_gkv", what, out,
-                 A.attention_gkv_plain(groups.float(), gkv.float(), heads, scale))
-    q, k, v = heads_first(groups, heads)
-    g_k, g_v = (t.reshape(b * f, heads, 1, d) for t in gkv.split(w, dim=-1)[1:])
-    times["fused_attention_qkv_gkv"] = timing(
-        cuda_ms(lambda: A.fused_attention_qkv_gkv(groups, gkv, heads, scale)),
-        cuda_ms(lambda: A.attention_gkv_plain(groups, gkv, heads, scale)),
-        sdpa_ms(torch, q, torch.cat([g_k, k], 2), torch.cat([g_v, v], 2), scale),
-        bound(b * f * (p + 1) * 3 * w * 2 + b * f * p * w * 2,
-              4 * b * f * heads * p * (p + 1) * d, "bf16"))
-    # K5 in fp32 (FiT's loader default): space_kernel_f32, timed only.
-    groups, gkv = groups.float(), gkv.float()
-    what = f"{b * f} x {p} x {3 * w} + gkv fp32"
-    checks.float("fused_attention_qkv_gkv", what, A.fused_attention_qkv_gkv(groups, gkv, heads, scale),
-                  A.attention_gkv_plain(groups, gkv, heads, scale))
-    q, k, v = heads_first(groups, heads)
-    g_k, g_v = (t.reshape(b * f, heads, 1, d) for t in gkv.split(w, dim=-1)[1:])
-    times["fused_attention_qkv_gkv"]["fp32"] = dict(timing(
-        cuda_ms(lambda: A.fused_attention_qkv_gkv(groups, gkv, heads, scale)),
-        cuda_ms(lambda: A.attention_gkv_plain(groups, gkv, heads, scale), iters=5),
-        sdpa_ms(torch, q, torch.cat([g_k, k], 2), torch.cat([g_v, v], 2), scale),
-        bound(b * f * (p + 1) * 3 * w * 4 + b * f * p * w * 4,
-              4 * b * f * heads * p * (p + 1) * d, "fp32")),
-        shape=what, kernel="space_kernel_f32")
-    print_row("fused_attention_qkv_gkv", times["fused_attention_qkv_gkv"]["fp32"])
-    del groups, out, q, k, v
+    for dtype, kind, kernel in (("bf16", "bf16", "space_mma_kernel"), ("fp32", "fp32", SPACE_F32)):
+        if dtype == "fp32":
+            groups, gkv = groups.float(), gkv.float()
+        what = f"{b * f} x {p} x {3 * w} + gkv {dtype}"
+        out = twice("fused_attention_qkv_gkv", what,
+                    lambda: A.fused_attention_qkv_gkv(groups, gkv, heads, scale))
+        checks.float("fused_attention_qkv_gkv", what, out,
+                     A.attention_gkv_plain(groups.float(), gkv.float(), heads, scale))
+        del out
+        q, k, v = heads_first(groups, heads)
+        g_k, g_v = (t.reshape(b * f, heads, 1, d) for t in gkv.split(w, dim=-1)[1:])
+        size = groups.element_size()
+        entry = row(A.fused_attention_qkv_gkv, (groups, gkv, heads, scale),
+                    lambda: A.attention_gkv_plain(groups, gkv, heads, scale),
+                    sdpa_call(q, torch.cat([g_k, k], 2), torch.cat([g_v, v], 2)),
+                    bound(b * f * (p + 1) * 3 * w * size + b * f * p * w * size,
+                          4 * b * f * heads * p * (p + 1) * d, kind),
+                    plain_iters=20 if dtype == "bf16" else 5, shape=what, kernel=kernel)
+        if dtype == "bf16":
+            times["fused_attention_qkv_gkv"] = entry
+        else:
+            times["fused_attention_qkv_gkv"]["fp32"] = entry
+            print_row("fused_attention_qkv_gkv", entry)
+        del q, k, v, g_k, g_v
+    del groups, gkv
 
-    # K6: 32 clips of 4 x 196 rows and their CLS rows.
+    # K6: 32 clips of 4 x 196 rows and their CLS rows, bf16 then fp32.
     rows = normal(b, f * p, 3 * w)
     gkv = normal(b, 3 * w)
-    what = f"{b} x {f * p} x {3 * w} + gkv bf16"
-    out = twice("fused_time_attention", what,
-                lambda: A.fused_time_attention(rows, gkv, heads, f, scale))
-    checks.float("fused_time_attention", what, out,
-                 A.time_attention_plain(rows.float(), gkv.float(), heads, f, scale))
-    # The same function as SDPA: per (clip, location), F queries over [CLS | F frames].
-    q, k, v = (t.reshape(b, f, p, heads, d).permute(0, 2, 3, 1, 4).reshape(b * p, heads, f, d)
-               for t in rows.split(w, dim=-1))
-    g_k, g_v = (t.reshape(b, 1, heads, 1, d).expand(b, p, heads, 1, d).reshape(b * p, heads, 1, d)
-                for t in gkv.split(w, dim=-1)[1:])
-    times["fused_time_attention"] = timing(
-        cuda_ms(lambda: A.fused_time_attention(rows, gkv, heads, f, scale)),
-        cuda_ms(lambda: A.time_attention_plain(rows, gkv, heads, f, scale)),
-        sdpa_ms(torch, q.contiguous(), torch.cat([g_k, k], 2).contiguous(),
-                torch.cat([g_v, v], 2).contiguous(), scale),
-        bound(b * (f * p + 1) * 3 * w * 2 + b * f * p * w * 2,
-              4 * b * p * heads * f * (f + 1) * d, "bf16"))
-    # K6 in fp32: time_kernel<float>, timed only.
-    rows, gkv = rows.float(), gkv.float()
-    what = f"{b} x {f * p} x {3 * w} + gkv fp32"
-    checks.float("fused_time_attention", what, A.fused_time_attention(rows, gkv, heads, f, scale),
-                 A.time_attention_plain(rows, gkv, heads, f, scale))
-    q, k, v = (t.float() for t in (q, k, v))
-    g_k, g_v = (t.reshape(b, 1, heads, 1, d).expand(b, p, heads, 1, d).reshape(b * p, heads, 1, d)
-                for t in gkv.split(w, dim=-1)[1:])
-    times["fused_time_attention"]["fp32"] = dict(timing(
-        cuda_ms(lambda: A.fused_time_attention(rows, gkv, heads, f, scale)),
-        cuda_ms(lambda: A.time_attention_plain(rows, gkv, heads, f, scale), iters=5),
-        sdpa_ms(torch, q.contiguous(), torch.cat([g_k, k], 2).contiguous(),
-                torch.cat([g_v, v], 2).contiguous(), scale),
-        bound(b * (f * p + 1) * 3 * w * 4 + b * f * p * w * 4,
-              4 * b * p * heads * f * (f + 1) * d, "fp32")),
-        shape=what, kernel="time_kernel<float>")
-    print_row("fused_time_attention", times["fused_time_attention"]["fp32"])
+    for dtype, kind in (("bf16", "bf16"), ("fp32", "fp32")):
+        if dtype == "fp32":
+            rows, gkv = rows.float(), gkv.float()
+        what = f"{b} x {f * p} x {3 * w} + gkv {dtype}"
+        out = twice("fused_time_attention", what,
+                    lambda: A.fused_time_attention(rows, gkv, heads, f, scale))
+        checks.float("fused_time_attention", what, out,
+                     A.time_attention_plain(rows.float(), gkv.float(), heads, f, scale))
+        del out
+        # The same function as SDPA: per (clip, location), F queries over [CLS | F frames].
+        q, k, v = (t.reshape(b, f, p, heads, d).permute(0, 2, 3, 1, 4).reshape(b * p, heads, f, d)
+                   for t in rows.split(w, dim=-1))
+        g_k, g_v = (t.reshape(b, 1, heads, 1, d).expand(b, p, heads, 1, d)
+                    .reshape(b * p, heads, 1, d) for t in gkv.split(w, dim=-1)[1:])
+        size = rows.element_size()
+        entry = row(A.fused_time_attention, (rows, gkv, heads, f, scale),
+                    lambda: A.time_attention_plain(rows, gkv, heads, f, scale),
+                    sdpa_call(q, torch.cat([g_k, k], 2), torch.cat([g_v, v], 2)),
+                    bound(b * (f * p + 1) * 3 * w * size + b * f * p * w * size,
+                          4 * b * p * heads * f * (f + 1) * d, kind),
+                    plain_iters=20 if dtype == "bf16" else 5, shape=what,
+                    kernel=f"{TIME_ROWS}<{'__nv_bfloat16' if dtype == 'bf16' else 'float'}>")
+        if dtype == "bf16":
+            times["fused_time_attention"] = entry
+        else:
+            times["fused_time_attention"]["fp32"] = entry
+            print_row("fused_time_attention", entry)
+        del q, k, v, g_k, g_v
+    del rows, gkv
+
+    # The time kernel's frame tiers (F <= 4, 8, 16) at F = 1, 8 and 16, 8 clips.
+    for frames in (1, 8, 16):
+        joint = normal(8, 1 + frames * p, 3 * w)
+        what = f"8 x {1 + frames * p} x {3 * w} bf16, F = {frames}"
+        out = twice("fit_time_attention_int8", what,
+                    lambda: A.fit_time_attention_int8(joint, heads, frames, out_mul))
+        checks.int8("fit_time_attention_int8", what, out[:, 1:], quantize_rint(
+            A.fit_rows_attention_int8_plain(joint, heads, frames, "time", out_mul)))
+        for dtype in (torch.bfloat16, torch.float32):
+            rows, gkv = joint[:, 1:].to(dtype).contiguous(), joint[:, 0].to(dtype).contiguous()
+            what = f"8 x {frames * p} x {3 * w} + gkv {str(dtype)[6:]}, F = {frames}"
+            out = twice("fused_time_attention", what,
+                        lambda: A.fused_time_attention(rows, gkv, heads, frames, scale))
+            checks.float("fused_time_attention", what, out,
+                         A.time_attention_plain(rows.float(), gkv.float(), heads, frames, scale))
+        del joint, rows, gkv, out
     return times
 
 
@@ -1986,6 +2042,63 @@ def fp32_attention_only(torch, package: Path) -> int:
     return 0
 
 
+def fit_attention_only(torch, package: Path) -> int:
+    """``--fit-attention [DIR]``: FiT's attention alone for the fitclip_torch
+    package under DIR (default: this checkout), so that two trees' kernels are
+    timed by the same code in one run: phase 3's FiT rows (K4's three int8
+    cores, K5 and K6 in bf16 and fp32, each held to its plain version, timed by
+    events and device time beside its bound and SDPA) and the FiT base int8
+    (calibrated on 8 clips), bf16 and fp32 encodes' clips/s at 32 clips x 4
+    frames (CUDA events over 10 calls after warm-up). Prints one JSON line of
+    the readings (the rows' kernel names are this checkout's), with
+    attention.cu's fp32 forward at 128 x 197 x 2304 by device time beside
+    them (the yardstick of K5 in fp32, which runs the same block body)."""
+    sys.path.insert(0, str(package))
+    from fitclip_torch import _build
+    from fitclip_torch.models.frozen_in_time.load import load_frozen_in_time_encoder
+    from fitclip_torch.ops import attention as A
+
+    print(f"FiT attention of {package}; device: {torch.cuda.get_device_name(0)}; "
+          f"nvidia-smi: {nvidia_smi()}; clocks {clocks()}")
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s")
+    torch.set_grad_enabled(False)
+    checks = KernelChecks()
+    rows = fit_kernel_phase(torch, checks, A)
+    # The yardstick of K5 in fp32: attention.cu's fp32 forward on the same
+    # block body at one vision layer of the fp32 encode, by device time.
+    qkv = 1.5 * torch.randn(128, 197, 3 * FIT["width"], device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(17))
+    heads, scale = FIT["heads"], (FIT["width"] // FIT["heads"]) ** -0.5
+    checks.float("attention_f32", "fp32 128 x 197 x 2304", A.fused_attention_qkv(qkv, heads, scale),
+                 A.attention_core_plain(qkv, heads, scale, False))
+    rows["attention_f32"] = {"shape": "fp32 128 x 197 x 2304, qkv mode", "kernel": F32_FORWARD,
+                             "device_ms": device_ms(A.fused_attention_qkv, qkv, heads, scale)}
+    del qkv
+    for name, entry in rows.items():
+        if name == "attention_f32":
+            print(f"  attention_f32 at {entry['shape']}: device {entry['device_ms']:.4f} ms")
+        else:
+            print_row(name, entry)
+    torch.cuda.empty_cache()
+    print(f"clocks (FiT encodes): {clocks()}")
+    video, encode = fit_video(torch, FIT["clips"]), {}
+    for dtype in ("int8", "bfloat16", "float32"):
+        enc = load_frozen_in_time_encoder(dtype=dtype, device="cuda", seed=0).encoder
+        if dtype == "int8":
+            enc.calibrate(video[:8])
+        ms = cuda_ms(lambda: enc.encode_video(video), iters=10)
+        encode[dtype] = {"video_ms": ms, "clips_per_s": FIT["clips"] * 1e3 / ms}
+        print(f"fit {dtype} encode_video {FIT['clips']} clips x {FIT['frames']} frames: "
+              f"{ms:.3f} ms, {encode[dtype]['clips_per_s']:.1f} clips/s")
+        del enc
+        torch.cuda.empty_cache()
+    print(json.dumps({"fit_attention": rows, "fit_encode": encode, "package": str(package),
+                      "card": nvidia_smi()}))
+    return 0
+
+
 def wordpiece_ids(rows: int, rng: np.random.Generator, context: int = 77, vocab: int = 30522):
     """Random DistilBERT rows: [CLS] (101), ids, [SEP] (102), [PAD] (0) to the end."""
     ids = np.zeros((rows, context), np.int64)
@@ -2022,14 +2135,15 @@ def profile_ms(torch, fn, calls: int = 3):
 
 # The CUDA-core forward attention bodies by their kernel names (fp32 only; every
 # bf16 path runs attention_mma.cuh's attention_mma_kernel or space_mma_kernel).
-CUDA_CORE_ATTENTION = (F32_FORWARD, "space_kernel_f32")
+CUDA_CORE_ATTENTION = (F32_FORWARD, SPACE_F32, "space_kernel_f32")
 
 
 def print_profile(torch, what, fn, top=10, mma=None, kernels=()):
     """The profile's top kernels; with mma (kernel names), require that those
     tensor-core attention bodies ran and no CUDA-core attention body did; with
-    kernels, that those kernels (GEMM, LayerNorm) ran. No profile may show a
-    replaced GEMM, LayerNorm or amax kernel."""
+    kernels, that those kernels (GEMM, LayerNorm, FiT's time and fp32 space)
+    ran, each with its share. No profile may show a replaced GEMM, LayerNorm,
+    amax or attention kernel."""
     per_kernel, busy = profile_ms(torch, fn)
     total = sum(per_kernel.values())
     print(f"{what} profile, device {total:.3f} ms per call, busy share {busy:.3f} of the host "
@@ -2044,7 +2158,8 @@ def print_profile(torch, what, fn, top=10, mma=None, kernels=()):
         slow = [k for k in per_kernel if any(name in k for name in CUDA_CORE_ATTENTION)]
         require(not slow, f"{what}: a bf16 path ran a CUDA-core attention body: {slow}")
     old = [k for k in per_kernel
-           if any(name in k for name in (*OLD_GEMMS, *OLD_ROW_PASSES, *OLD_F32_ATTENTION))]
+           if any(name in k for name in (*OLD_GEMMS, *OLD_ROW_PASSES, *OLD_F32_ATTENTION,
+                                         *OLD_FIT_ATTENTION))]
     require(not old, f"{what}: the profile shows a replaced kernel: {old}")
 
 
@@ -2148,10 +2263,68 @@ def fit_phase(torch, wrappers):
           f"{timings['text_ms']:.3f} ms, {256e3 / timings['text_ms']:.1f} rows/s")
 
     print_profile(torch, "fit: int8 encode_video", lambda: int8_enc.encode_video(video), top=12,
-                  mma=("space_mma_kernel",), kernels=(INT8_GEMM, LN_KERNEL))
+                  mma=("space_mma_kernel",), kernels=(INT8_GEMM, LN_KERNEL, TIME_ROWS))
     print_profile(torch, "fit: bf16 encode_video", lambda: bf16_enc.encode_video(video), top=6,
-                  mma=("space_mma_kernel",))
+                  mma=("space_mma_kernel",), kernels=(TIME_ROWS,))
     return paths, timings
+
+
+def fit_video(torch, n: int):
+    """n uint8 FiT clips (4 frames of 224^2) on the card, from phase 7's seed."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    return torch.randint(0, 256, (n, FIT["frames"], 224, 224, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+
+
+def fit_fp32_phase(torch, wrappers):
+    """Phase 7 (b): FiT base in fp32, as load_frozen_in_time_encoder() gives it
+    (the default dtype, fused attention on the card), from seed 0: an encode
+    of 32 clips x 4 frames and 256 rows x 77 launches K5 and K6 once per block
+    (the fp32 space kernel and the time kernel) and nothing else of the
+    port's; gate: min-row cosine of the video embeddings > 0.999 against the
+    same model with fused_attention=False on the card (TF32 off), finite text
+    embeddings; clips/s, text rows/s, peak memory, and a profile that requires
+    the fp32 space and time kernels by name, shows neither kernel they
+    replaced, and prints each one's share. Returns ({path: launches}, timings)."""
+    from fitclip_torch.models.frozen_in_time.load import load_frozen_in_time_encoder
+
+    print(f"clocks (phase 7 (b), FiT fp32 encode): {clocks()}")
+    enc = load_frozen_in_time_encoder(device="cuda", seed=0).encoder
+    require(enc.fused_attention and not enc.fused_block, "the default FiT encoder on the card "
+            f"has fused_attention {enc.fused_attention}, fused_block {enc.fused_block}")
+    clips = FIT["clips"]
+    video = fit_video(torch, clips)
+    text = torch.from_numpy(wordpiece_ids(256, np.random.default_rng(6))).cuda()
+    for fn in wrappers.values():
+        fn.launches = 0
+    video_emb, text_emb = enc.encode_video(video), enc.encode_text(text)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expected = {name: 0 for name in wrappers}
+    expected.update(fused_attention_qkv_gkv=FIT_LAYERS, fused_time_attention=FIT_LAYERS)
+    print(f"fit fp32: launches per encode {({k: n for k, n in launches.items() if n})}")
+    require(launches == expected, f"FiT fp32 launch counts {launches}, expected {expected}")
+    plain = load_frozen_in_time_encoder(device="cuda", seed=0, fused_attention=False).encoder
+    cos = min_cosine(video_emb, plain.encode_video(video))
+    print(f"fit fp32 gate video: fused vs unfused attention on the card, min cosine {cos:.6f}")
+    require(cos > GATE_COSINE, f"FiT fp32 video: fused vs unfused cosine {cos}")
+    require(video_emb.shape == (clips, 256) and bool(torch.isfinite(video_emb).all())
+            and text_emb.shape == (256, 256) and bool(torch.isfinite(text_emb).all()),
+            "FiT fp32 embeddings not finite (32, 256) and (256, 256)")
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    video_ms = cuda_ms(lambda: enc.encode_video(video), iters=10)
+    text_ms = cuda_ms(lambda: enc.encode_text(text), iters=10)
+    timed = {"video_ms": video_ms, "clips_per_s": clips * 1e3 / video_ms, "text_ms": text_ms,
+             "text_rows_per_s": 256e3 / text_ms,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"fit fp32: encode_video {clips} clips x {FIT['frames']} frames {video_ms:.3f} ms, "
+          f"{timed['clips_per_s']:.1f} clips/s; encode_text 256 x 77 {text_ms:.3f} ms, "
+          f"{timed['text_rows_per_s']:.1f} rows/s; peak {timed['peak_gib']:.2f} GiB")
+    print_profile(torch, "fit: fp32 encode_video", lambda: enc.encode_video(video), top=8,
+                  kernels=(SPACE_F32, TIME_ROWS))
+    return {"fit_fp32_encode": launches}, timed
 
 
 def s3dg_phase(torch, wrappers):
@@ -2559,7 +2732,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 1
     alone = {"--train-steps": train_steps_only, "--row-passes": row_passes_only,
-             "--fp32-attention": fp32_attention_only}
+             "--fp32-attention": fp32_attention_only, "--fit-attention": fit_attention_only}
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -2592,7 +2765,7 @@ def main() -> int:
     checks = KernelChecks()
     times = kernel_phase(torch, checks)
     times.update(float_layer_kernel_phase(torch, checks))
-    times.update(fit_kernel_phase(torch, checks))
+    times.update(fit_kernel_phase(torch, checks, A))
     times.update(s3dg_kernel_phase(torch, checks))
     fault_kernel_phase(torch, checks)
     times.update(f32_attention_phase(torch, checks, A))
@@ -2711,6 +2884,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"clocks (phase 7): {clocks()}")
     fit_paths, fit_times = fit_phase(torch, wrappers)
+    torch.cuda.empty_cache()
+    fit_fp32_paths, fit_fp32_times = fit_fp32_phase(torch, wrappers)
 
     # Phase 8: the S3D-G family (MIL-NCE, VideoCLIP).
     torch.cuda.empty_cache()
@@ -2722,7 +2897,8 @@ def main() -> int:
     print(f"clocks (phase 10): {clocks()}")
     bench_paths, bench_times, _ = bench_phase(torch, checks, wrappers)
     times.update(bench_times)
-    paths = {"encode": launches, **paths, **fit_paths, **s3dg_paths, **clip_k2_paths,
+    paths = {"encode": launches, **paths, **fit_paths, **fit_fp32_paths, **s3dg_paths,
+             **clip_k2_paths,
              **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
@@ -2761,6 +2937,7 @@ def main() -> int:
                   *(n for n in BENCH_KERNELS if n.startswith("attention_") and "i8" not in n))},
               "fused_attention_qkv_gkv": "space_mma_kernel",
               "fit_space_attention_int8": "space_mma_kernel",
+              "fused_time_attention": TIME_ROWS, "fit_time_attention_int8": TIME_ROWS,
               "fused_attention_qkv_backward": "+".join(K3B_MMA),
               "attention_f32": F32_FORWARD, "attention_bwd_f32": "+".join(F32_BACKWARD),
               "fused_int8_qkv_attention": f"{INT8_GEMM}+attention_mma_kernel",

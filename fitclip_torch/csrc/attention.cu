@@ -219,8 +219,8 @@ extern "C" int fitclip_attention_body(int dtype, int seq, int head_dim) {
     return seq <= kResidentKeys ? kBodyMma : kBodyMmaSweep;
   }
   if (dtype == kFloat32) {
-    if (f32_smem_bytes(seq, head_dim, 64) <= kSmemLimit) return kBodyF32Rows64;
-    if (f32_smem_bytes(seq, head_dim, 32) <= kSmemLimit) return kBodyF32Rows32;
+    const int rows = fa::forward_rows(seq, head_dim);
+    if (rows > 0) return rows == 64 ? kBodyF32Rows64 : kBodyF32Rows32;
   }
   return -1;
 }

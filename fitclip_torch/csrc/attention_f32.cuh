@@ -1,5 +1,6 @@
 // attention_f32: the register-tiled fp32 attention kernels -- attention.cu's
-// fp32 forward (attention_f32_kernel) and attention_bwd.cu's fp32 backward
+// fp32 forward (attention_f32_kernel; fit_attention.cu's space_f32_kernel runs
+// the same block body, forward_block) and attention_bwd.cu's fp32 backward
 // (rows_f32_kernel, columns_f32_kernel) -- and the pieces they share.
 //
 // fp32 stays on the CUDA cores: the tensor cores would take fp32 operands as
@@ -60,17 +61,23 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(src), "r"(bytes));
 }
 
-// Rows 0 .. kRows - 1 of an operand tile from `src` (row r at src + r * stride
-// floats); rows at and past `valid` are zero-filled (a NaN read from past the
-// end would survive a weight of 0). Left in flight, uncommitted.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile(float* tile, const float* src, size_t stride, int valid) {
+// Rows 0 .. kRows - 1 of an operand tile, row r at row(r) (a pointer to its
+// first float); rows at and past `valid` are zero-filled (a NaN read from past
+// the end would survive a weight of 0). Left in flight, uncommitted.
+template <int D, int kRows, typename RowFn>
+__device__ __forceinline__ void load_rows(float* tile, RowFn row, int valid) {
   constexpr int kChunks = D / 4;
   for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
     const int r = idx / kChunks, c = idx % kChunks;
     const bool ok = r < valid;
-    cp_async16(tile + r * tile_pitch(D) + 4 * c, src + (ok ? r : 0) * stride + 4 * c, ok);
+    cp_async16(tile + r * tile_pitch(D) + 4 * c, row(ok ? r : 0) + 4 * c, ok);
   }
+}
+
+// load_rows of rows src + r * stride floats.
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile(float* tile, const float* src, size_t stride, int valid) {
+  load_rows<D, kRows>(tile, [=](int r) { return src + r * stride; }, valid);
 }
 
 // Scale the chunks of a tile that this thread copied with load_tile (after
@@ -184,59 +191,78 @@ __device__ __forceinline__ void pb(const float* __restrict__ p, int pitch, const
   }
 }
 
-// --- the forward (attention.cu) ----------------------------------------------------
+// --- the forward (attention.cu, fit_attention.cu's fp32 space kernel) -------------
 
 // Shared memory: the scaled Q tile (R rows), the K/V ring (two 64-key tiles)
-// and the logits/weights row buffer (R x buffer_pitch(L)).
-inline size_t forward_smem_bytes(int seq, int head_dim, int rows) {
+// and the logits/weights row buffer (R x buffer_pitch(keys)).
+inline size_t forward_smem_bytes(int keys, int head_dim, int rows) {
   const int pitch = tile_pitch(head_dim);
   return sizeof(float) *
-         (static_cast<size_t>(rows) * pitch + 2 * kTile * pitch + static_cast<size_t>(rows) * buffer_pitch(seq));
+         (static_cast<size_t>(rows) * pitch + 2 * kTile * pitch + static_cast<size_t>(rows) * buffer_pitch(keys));
 }
 
-// One block: R = 16 TM query rows of one (batch row, head). K tiles stream
-// through the ring for QK^T (the logits of every key the block's rows can see
-// go to the row buffer), warps then take whole rows for the exact softmax
-// (peak, exps, denominator, weights: the order of the CUDA-core body this
-// replaced), and V tiles stream through the same ring for P.V, the output
-// accumulating in registers and written once in the mode's type.
-template <int D, int TM, int kMode>
-__global__ void __launch_bounds__(kThreads, 2)
-attention_f32_kernel(const float* __restrict__ qkv, void* __restrict__ out, int seq, int heads, float scale,
-                     int causal, int seq_valid, float out_mul) {
+constexpr size_t kSmemLimit = 232448;  // shared memory a block can use on an H100
+
+// The forward's tier at `keys` keys: 64 query rows a block while their row
+// buffer fits beside the Q tile and the K/V ring, else 32; 0 where neither fits.
+inline int forward_rows(int keys, int head_dim) {
+  if (forward_smem_bytes(keys, head_dim, 64) <= kSmemLimit) return 64;
+  return forward_smem_bytes(keys, head_dim, 32) <= kSmemLimit ? 32 : 0;
+}
+
+// Where one block's operands live: query row i at q + i * stride, key j's
+// qkv row (its q; K at + width, V at + 2 width) at key(j), output row i at
+// out + o_base + i * width (elements of the mode's type). `rows` query rows
+// see `keys` keys (under causal, row i sees keys 0..i: keys == rows).
+template <typename KeyFn>
+struct ForwardRows {
+  const float* q;
+  KeyFn key;
+  size_t stride;
+  int width, rows, keys;
+  bool causal;
+  int seq_valid;
+  size_t o_base;
+};
+
+// One block: R = 16 TM query rows q0 .. q0 + R - 1 of one (batch row or
+// group, head). K tiles stream through the ring for QK^T (the logits of every
+// key the block's rows can see go to the row buffer), warps then take whole
+// rows for the exact softmax (peak, exps, denominator, weights: the order of
+// the CUDA-core body this replaced), and V tiles stream through the same ring
+// for P.V, the output accumulating in registers and written once in the
+// mode's type.
+template <int D, int TM, int kMode, typename KeyFn>
+__device__ __forceinline__ void forward_block(const ForwardRows<KeyFn>& a, int q0, float scale, float out_mul,
+                                              void* __restrict__ out) {
   using namespace attn;
   constexpr int R = block_rows(TM), P = tile_pitch(D), CN = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* ring = qs + R * P;
   float* sbuf = ring + 2 * kTile * P;
-  const int lp = buffer_pitch(seq);
+  const int lp = buffer_pitch(a.keys);
 
-  const int width = heads * D;
-  const size_t stride = 3 * static_cast<size_t>(width);
-  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
-  const int q1 = min(q0 + R, seq);
-  const float* base = qkv + static_cast<size_t>(b) * seq * stride + h * D;
+  const int q1 = min(q0 + R, a.rows);
   // The keys any row of this block can see, and the columns P.V reads.
-  const int keys = min(causal ? q1 : seq, seq_valid);
+  const int keys = min(a.causal ? q1 : a.keys, a.seq_valid);
   const int tiles = (keys + kTile - 1) / kTile, kcols = round4(keys);
   const Lane t;
   // The warp's rows, and the keys any of them can see (the tiles and columns
   // past those are skipped: their logits are masked, their weights 0).
   const int wrow = q0 + t.warp_row<TM>();
-  const bool live = wrow < seq;
-  const int wkeys = causal ? min(keys, wrow + 4 * TM) : keys, wcols = round4(wkeys);
+  const bool live = wrow < a.rows;
+  const int wkeys = a.causal ? min(keys, wrow + 4 * TM) : keys, wcols = round4(wkeys);
 
   // Loads 0 .. tiles - 1 are K tiles, then V tiles; load n goes to ring slot n & 1.
   auto fetch = [&](int n) {
     if (n < 2 * tiles) {
-      const int j0 = kTile * (n % tiles);
-      load_tile<D, kTile>(ring + (n & 1) * kTile * P, base + (n < tiles ? 1 : 2) * width + j0 * stride, stride,
-                          keys - j0);
+      const int j0 = kTile * (n % tiles), off = n < tiles ? a.width : 2 * a.width;
+      load_rows<D, kTile>(ring + (n & 1) * kTile * P, [&](int r) { return a.key(j0 + r) + off; }, keys - j0);
     }
     cp_async_commit();
   };
-  load_tile<D, R>(qs, base + q0 * stride, stride, q1 - q0);
+  load_tile<D, R>(qs, a.q + q0 * a.stride, a.stride, q1 - q0);
   fetch(0);
 
   float o[TM][CN];
@@ -271,7 +297,7 @@ attention_f32_kernel(const float* __restrict__ qkv, void* __restrict__ out, int 
           for (int g = 0; g < kGroup; ++g) {
             const int r = r0 + g * kWarps, i = q0 + r;
             p[g] = sbuf + min(r, R - 1) * lp;
-            nk[g] = r < R && i < seq ? min(causal ? i + 1 : seq, seq_valid) : 0;
+            nk[g] = r < R && i < a.rows ? min(a.causal ? i + 1 : a.keys, a.seq_valid) : 0;
             most = max(most, nk[g]);
           }
           float peak[kGroup], denom[kGroup];
@@ -313,8 +339,8 @@ attention_f32_kernel(const float* __restrict__ qkv, void* __restrict__ out, int 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int row = q0 + t.row<TM>() + 4 * i;
-    if (row >= seq) continue;
-    const size_t o_row = (static_cast<size_t>(b) * seq + row) * width + h * D + t.out_col<D>();
+    if (row >= a.rows) continue;
+    const size_t o_row = a.o_base + static_cast<size_t>(row) * a.width + t.out_col<D>();
 #pragma unroll
     for (int c = 0; c < CN; ++c) {
       if constexpr (int8_out<kMode>()) {
@@ -324,6 +350,22 @@ attention_f32_kernel(const float* __restrict__ qkv, void* __restrict__ out, int 
       }
     }
   }
+}
+
+// attention.cu's fp32 forward: a block of R query rows of one (batch row,
+// head) of the (B, L, 3W) qkv, every key of its own batch row.
+template <int D, int TM, int kMode>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_f32_kernel(const float* __restrict__ qkv, void* __restrict__ out, int seq, int heads, float scale,
+                     int causal, int seq_valid, float out_mul) {
+  const int width = heads * D;
+  const size_t stride = 3 * static_cast<size_t>(width);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* base = qkv + static_cast<size_t>(b) * seq * stride + h * D;
+  auto key = [=](int j) { return base + j * stride; };
+  const ForwardRows<decltype(key)> rows{base, key, stride, width, seq, seq, causal != 0, seq_valid,
+                                        static_cast<size_t>(b) * seq * width + h * D};
+  forward_block<D, TM, kMode>(rows, blockIdx.x * block_rows(TM), scale, out_mul, out);
 }
 
 // --- the backward (attention_bwd.cu) ---------------------------------------------

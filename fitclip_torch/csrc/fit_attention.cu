@@ -29,13 +29,27 @@
 // tensor-core core (attention_mma.cuh) with a loader of its own: key 0 from the
 // global row, keys 1..P from the group rows; 64 query rows per block, the
 // 1 + P keys' K and V read once per block, QK^T and P.V on mma.sync with the
-// logits in registers (swept in tiles of 64 keys past 208 keys). fp32 stays on
-// the CUDA cores (space_kernel_f32: tensor cores would take fp32 as TF32), one
-// query row per warp against K^T and V in shared memory. time and cls are
-// bound by device memory: time reads each qkv element about once (one warp per
-// (clip, location, head), lane = two of the 64 dims, F + 1 = 5 keys), cls
-// reads one head's K and V of a clip once per (clip, head) block.
-#include "attention_mma.cuh"
+// logits in registers (swept in tiles of 64 keys past 208 keys). fp32 (both
+// modes) stays on the CUDA cores (tensor cores would take fp32 as TF32):
+// space_f32_kernel runs attention_f32_kernel's register-tiled block body
+// (attention_f32.cuh: forward_block) with the same key order, its 64-key K
+// and V tiles streamed by cp.async, the first tile's key 0 the global row; the
+// row tier (64 or 32 query rows a block) by the key count, as attention.cu
+// picks it. Its bound is the FFMA rate; shared-memory loads hold it back first
+// (see attention_f32.cuh). The sums run in the old CUDA-core body's order (one
+// fmaf chain per logit over d and per output over keys, lane-strided softmax
+// sums), so its outputs are that body's bits.
+// time is bound by device memory: time_rows_kernel reads each qkv element
+// once. A lane holds one 16-byte vector of a head (8 dims in bf16, 4 in fp32),
+// a head is a group of 8 (16) lanes, and a warp covers 4 (2) heads of one
+// (clip, location): every load and store is whole 32-byte sectors, and a
+// lane's 2F + 3 loads are in flight together. Each logit is a partial dot
+// over the lane's dims reduced by 3 (4) xor-shuffles within its group; K and
+// V are held as loaded, in registers sized by a frame tier (4, 8, 16).
+// cls reads one head's K and V of a clip once per (clip, head) block.
+#include <type_traits>
+
+#include "attention_f32.cuh"
 
 using namespace fitclip;
 
@@ -44,10 +58,7 @@ namespace {
 constexpr int kHeadDim = 64;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kQueryTile = 64;
 constexpr int kMaxFrames = 16;
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
 
 // --- space --------------------------------------------------------------------
 
@@ -122,199 +133,244 @@ int launch_space_bf16(const void* qkv, int qkv_clip_stride, const void* gkv, int
 #undef FIT_SPACE_MMA
 }
 
-// fp32: the CUDA cores. Shared memory: K^T (kHeadDim x lp), V (keys x kHeadDim),
-// per-warp rows (kWarps x lp fp32).
-size_t space_f32_smem_bytes(int keys, int lp) {
-  return align16(sizeof(float) * kHeadDim * lp) + align16(sizeof(float) * static_cast<size_t>(keys) * kHeadDim) +
-         sizeof(float) * kWarps * lp;
+// fp32: attention_f32_kernel's block body over [global row | the group's P rows].
+namespace fa = fitclip::f32attn;
+
+template <int TM, bool kInt8Out>
+__global__ void __launch_bounds__(fa::kThreads, 2)
+space_f32_kernel(const float* __restrict__ qkv, int qkv_clip_stride, const float* __restrict__ gkv, int gkv_stride,
+                 void* __restrict__ out, int out_clip_stride, int frames, int patches, int heads, float scale,
+                 float out_mul) {
+  const int width = heads * kHeadDim;
+  const size_t stride = 3 * static_cast<size_t>(width);
+  const int h = blockIdx.y, g = blockIdx.z;
+  const int c = g / frames, f = g % frames;
+  const float* group = qkv + static_cast<size_t>(c) * qkv_clip_stride + static_cast<size_t>(f) * patches * stride +
+                       h * kHeadDim;
+  const float* global = gkv + static_cast<size_t>(c) * gkv_stride + h * kHeadDim;
+  // Key 0 is the global row, key j >= 1 is group row j - 1.
+  auto key = [=](int j) { return j == 0 ? global : group + (j - 1) * stride; };
+  const fa::ForwardRows<decltype(key)> rows{
+      group, key, stride, width, patches, patches + 1, false, patches + 1,
+      static_cast<size_t>(c) * out_clip_stride + static_cast<size_t>(f) * patches * width + h * kHeadDim};
+  fa::forward_block<kHeadDim, TM, kInt8Out ? attn::kInt8 : attn::kQkv>(rows, blockIdx.x * fa::block_rows(TM),
+                                                                        scale, out_mul, out);
 }
 
-template <bool kInt8Out>
-__global__ void __launch_bounds__(kThreads)
-space_kernel_f32(const float* __restrict__ qkv, int qkv_clip_stride, const float* __restrict__ gkv, int gkv_stride,
-                 void* __restrict__ out, int out_clip_stride, int frames, int patches, int lp, int heads,
-                 float scale, float out_mul) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int keys = patches + 1;
-  float* kt = reinterpret_cast<float*>(smem);
-  float* vs = reinterpret_cast<float*>(smem + align16(sizeof(float) * kHeadDim * lp));
-  float* rows = reinterpret_cast<float*>(smem + align16(sizeof(float) * kHeadDim * lp) +
-                                         align16(sizeof(float) * static_cast<size_t>(keys) * kHeadDim));
-
-  const int width = heads * kHeadDim;
-  const int q0 = blockIdx.x * kQueryTile, h = blockIdx.y, g = blockIdx.z;
-  const int q1 = min(q0 + kQueryTile, patches);
-  const int c = g / frames, f = g % frames;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* group = qkv + static_cast<size_t>(c) * qkv_clip_stride + static_cast<size_t>(f) * patches * 3 * width;
-  const float* global = gkv + static_cast<size_t>(c) * gkv_stride;
-
-  // Key 0 is the global row, key j >= 1 is group row j - 1.
-  for (int idx = tid; idx < keys * kHeadDim; idx += kThreads) {
-    const int j = idx / kHeadDim, d = idx % kHeadDim;
-    const float* src = (j == 0 ? global : group + static_cast<size_t>(j - 1) * 3 * width) + h * kHeadDim + d;
-    kt[d * lp + j] = src[width];
-    vs[j * kHeadDim + d] = src[2 * width];
+template <int R, bool kInt8Out>
+int launch_space_f32_rows(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride, void* out,
+                          int out_clip_stride, int groups, int frames, int patches, int heads, float scale,
+                          float out_mul, cudaStream_t s) {
+  const size_t smem = fa::forward_smem_bytes(patches + 1, kHeadDim, R);
+  auto kernel = space_f32_kernel<R / 16, kInt8Out>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  __syncthreads();
-
-  float* p = rows + warp * lp;
-  for (int i = q0 + warp; i < q1; i += kWarps) {
-    const float* qrow = group + static_cast<size_t>(i) * 3 * width + h * kHeadDim;
-    float q[kHeadDim];
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) q[d] = mul(qrow[d], scale);
-
-    float peak = -INFINITY;
-    for (int j = lane; j < keys; j += 32) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) s = fmaf(q[d], kt[d * lp + j], s);
-      p[j] = s;
-      peak = fmaxf(peak, s);
-    }
-    peak = warp_max(peak);
-    float denom = 0.f;
-    for (int j = lane; j < keys; j += 32) {
-      const float e = expf(sub(p[j], peak));
-      p[j] = e;
-      denom += e;
-    }
-    denom = warp_sum(denom);
-    const float norm = kInt8Out ? div(out_mul, denom) : 0.f;
-    for (int j = lane; j < keys; j += 32) p[j] = kInt8Out ? mul(p[j], norm) : div(p[j], denom);
-    __syncwarp();
-
-    float o0 = 0.f, o1 = 0.f;
-    for (int j = 0; j < keys; ++j) {
-      const float wgt = p[j];
-      o0 = fmaf(wgt, vs[j * kHeadDim + lane], o0);
-      o1 = fmaf(wgt, vs[j * kHeadDim + lane + 32], o1);
-    }
-    const size_t o = static_cast<size_t>(c) * out_clip_stride +
-                     (static_cast<size_t>(f) * patches + i) * width + h * kHeadDim + lane;
-    if (kInt8Out) {
-      int8_t* dst = static_cast<int8_t*>(out);
-      dst[o] = quant_rint(o0);
-      dst[o + 32] = quant_rint(o1);
-    } else {
-      float* dst = static_cast<float*>(out);
-      dst[o] = o0;
-      dst[o + 32] = o1;
-    }
-    __syncwarp();  // the next row overwrites p
-  }
+  const dim3 grid((patches + R - 1) / R, heads, groups);
+  kernel<<<grid, fa::kThreads, smem, s>>>(static_cast<const float*>(qkv), qkv_clip_stride,
+                                          static_cast<const float*>(gkv), gkv_stride, out, out_clip_stride, frames,
+                                          patches, heads, scale, out_mul);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kInt8Out>
 int launch_space_f32(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride, void* out,
                      int out_clip_stride, int groups, int frames, int patches, int heads, float scale, float out_mul,
                      cudaStream_t s) {
-  const int keys = patches + 1;
-  const int lp = keys + (keys & 1);
-  const size_t smem = space_f32_smem_bytes(keys, lp);
-  auto kernel = space_kernel_f32<kInt8Out>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((patches + kQueryTile - 1) / kQueryTile, heads, groups);
-  kernel<<<grid, kThreads, smem, s>>>(static_cast<const float*>(qkv), qkv_clip_stride, static_cast<const float*>(gkv),
-                                      gkv_stride, out, out_clip_stride, frames, patches, lp, heads, scale, out_mul);
-  return static_cast<int>(cudaGetLastError());
+  // The tier by key count, attention.cu's rule (f32_64, f32_32).
+  const int rows = fa::forward_rows(patches + 1, kHeadDim);
+  if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = rows == 64 ? launch_space_f32_rows<64, kInt8Out> : launch_space_f32_rows<32, kInt8Out>;
+  return launch(qkv, qkv_clip_stride, gkv, gkv_stride, out, out_clip_stride, groups, frames, patches, heads, scale,
+                out_mul, s);
 }
 
 // --- time ---------------------------------------------------------------------
 
-template <typename T, bool kInt8Out>
-__global__ void __launch_bounds__(kThreads)
-time_kernel(const T* __restrict__ qkv, int qkv_clip_stride, const T* __restrict__ gkv, int gkv_stride,
-            void* __restrict__ out, int out_clip_stride, int clips, int frames, int patches, int heads,
-            float scale, float out_mul) {
-  const int lane = threadIdx.x & 31;
-  const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);  // (clip, location, head), head fastest
-  if (item >= clips * patches * heads) return;
-  const int h = item % heads, loc = (item / heads) % patches, c = item / (heads * patches);
-  const int width = heads * kHeadDim;
-  const size_t row_stride = static_cast<size_t>(patches) * 3 * width;  // one frame
-  const T* base = qkv + static_cast<size_t>(c) * qkv_clip_stride + static_cast<size_t>(loc) * 3 * width +
-                  h * kHeadDim + lane;
-  const T* global = gkv + static_cast<size_t>(c) * gkv_stride + h * kHeadDim + lane;
-
-  const float gk0 = to_float(global[width]), gk1 = to_float(global[width + 32]);
-  const float gv0 = to_float(global[2 * width]), gv1 = to_float(global[2 * width + 32]);
-  float k0[kMaxFrames], k1[kMaxFrames], v0[kMaxFrames], v1[kMaxFrames];
+// A lane's 16-byte vector as floats: 8 bf16 (element 2i in the low half of
+// word i) or 4 fp32.
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int g = 0; g < kMaxFrames; ++g) {
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x), x[1] = __uint_as_float(u.y), x[2] = __uint_as_float(u.z), x[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // round to nearest even, as from_float
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint32_t pack_int8(float a, float b, float c, float d) {
+  return static_cast<uint8_t>(quant_rint(a)) | static_cast<uint32_t>(static_cast<uint8_t>(quant_rint(b))) << 8 |
+         static_cast<uint32_t>(static_cast<uint8_t>(quant_rint(c))) << 16 |
+         static_cast<uint32_t>(static_cast<uint8_t>(quant_rint(d))) << 24;
+}
+
+// One lane's output vector: 16 bytes in bf16 or fp32, 8 (4) bytes in int8.
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float (&o)[8]) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]),
+                                              pack_bf16(o[6], o[7]));
+}
+
+__device__ __forceinline__ void store_vec(float* dst, const float (&o)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+}
+
+__device__ __forceinline__ void store_vec(int8_t* dst, const float (&o)[8]) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_int8(o[0], o[1], o[2], o[3]), pack_int8(o[4], o[5], o[6], o[7]));
+}
+
+__device__ __forceinline__ void store_vec(int8_t* dst, const float (&o)[4]) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_int8(o[0], o[1], o[2], o[3]);
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 load_vec(const T* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Location p of frame f over [global row | location p of frames 0 .. F - 1],
+// for F <= kF (the register tier). Item (clip, location, head group) per warp,
+// the head group fastest; lane group l of a warp is head 4 hg + l in bf16 (2
+// hg + l in fp32), lane l % kLanes of a group dims kVec (l % kLanes) .. of it.
+// Per query frame: the logits (the partial dot over the lane's dims, one fmaf
+// chain from 0, then xor-shuffles 1, 2, 4 (, 8) within the group), the peak,
+// exps, denom (global first, then frames in ascending order), norm = out_mul /
+// denom, and o = (e_0 norm) v_global + (e_g norm) v_g over g ascending, each
+// product and sum rounded on its own.
+template <typename T, bool kInt8Out, int kF>
+__global__ void __launch_bounds__(kThreads)
+time_rows_kernel(const T* __restrict__ qkv, int qkv_clip_stride, const T* __restrict__ gkv, int gkv_stride,
+                 void* __restrict__ out, int out_clip_stride, int clips, int frames, int patches, int heads,
+                 float scale, float out_mul) {
+  constexpr int kVec = 16 / sizeof(T), kLanes = kHeadDim / kVec, kHeadsPerWarp = 32 / kLanes;
+  using OutT = typename std::conditional<kInt8Out, int8_t, T>::type;
+  const int lane = threadIdx.x & 31;
+  const int hgroups = (heads + kHeadsPerWarp - 1) / kHeadsPerWarp;
+  const long long item = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (item >= static_cast<long long>(clips) * patches * hgroups) return;  // the whole warp
+  const int hg = static_cast<int>(item % hgroups);
+  const long long cl = item / hgroups;
+  const int loc = static_cast<int>(cl % patches), c = static_cast<int>(cl / patches);
+  const int h = hg * kHeadsPerWarp + lane / kLanes;
+  const bool live = h < heads;  // a lane group past the last head loads head heads - 1 and stores nothing
+  const int width = heads * kHeadDim;
+  const int col = min(h, heads - 1) * kHeadDim + (lane % kLanes) * kVec;
+  const size_t row_stride = static_cast<size_t>(patches) * 3 * width;  // one frame
+  const T* base = qkv + static_cast<size_t>(c) * qkv_clip_stride + static_cast<size_t>(loc) * 3 * width + col;
+  const T* global = gkv + static_cast<size_t>(c) * gkv_stride + col;
+
+  // Every K and V vector of this location, and the first query's, in flight together.
+  const uint4 gk = load_vec(global + width), gv = load_vec(global + 2 * width);
+  uint4 k[kF], v[kF];
+#pragma unroll
+  for (int g = 0; g < kF; ++g) {
     if (g < frames) {
-      const T* r = base + g * row_stride;
-      k0[g] = to_float(r[width]);
-      k1[g] = to_float(r[width + 32]);
-      v0[g] = to_float(r[2 * width]);
-      v1[g] = to_float(r[2 * width + 32]);
+      k[g] = load_vec(base + g * row_stride + width);
+      v[g] = load_vec(base + g * row_stride + 2 * width);
     }
   }
+  uint4 q_next = load_vec(base);
 
-  for (int f = 0; f < frames; ++f) {
-    const T* qrow = base + f * row_stride;
-    const float q0 = mul(to_float(qrow[0]), scale), q1 = mul(to_float(qrow[32]), scale);
-    // logit 0: the global key; logit g + 1: frame g at this location.
-    float logit[kMaxFrames + 1];
-    logit[0] = warp_sum(fmaf(q0, gk0, q1 * gk1));
-    float peak = logit[0];
+  auto group_sum = [&](float s) {
 #pragma unroll
-    for (int g = 0; g < kMaxFrames; ++g) {
-      if (g < frames) {
-        logit[g + 1] = warp_sum(fmaf(q0, k0[g], q1 * k1[g]));
-        peak = fmaxf(peak, logit[g + 1]);
-      }
-    }
-    float e[kMaxFrames + 1];
-    e[0] = expf(sub(logit[0], peak));
-    float denom = e[0];
+    for (int offset = 1; offset < kLanes; offset <<= 1) s = add(s, __shfl_xor_sync(0xffffffffu, s, offset));
+    return s;
+  };
+  auto dot = [&](const float (&q)[kVec], const uint4& u) {
+    float x[kVec];
+    unpack(u, x);
+    float s = 0.f;
 #pragma unroll
-    for (int g = 0; g < kMaxFrames; ++g) {
-      if (g < frames) {
-        e[g + 1] = expf(sub(logit[g + 1], peak));
-        denom = add(denom, e[g + 1]);
-      }
-    }
-    const float norm = div(out_mul, denom);
-    float o0 = mul(mul(e[0], norm), gv0), o1 = mul(mul(e[0], norm), gv1);
+    for (int d = 0; d < kVec; ++d) s = fmaf(q[d], x[d], s);
+    return group_sum(s);
+  };
+
 #pragma unroll
-    for (int g = 0; g < kMaxFrames; ++g) {
-      if (g < frames) {
-        const float wgt = mul(e[g + 1], norm);
-        o0 = add(o0, mul(wgt, v0[g]));
-        o1 = add(o1, mul(wgt, v1[g]));
+  for (int f = 0; f < kF; ++f) {
+    if (f < frames) {
+      float q[kVec];
+      unpack(q_next, q);
+      if (f + 1 < frames) q_next = load_vec(base + (f + 1) * row_stride);  // the next query, during this one
+#pragma unroll
+      for (int d = 0; d < kVec; ++d) q[d] = mul(q[d], scale);
+      // logit 0: the global key; logit g + 1: frame g at this location.
+      float logit[kF + 1];
+      logit[0] = dot(q, gk);
+      float peak = logit[0];
+#pragma unroll
+      for (int g = 0; g < kF; ++g) {
+        if (g < frames) {
+          logit[g + 1] = dot(q, k[g]);
+          peak = fmaxf(peak, logit[g + 1]);
+        }
       }
-    }
-    const size_t o = static_cast<size_t>(c) * out_clip_stride +
-                     (static_cast<size_t>(f) * patches + loc) * width + h * kHeadDim + lane;
-    if (kInt8Out) {
-      int8_t* dst = static_cast<int8_t*>(out);
-      dst[o] = quant_rint(o0);
-      dst[o + 32] = quant_rint(o1);
-    } else {
-      T* dst = static_cast<T*>(out);
-      dst[o] = from_float<T>(o0);
-      dst[o + 32] = from_float<T>(o1);
+      const float e0 = expf(sub(logit[0], peak));
+      float denom = e0;
+#pragma unroll
+      for (int g = 0; g < kF; ++g) {
+        if (g < frames) {
+          logit[g + 1] = expf(sub(logit[g + 1], peak));
+          denom = add(denom, logit[g + 1]);
+        }
+      }
+      const float norm = div(out_mul, denom);
+      float o[kVec], x[kVec];
+      unpack(gv, x);
+      const float w0 = mul(e0, norm);
+#pragma unroll
+      for (int d = 0; d < kVec; ++d) o[d] = mul(w0, x[d]);
+#pragma unroll
+      for (int g = 0; g < kF; ++g) {
+        if (g < frames) {
+          const float wgt = mul(logit[g + 1], norm);
+          unpack(v[g], x);
+#pragma unroll
+          for (int d = 0; d < kVec; ++d) o[d] = add(o[d], mul(wgt, x[d]));
+        }
+      }
+      if (live) {
+        OutT* dst = static_cast<OutT*>(out) + static_cast<size_t>(c) * out_clip_stride +
+                    (static_cast<size_t>(f) * patches + loc) * width + col;
+        store_vec(dst, o);
+      }
     }
   }
 }
 
+template <typename T, bool kInt8Out, int kF>
+int launch_time_tier(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride, void* out,
+                     int out_clip_stride, int clips, int frames, int patches, int heads, float scale, float out_mul,
+                     cudaStream_t s) {
+  constexpr int kHeadsPerWarp = 32 / (kHeadDim / (16 / sizeof(T)));
+  const long long items = static_cast<long long>(clips) * patches * ((heads + kHeadsPerWarp - 1) / kHeadsPerWarp);
+  const dim3 grid(static_cast<unsigned>((items + kWarps - 1) / kWarps));
+  time_rows_kernel<T, kInt8Out, kF><<<grid, kThreads, 0, s>>>(static_cast<const T*>(qkv), qkv_clip_stride,
+                                                              static_cast<const T*>(gkv), gkv_stride, out,
+                                                              out_clip_stride, clips, frames, patches, heads, scale,
+                                                              out_mul);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register tier by frame count.
 template <typename T, bool kInt8Out>
 int launch_time(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride, void* out,
                 int out_clip_stride, int clips, int frames, int patches, int heads, float scale, float out_mul,
                 cudaStream_t s) {
-  const long long items = static_cast<long long>(clips) * patches * heads;
-  const dim3 grid(static_cast<unsigned>((items + kWarps - 1) / kWarps));
-  time_kernel<T, kInt8Out><<<grid, kThreads, 0, s>>>(static_cast<const T*>(qkv), qkv_clip_stride,
-                                                     static_cast<const T*>(gkv), gkv_stride, out,
-                                                     out_clip_stride, clips, frames, patches, heads, scale,
-                                                     out_mul);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = frames <= 4   ? launch_time_tier<T, kInt8Out, 4>
+                : frames <= 8 ? launch_time_tier<T, kInt8Out, 8>
+                              : launch_time_tier<T, kInt8Out, kMaxFrames>;
+  return launch(qkv, qkv_clip_stride, gkv, gkv_stride, out, out_clip_stride, clips, frames, patches, heads, scale,
+                out_mul, s);
 }
 
 // --- cls ----------------------------------------------------------------------
@@ -402,16 +458,21 @@ int launch_cls(const void* qkv, void* out, int out_clip_stride, int clips, int s
 
 }  // namespace
 
+// The space kernel's shared memory a block at P rows a group (fp32: at its tier).
 extern "C" size_t fitclip_fit_space_smem_bytes(int dtype, int patches) {
   const int keys = patches + 1;
-  return dtype == kBFloat16 ? attn::smem_bytes(keys, kHeadDim) : space_f32_smem_bytes(keys, keys + (keys & 1));
+  if (dtype == kBFloat16) return attn::smem_bytes(keys, kHeadDim);
+  // Past the 32-row tier: its bytes, which the wrapper refuses.
+  const int rows = fa::forward_rows(keys, kHeadDim);
+  return fa::forward_smem_bytes(keys, kHeadDim, rows > 0 ? rows : 32);
 }
 
 extern "C" size_t fitclip_fit_cls_smem_bytes(int seq) { return cls_smem_bytes(seq); }
 
 // Strides are in elements. int8_out = 1: out is int8 and out_mul rides the
 // normalizer; int8_out = 0: out is in qkv's dtype (out_mul must be 1 for time).
-// Space routes by dtype: bf16 to the tensor-core kernel, fp32 to the CUDA cores.
+// Space routes by dtype: bf16 to the tensor-core kernel, fp32 to the CUDA cores;
+// time takes 1 .. kMaxFrames frames and 16-byte aligned rows.
 extern "C" int fitclip_fit_space_attention(const void* qkv, int qkv_clip_stride, const void* gkv, int gkv_stride,
                                            int dtype, void* out, int out_clip_stride, int int8_out, int groups,
                                            int frames, int patches, int heads, int head_dim, float scale,
@@ -431,6 +492,12 @@ extern "C" int fitclip_fit_time_attention(const void* qkv, int qkv_clip_stride, 
                                           int frames, int patches, int heads, int head_dim, float scale,
                                           float out_mul, void* stream) {
   if (head_dim != kHeadDim || frames < 1 || frames > kMaxFrames) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte vectors: the pointers 16-byte aligned, the strides whole vectors.
+  const int vec = dtype == kBFloat16 ? 8 : 4;
+  if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(gkv)) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % (int8_out ? vec : 16) || qkv_clip_stride % vec || gkv_stride % vec ||
+      out_clip_stride % vec)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
 #define FIT_TIME(T, I8) \

@@ -50,7 +50,12 @@ refuses any other:
 Every bf16 mode runs on the tensor cores: K1's int8 core, K2's block mode,
 K3f and K8's attention, and the bench arms' modes. FiT's space kernel (K5, K4
 space) runs the same core on bf16 with a loader of its own (the global row
-then the group rows).
+then the group rows), and in fp32 the register-tiled block body of the fp32
+tiers (``space_f32_kernel``: key 0 the global row, in the first 64-key tile;
+the tier by key count, with the same shared-memory rule). FiT's time kernel
+(K6, K4 time: ``time_rows_kernel``) is a row pass bound by device memory: a
+lane holds a 16-byte vector of one head, a head is 8 lanes (bf16) or 16
+(fp32), and each logit is reduced within its head's lanes.
 
 The backward (``attention_bwd.cu``) runs one of four bodies, picked by
 ``backward_body`` from (dtype, L, head_dim) alone; the kernel entry refuses
@@ -107,7 +112,7 @@ BODIES = {"mma": 0, "mma_sweep": 1, "f32_64": 2, "f32_32": 3}
 BACKWARD_BODIES = {"mma": 0, "mma_global": 1, "f32_32": 2, "f32_16": 3}  # attention_bwd.cu's
 MMA_RESIDENT_KEYS = 208
 F32_TILE = 64  # attention_f32.cuh: keys (or rows) per streamed tile
-MAX_FRAMES = 16  # the time kernel keeps each location's frames in registers
+MAX_FRAMES = 16  # the time kernel keeps each location's K and V in registers (tiers 4, 8, 16)
 
 
 def attention_core_plain(qkv: torch.Tensor, heads: int, scale: float, causal: bool,

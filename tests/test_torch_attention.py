@@ -76,26 +76,32 @@ def _rows(t, r0, n):
     return torch.cat([part, part.new_zeros(*part.shape[:-2], n - part.shape[-2], part.shape[-1])], -2)
 
 
-def _f32_forward_model(qkv, heads, scale, causal, seq_valid, rows, out_mul=None):
+def _f32_forward_model(qkv, heads, scale, causal, seq_valid, rows, out_mul=None, gkv=None):
     """attention_f32_kernel in float64, index for index: blocks of `rows`
     query rows (the tier), 64-key tiles up to the last key a block sees, each
     warp's QK^T of its 4 TM rows x 32 keys skipped past the keys its rows see,
     the exact softmax by rows (zeros from a row's last key to round4(keys)), and
     each warp's P.V over the columns its rows see. The row buffer starts as NaN,
-    so a read of a cell the kernel never writes shows in the output."""
+    so a read of a cell the kernel never writes shows in the output. With gkv
+    (B, 3W), fit_attention.cu's space_f32_kernel on the same body: the keys
+    are [gkv's row | the L rows], L + 1 of them, key 0 in the first tile."""
     batch, seq, triple = qkv.shape
     d = triple // 3 // heads
     x = qkv.double().reshape(batch, seq, 3, heads, d).permute(2, 0, 3, 1, 4)  # (3, B, H, L, D)
     q, k, v = x[0] * scale, x[1], x[2]
+    if gkv is not None:
+        g = gkv.double().reshape(batch, 1, 3, heads, d).permute(2, 0, 3, 1, 4)
+        k, v = torch.cat([g[1], k], -2), torch.cat([g[2], v], -2)
+    kv = k.shape[-2]
     tm = rows // 16
-    valid = seq if seq_valid is None else min(seq_valid, seq)
+    valid = kv if seq_valid is None else min(seq_valid, kv)
     out = torch.full((batch, heads, seq, d), float("nan"), dtype=torch.float64)
     for q0 in range(0, seq, rows):
         q1 = min(q0 + rows, seq)
-        keys = min(q1 if causal else seq, valid)
+        keys = min(q1 if causal else kv, valid)
         tiles, kcols = -(-keys // TILE), _round4(keys)
         qs = _rows(q, q0, rows)
-        buf = torch.full((batch, heads, rows, _round4(seq) + 64), float("nan"), dtype=torch.float64)
+        buf = torch.full((batch, heads, rows, _round4(kv) + 64), float("nan"), dtype=torch.float64)
         warps = []
         for warp in range(WARPS):
             r = (warp // 2) * 4 * tm
@@ -112,7 +118,7 @@ def _f32_forward_model(qkv, heads, scale, causal, seq_valid, rows, out_mul=None)
                     buf[..., r_idx[:, None], cols[keep][None]] = logits[..., keep]
         for r in range(min(rows, seq - q0)):
             i = q0 + r
-            nk = min(i + 1 if causal else seq, valid)
+            nk = min(i + 1 if causal else kv, valid)
             logits = buf[..., r, :nk]
             exps = torch.exp(logits - logits.amax(-1, keepdim=True))
             denom = exps.sum(-1, keepdim=True)

@@ -8,6 +8,12 @@ wrappers take their plain versions.
   of the shipped arm (_time_attention_mxu, _space_attention_packed with the
   concat CLS join, _cls_global_row_packed), which are plain jnp functions:
   atol = rtol = 1e-4 in fp32 on values pre-scaled by out_mul ~ 30.
+- float64 models of the kernels' decompositions (csrc/fit_attention.cu): the
+  fp32 space kernel's tiling (space_f32_kernel, test_torch_attention.py's
+  model of the shared block body with a global key) and the time kernel's
+  lane mapping and reduction order (time_rows_kernel), each held against the
+  plain version and the Pallas kernel in interpret mode at fp32's atol 1e-5
+  (the int8 modes against K4's helpers, over out_mul).
 """
 
 import jax.numpy as jnp
@@ -19,6 +25,7 @@ from fitclip_tpu.ops import fit_block as jax_fit_block
 from fitclip_tpu.ops.attention import fused_attention_qkv_gkv as jax_gkv
 from fitclip_tpu.ops.attention import fused_time_attention as jax_time
 from fitclip_torch.ops import attention as A
+from test_torch_attention import _f32_forward_model
 
 TOL = {np.float32: 2e-5, "bfloat16": 2e-2}
 
@@ -102,3 +109,151 @@ def test_int8_wrappers_fill_the_joint_rows_on_the_cpu():
                                            A.fit_space_attention_int8)]
     with pytest.raises(ValueError, match="int8"):
         A.fit_space_attention_int8(qkv, heads, frames, 20.0, torch.zeros(2, 9, 128))
+
+
+# --- the kernels' decompositions in float64 (csrc/fit_attention.cu) ---------------
+
+MODEL_HEADS, MODEL_DIM = 2, 64  # the FiT kernels take head_dim 64
+OUT_MUL = 127.0 / 2.5
+
+
+def _joint(seed, frames, patches):
+    """A joint (1, 1 + F * P, 3W) qkv (the global row first), as numpy."""
+    return _inputs(seed, 1, 1 + frames * patches, 3 * MODEL_HEADS * MODEL_DIM)
+
+
+@pytest.fixture(scope="module")
+def pallas_space():
+    """For P = 20 (one key tile) and 70 (a ragged second tile): the joint qkv
+    of 2 frames, _packed_gkv_kernel in interpret mode on its frame groups, and
+    K4's space attention (_space_attention_packed, the concat CLS join) on it."""
+    cases, scale = {}, MODEL_DIM ** -0.5
+    for patches in (20, 70):
+        joint = _joint(patches, 2, patches)
+        groups = joint[:, 1:].reshape(2, patches, -1)
+        gkv = np.repeat(joint[:, 0], 2, axis=0)
+        gkv_ref = jax_gkv(jnp.asarray(groups), jnp.asarray(gkv), MODEL_HEADS, scale,
+                          interpret=True)
+        int8_ref = jax_fit_block._space_attention_packed(jnp.asarray(joint), MODEL_HEADS, 2,
+                                                         patches, scale, OUT_MUL, cls_concat=True)
+        cases[patches] = joint, np.asarray(gkv_ref), np.asarray(int8_ref)
+    return cases
+
+
+
+@pytest.mark.parametrize("rows", [64, 32])
+@pytest.mark.parametrize("patches", [20, 70])
+@pytest.mark.parametrize("mode", ["float", "int8"])
+def test_space_f32_tiling_matches_plain_and_pallas(pallas_space, mode, patches, rows):
+    """space_f32_kernel's tiling at both row tiers (64-key tiles, key 0 the
+    global row in the first): in float mode against attention_gkv_plain and
+    _packed_gkv_kernel in interpret mode, in int8 mode (weights exps * (out_mul
+    / denom)) against the plain int8 core and K4's space attention, over out_mul."""
+    joint, gkv_ref, int8_ref = pallas_space[patches]
+    groups = torch.from_numpy(joint[:, 1:].reshape(2, patches, -1))
+    gkv = torch.from_numpy(joint[:, 0]).repeat(2, 1)
+    scale = MODEL_DIM ** -0.5
+    if mode == "float":
+        model = _f32_forward_model(groups, MODEL_HEADS, scale, False, None, rows, gkv=gkv)
+        plain = A.attention_gkv_plain(groups, gkv, MODEL_HEADS, scale)
+        ref = gkv_ref
+    else:
+        model = _f32_forward_model(groups, MODEL_HEADS, scale, False, None, rows, OUT_MUL,
+                                   gkv) / OUT_MUL
+        plain = A.fit_rows_attention_int8_plain(torch.from_numpy(joint), MODEL_HEADS, 2, "space",
+                                                OUT_MUL).reshape(2, patches, -1) / OUT_MUL
+        ref = int8_ref.reshape(2, patches, -1) / OUT_MUL
+    assert not torch.isnan(model).any()
+    np.testing.assert_allclose(model.numpy(), plain.double().numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(model.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def _time_rows_model(qkv, gkv, heads, frames, scale, vec, out_mul=1.0):
+    """time_rows_kernel in float64, lane for lane: a lane holds `vec` dims of
+    one head (8 in bf16, 4 in fp32), a head is a group of 64 / vec lanes; each
+    logit is the lane's partial dot (its dims in ascending order) reduced by
+    the xor-shuffle tree within the group (offsets 1, 2, 4 (, 8)), every lane
+    of the group left with the same sum; K and V sit in the frame tier's
+    register slots (4, 8 or 16), the slots past the frame count NaN, so that a
+    read of one shows; denom sums the global key first, then the frames in
+    ascending order; o = (e_0 norm) v_global + (e_g norm) v_g, g ascending."""
+    batch, n, triple = qkv.shape
+    width, patches = triple // 3, n // frames
+    lanes = MODEL_DIM // vec
+    tier = next(t for t in (4, 8, 16) if frames <= t)
+    x = qkv.double().reshape(batch, frames, patches, 3, heads, lanes, vec)
+    g = gkv.double().reshape(batch, 1, 3, heads, lanes, vec)
+    q = x[:, :, :, 0] * scale                                     # (B, F, P, H, lanes, vec)
+    k = torch.full((batch, tier, patches, heads, lanes, vec), float("nan"), dtype=torch.float64)
+    v = k.clone()
+    k[:, :frames], v[:, :frames] = x[:, :, :, 1], x[:, :, :, 2]
+
+    def group_sum(part):                                          # (..., lanes)
+        offset = 1
+        while offset < lanes:
+            part = part + part[..., torch.arange(lanes) ^ offset]
+            offset <<= 1
+        assert torch.equal(part, part[..., :1].expand_as(part))  # every lane the same bits
+        return part[..., 0]
+
+    def dot(key):                                                 # key (B, 1 or P, H, lanes, vec)
+        part = torch.zeros(q.shape[:-1], dtype=torch.float64)
+        for d in range(vec):
+            part = part + q[..., d] * key[:, None, ..., d]
+        return group_sum(part)                                    # (B, F, P, H)
+
+    logits = [dot(g[:, :, 1])] + [dot(k[:, j]) for j in range(frames)]
+    peak = torch.stack(logits).amax(0)
+    exps = [torch.exp(l - peak) for l in logits]
+    denom = exps[0]
+    for e in exps[1:]:
+        denom = denom + e
+    norm = out_mul / denom
+    out = (exps[0] * norm)[..., None, None] * g[:, :, 2][:, None]
+    for j in range(frames):
+        out = out + (exps[j + 1] * norm)[..., None, None] * v[:, j][:, None]
+    return out.reshape(batch, n, width)
+
+
+TIME_PATCHES = 3
+
+
+@pytest.fixture(scope="module")
+def pallas_time():
+    """For F = 1, 3, 4, 16 (the tiers, full and partly used): the joint qkv,
+    _time_attention_kernel in interpret mode on its rows and global row, and
+    K4's time attention (_time_attention_mxu) on it."""
+    cases, scale = {}, MODEL_DIM ** -0.5
+    for frames in (1, 3, 4, 16):
+        joint = _inputs(40 + frames, 2, 1 + frames * TIME_PATCHES, 3 * MODEL_HEADS * MODEL_DIM)
+        float_ref = jax_time(jnp.asarray(joint[:, 1:]), jnp.asarray(joint[:, 0]), MODEL_HEADS,
+                             frames, scale, interpret=True)
+        int8_ref = jax_fit_block._time_attention_mxu(jnp.asarray(joint), MODEL_HEADS, frames,
+                                                     TIME_PATCHES, scale, OUT_MUL)
+        cases[frames] = joint, np.asarray(float_ref), np.asarray(int8_ref)
+    return cases
+
+
+@pytest.mark.parametrize("vec", [8, 4])
+@pytest.mark.parametrize("frames", [1, 3, 4, 16])
+@pytest.mark.parametrize("mode", ["float", "int8"])
+def test_time_rows_mapping_matches_plain_and_pallas(pallas_time, mode, frames, vec):
+    """time_rows_kernel's lane mapping (bf16's 8 lanes a head, fp32's 16) and
+    reduction order: in float mode against time_attention_plain and
+    _time_attention_kernel in interpret mode, in int8 mode against the plain
+    int8 core and K4's _time_attention_mxu, over out_mul."""
+    joint, float_ref, int8_ref = pallas_time[frames]
+    qkv, gkv = torch.from_numpy(joint[:, 1:]), torch.from_numpy(joint[:, 0])
+    scale = MODEL_DIM ** -0.5
+    if mode == "float":
+        model = _time_rows_model(qkv, gkv, MODEL_HEADS, frames, scale, vec)
+        plain = A.time_attention_plain(qkv, gkv, MODEL_HEADS, frames, scale)
+        ref = float_ref
+    else:
+        model = _time_rows_model(qkv, gkv, MODEL_HEADS, frames, scale, vec, OUT_MUL) / OUT_MUL
+        plain = A.fit_rows_attention_int8_plain(torch.from_numpy(joint), MODEL_HEADS, frames,
+                                                "time", OUT_MUL) / OUT_MUL
+        ref = int8_ref / OUT_MUL
+    assert not torch.isnan(model).any()
+    np.testing.assert_allclose(model.numpy(), plain.double().numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(model.numpy(), ref, atol=1e-5, rtol=1e-5)

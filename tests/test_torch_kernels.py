@@ -675,6 +675,60 @@ def test_fit_int8_attention_kernels_match_plain(cuda, mode, frames, patches, hea
                                                      counts[2] + 2 * (1 - time))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float", "int8"])
+@pytest.mark.parametrize("patches", [70, 196, 700])  # 701 keys: the 32-row tier
+def test_space_f32_kernel_matches_plain(cuda, mode, patches):
+    """space_f32_kernel (K5 and K4's space core on an fp32 qkv) against the
+    plain versions in fp32 (int8 under the int8 rule): a ragged second key
+    tile, FiT base's 197 keys and, past 680 keys, the 32-row tier; two
+    launches give the same bits."""
+    gen = torch.Generator().manual_seed(patches)
+    heads, frames = (2, 1) if patches > 600 else (4, 2)
+    scale, out_mul = 64 ** -0.5, 127.0 / 2.5
+    joint = (1.5 * torch.randn(2, 1 + frames * patches, 3 * heads * 64, generator=gen)).to(cuda)
+    if mode == "float":
+        groups = joint[:, 1:].reshape(2 * frames, patches, -1).contiguous()
+        gkv = joint[:, 0].repeat_interleave(frames, dim=0).contiguous()
+        before = A.fused_attention_qkv_gkv.launches
+        out = A.fused_attention_qkv_gkv(groups, gkv, heads, scale)
+        ref = A.attention_gkv_plain(groups, gkv, heads, scale)
+        assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
+        assert torch.equal(out, A.fused_attention_qkv_gkv(groups, gkv, heads, scale))
+        assert A.fused_attention_qkv_gkv.launches == before + 2
+    else:
+        out = A.fit_space_attention_int8(joint, heads, frames, out_mul)
+        _assert_int8_close(out[:, 1:], torch.round(A.fit_rows_attention_int8_plain(
+            joint, heads, frames, "space", out_mul)).clamp(-127, 127).to(torch.int8))
+        assert torch.equal(out, A.fit_space_attention_int8(joint, heads, frames, out_mul))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("frames", list(range(1, 17)))
+def test_time_rows_kernel_frame_tiers_match_plain(cuda, dtype, frames):
+    """time_rows_kernel at every frame count of its three register tiers
+    (F <= 4, 8, 16), in float mode (K6) and with int8 output (K4's time core)
+    on the same rows; 3 heads leave a lane group idle (bf16: 4 heads a warp;
+    fp32: 2 heads a warp, the second warp of a location half idle)."""
+    gen = torch.Generator().manual_seed(100 + frames)
+    heads, patches = 3, 7
+    scale, out_mul = 64 ** -0.5, 127.0 / 2.5
+    joint = (1.5 * torch.randn(2, 1 + frames * patches, 3 * heads * 64, generator=gen)).to(
+        cuda, dtype)
+    rows, gkv = joint[:, 1:].contiguous(), joint[:, 0].contiguous()
+    out = A.fused_time_attention(rows, gkv, heads, frames, scale)
+    ref = A.time_attention_plain(rows.float(), gkv.float(), heads, frames, scale)
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    assert torch.equal(out, A.fused_time_attention(rows, gkv, heads, frames, scale))
+    out = A.fit_time_attention_int8(joint, heads, frames, out_mul)
+    _assert_int8_close(out[:, 1:], torch.round(A.fit_rows_attention_int8_plain(
+        joint, heads, frames, "time", out_mul)).clamp(-127, 127).to(torch.int8))
+    assert torch.equal(out, A.fit_time_attention_int8(joint, heads, frames, out_mul))
+
+
 def _fit_operands(width, gen, device):
     """Random operands of one FiT block: the time half from one K1 layer's,
     the space half and the MLP (exact GELU) from another's."""
