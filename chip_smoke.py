@@ -6,6 +6,7 @@
     python3 chip_smoke.py --row-passes [DIR]    # the LayerNorm and amax kernels alone
     python3 chip_smoke.py --fp32-attention [DIR]  # the fp32 attention rows, encode and step
     python3 chip_smoke.py --fit-attention [DIR]   # FiT's attention rows and encodes
+    python3 chip_smoke.py --bench-arms [DIR]      # S2's s8 arms and slice-requant
 
 Drives seven paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -41,8 +42,15 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    full and causal with seq_valid, every shipped mode, and the backward there
    and at 1 x 900 on its global body); the bench kernels at the benches'
    production shapes: S1's LN, attention and fc-epilogue modes on 512 frames
-   x 197 x 768, S2's modes, amax pass and s8 attention on 512 x 197 x 2304,
-   slice-requant on 32 x 785 x 2304).
+   x 197 x 768, S2's modes, amax pass and s8 attention on 512 x 197 x 2304
+   (the s8 arms also at 8 x 257, past their 208 resident keys, and timed by
+   device time too), slice-requant on 32 x 785 x 2304 in bf16 and fp32, equal
+   to its plain version; a profile of one call each must show the s8 and
+   slice-requant bodies, attention_s8_mma_kernel and slice_requant_rows_kernel,
+   and no profile may show the kernels they replaced, attention_s8_kernel and
+   slice_requant_kernel). ``--bench-arms DIR`` runs those rows, the `bf16`
+   arm's device time and S2's and S3's slice cases alone for the package
+   under DIR (the parent's, say).
    int8 outputs may differ by one step on at most 0.1% of
    the elements; float outputs stay within atol/rtol 2e-2 of the plain version
    run in fp32, the stem's within one bf16 ulp on all but 0.1%; two launches of
@@ -287,18 +295,20 @@ DEVICE_BELOW_MS = 0.1
 COLD_BYTES = 3 * 50e6  # three times the H100's 50 MB L2
 
 
-def device_ms(fn, *args, iters: int = 20, graph: bool = False) -> float:
+def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = None) -> float:
     """fn(*args)'s device time per call: the summed device durations of what
     it launches (kernels and memsets), from torch.profiler, over at least
     ``iters`` calls. The calls rotate among copies of the tensor arguments
-    that together exceed COLD_BYTES, so that each call finds its inputs out of
-    L2, as the bound (HBM bytes) assumes. Where the profiler shows no device
-    time (or with ``graph``), the same calls are captured in a CUDA graph and
-    its replays timed with events."""
+    whose touched bytes together exceed COLD_BYTES, so that each call finds
+    its inputs out of L2, as the bound (HBM bytes) assumes; ``touched`` is the
+    bytes a call reads where that is less than its tensors' size (a slice of
+    each row). Where the profiler shows no device time (or with ``graph``),
+    the same calls are captured in a CUDA graph and its replays timed with
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    size = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
+    size = touched or sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
     copies = min(256, max(1, -(-int(COLD_BYTES) // max(size, 1))))
     sets = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
                      for _ in range(copies - 1)]
@@ -346,15 +356,15 @@ def device_ms(fn, *args, iters: int = 20, graph: bool = False) -> float:
 
 
 def timing(kernel_ms, plain_ms, library_ms, bound_pair, kernel=None, library=None,
-           device=False):
+           device=False, touched=None):
     """A row of the kernels' record. kernel and library are (fn, *args) of the
     kernel's wrapper and of the library call: where the kernel reads under
     DEVICE_BELOW_MS (or with ``device``), their device times are added as
-    device_ms and library_device_ms."""
+    device_ms and library_device_ms (``touched``: device_ms's)."""
     entry = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
              "bound_ms": bound_pair[0], "bound_by": bound_pair[1]}
     if kernel is not None and (device or kernel_ms < DEVICE_BELOW_MS):
-        entry["device_ms"] = device_ms(*kernel)
+        entry["device_ms"] = device_ms(*kernel, touched=touched)
         entry["library_device_ms"] = device_ms(*library) if library else None
     return entry
 
@@ -1345,7 +1355,8 @@ BENCH_KERNELS = {
 def bench_kernel_phase(torch, checks: KernelChecks):
     """Phase 3, the bench kernels at the benches' production shapes: S1's
     pieces on 512 frames x 197 x 768 (M = 100,864 rows), S2's on 512 x 197 x
-    2304 bf16, slice-requant on S3's 32 x 785 x 2304. Returns {name: timing}."""
+    2304 bf16 (its s8 attention also at 8 x 257), slice-requant on S3's 32 x
+    785 x 2304 in bf16 and fp32. Returns {name: timing}."""
     from fitclip_torch.bench import attn_int8 as S2
     from fitclip_torch.bench import kernels as P
     from fitclip_torch.ops import block as K
@@ -1420,7 +1431,7 @@ def bench_kernel_phase(torch, checks: KernelChecks):
                                                            "nomax", "cast") else 2),
                   core_ops, "bf16"))
 
-    # S2's amax pass and s8 attention.
+    # S2's amax pass, then its s8 attention and S3's slice-requant (s8_slice_rows).
     for block in (3, 2, 1):  # max is exact in any order: the plain version's bits
         scales, ref = P.attn_amax(qkv, block), P.attn_amax_plain(qkv, block)
         checks.float("attn_amax", f"{frames} x {seq} x {3 * w}, block {block}", scales, ref)
@@ -1433,33 +1444,93 @@ def bench_kernel_phase(torch, checks: KernelChecks):
         cuda_ms(lambda: vector_norm(parts)),
         bound(qkv_bytes + frames * 3 * 4, frames * seq * 3 * w, "fp32"),
         (P.attn_amax, qkv, 1), (vector_norm, parts), device=True)
-    half = core_ops // 2
-    v_step = float(scales[:, 2].max()) / 127.0
+    del parts
+    times.update(s8_slice_rows(torch, checks, qkv, scales))
+    del qkv
+    return times
+
+
+# bench_arms.cu's s8 attention and slice-requant bodies by their __global__
+# names, and the ones they replaced, which no profile may show.
+S8_BODY, SLICE_BODY = "attention_s8_mma_kernel", "slice_requant_rows_kernel"
+OLD_BENCH_ARMS = ("::attention_s8_kernel<", "::slice_requant_kernel<")
+
+
+def s8_slice_rows(torch, checks: KernelChecks, qkv, scales, strict: bool = True):
+    """Phase 3's rows of bench_arms.cu's s8 attention (S2's i8qk and i8qkav on
+    the 512 x 197 x 2304 qkv with its block-1 scales) and slice-requant (S3's
+    32 x 785 x 2304, bf16 and fp32), each held to its plain version, timed by
+    events and by device time (cold L2) beside its bound; both s8 arms also
+    held at 8 x 257 x 2304, past the 208 resident keys (the sweep). A profile
+    of one call each must show the kernels' bodies and none they replaced.
+    Slice-requant must equal its plain version; with strict False (another
+    tree's package, in --bench-arms) the equality, and the bodies the profile
+    shows, are recorded instead of required. Returns {name: timing}."""
+    from fitclip_torch.bench import attn_int8 as S2
+    from fitclip_torch.bench import kernels as P
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    frames, seq, w, heads = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, S2.HEADS
+    d = w // heads
+    core_ops = 4 * frames * heads * seq * seq * d
+    qkv_bytes = qkv.numel() * 2
+    times = {}
+    long_qkv = (0.7 * torch.randn(8, 257, 3 * w, generator=gen, device="cuda")).to(torch.bfloat16)
+    long_scales = P.attn_amax(long_qkv, 1)
     for name, av8 in (("attention_i8qk", False), ("attention_i8qkav", True)):
         wrapper = getattr(P, name)
-        out = wrapper(qkv, scales, heads, d ** -0.5)
-        ref = P.attention_s8_plain(qkv, heads, d ** -0.5, 1, av8).float()
-        if av8:
-            checks.s8(name, f"{frames} x {seq} x {3 * w}", out, ref, v_step)
-        else:
-            checks.float(name, f"{frames} x {seq} x {3 * w}", out, ref)
-        del out, ref
+        for what, x, sc in ((f"{frames} x {seq} x {3 * w}", qkv, scales),
+                            (f"8 x 257 x {3 * w} (sweep)", long_qkv, long_scales)):
+            out = wrapper(x, sc, heads, d ** -0.5)
+            ref = P.attention_s8_plain(x, heads, d ** -0.5, 1, av8).float()
+            if av8:
+                checks.s8(name, what, out, ref, float(sc[:, 2].max()) / 127.0)
+            else:
+                checks.float(name, what, out, ref)
+            del out, ref
         times[name] = timing(
             cuda_ms(lambda: wrapper(qkv, scales, heads, d ** -0.5), iters=5),
             cuda_ms(lambda: P.attention_s8_plain(qkv, heads, d ** -0.5, 1, av8), iters=3), None,
             bound(qkv_bytes + frames * 3 * 4 + frames * seq * w * 2,
-                  {"int8": core_ops} if av8 else {"int8": half, "bf16": half}))
-    del qkv, parts
+                  {"int8": core_ops} if av8 else {"int8": core_ops // 2, "bf16": core_ops // 2}),
+            (wrapper, qkv, scales, heads, d ** -0.5), device=True)
+    del long_qkv
 
-    # slice-requant on S3's joint qkv.
-    clips, n = 32, 785
+    # slice-requant on S3's joint qkv, bf16 and fp32: the same fp32 product,
+    # rounded half to even, as the plain version.
+    clips, n, inv = 32, 785, 127.0 / 4.0
     joint = torch.randn(clips, n, 3 * w, generator=gen, device="cuda").to(torch.bfloat16)
-    checks.int8("slice_requant", f"{clips} x {n} x {3 * w}", P.slice_requant(joint, inv),
-                P.slice_requant_plain(joint, inv))
-    times["slice_requant"] = timing(
-        cuda_ms(lambda: P.slice_requant(joint, inv)),
-        cuda_ms(lambda: P.slice_requant_plain(joint, inv)), None,
-        bound(clips * n * w * 3, clips * n * w * 2, "fp32"), (P.slice_requant, joint, inv))
+    for dtype, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+        joint = joint.to(dtype)
+        what = f"{clips} x {n} x {3 * w} {str(dtype)[6:]}"
+        out, ref = P.slice_requant(joint, inv), P.slice_requant_plain(joint, inv)
+        checks.int8("slice_requant", what, out, ref)
+        equal = bool(torch.equal(out, ref))
+        print(f"  slice_requant {what}: {'equal' if equal else 'NOT equal'} to the plain version")
+        require(equal or not strict, f"slice_requant {what}: not equal to the plain version")
+        moved = clips * n * w * (size + 1)  # W of each row's 3W read, W bytes written
+        entry = dict(timing(
+            cuda_ms(lambda: P.slice_requant(joint, inv)),
+            cuda_ms(lambda: P.slice_requant_plain(joint, inv)), None,
+            bound(moved, clips * n * w * 2, "fp32"),
+            (P.slice_requant, joint, inv), device=True, touched=moved), shape=what, equal=equal)
+        if dtype == torch.bfloat16:
+            times["slice_requant"] = entry
+        else:
+            times["slice_requant"]["fp32"] = entry
+            print_row("slice_requant", entry)
+        del out, ref
+    per_kernel, _ = profile_ms(torch, lambda: (P.attention_i8qk(qkv, scales, heads, d ** -0.5),
+                                               P.attention_i8qkav(qkv, scales, heads, d ** -0.5),
+                                               P.slice_requant(joint, inv)), calls=1)
+    shown = sorted({k[:60] for k in per_kernel if "s8" in k or "slice" in k})
+    print(f"  bench_arms.cu bodies in a profile of one call each: {shown}")
+    if strict:
+        for body in (S8_BODY, SLICE_BODY):
+            require(any(body in k for k in per_kernel), f"the profile shows no {body}")
+        old = [k for k in per_kernel if any(name in k for name in OLD_BENCH_ARMS)]
+        require(not old, f"the profile shows a replaced kernel: {old}")
+    del joint
     return times
 
 
@@ -2159,7 +2230,7 @@ def print_profile(torch, what, fn, top=10, mma=None, kernels=()):
         require(not slow, f"{what}: a bf16 path ran a CUDA-core attention body: {slow}")
     old = [k for k in per_kernel
            if any(name in k for name in (*OLD_GEMMS, *OLD_ROW_PASSES, *OLD_F32_ATTENTION,
-                                         *OLD_FIT_ATTENTION))]
+                                         *OLD_FIT_ATTENTION, *OLD_BENCH_ARMS))]
     require(not old, f"{what}: the profile shows a replaced kernel: {old}")
 
 
@@ -2724,6 +2795,59 @@ def row_passes_only(torch, package: Path) -> int:
     return 0
 
 
+def bench_arms_only(torch, package: Path) -> int:
+    """``--bench-arms [DIR]``: bench_arms.cu's s8 attention and slice-requant
+    alone for the fitclip_torch package under DIR (default: this checkout), so
+    that two trees' kernels are timed by the same code in one run: phase 3's
+    rows of both s8 arms (512 x 197 x 2304, block 1, held at 8 x 257 too) and
+    of slice-requant (32 x 785 x 2304, bf16 and fp32), by events and device
+    time (cold L2) beside their bounds (s8_slice_rows, its equality and body
+    checks recorded, not required); the `bf16` arm (K3f's qkv mode,
+    attention_mma_kernel) at 512 x 197 x 2304 by device time, the s8 arms'
+    yardstick; S2's default cases through fitclip_torch.bench.attn_int8.run
+    (ms, tflops, min_cosine_vs_fp32) and S3's slice arms (`noattn`, `notime`,
+    `nospace`, `nocls`, beside `full`) through bench/fit_block.py. Prints one
+    JSON line of the readings with the card and its clocks."""
+    sys.path.insert(0, str(package))
+    from fitclip_torch import _build
+    from fitclip_torch.bench import attn_int8 as S2
+    from fitclip_torch.bench import fit_block as S3
+    from fitclip_torch.bench import kernels as P
+    from fitclip_torch.ops import attention as A
+
+    print(f"bench arms of {package}; device: {torch.cuda.get_device_name(0)}; "
+          f"nvidia-smi: {nvidia_smi()}; clocks {clocks()}")
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s")
+    torch.set_grad_enabled(False)
+    checks = KernelChecks()
+    qkv = S2.make_qkv(S2.FRAMES)
+    scales = P.attn_amax(qkv, 1)
+    rows = s8_slice_rows(torch, checks, qkv, scales, strict=False)
+    scale = (S2.WIDTH // S2.HEADS) ** -0.5
+    checks.float("bf16 arm", f"{S2.FRAMES} x {S2.SEQ} x {3 * S2.WIDTH}",
+                 A.fused_attention_qkv(qkv, S2.HEADS, scale),
+                 A.attention_core_plain(qkv, S2.HEADS, scale, False).float())
+    rows["bf16_arm"] = {"shape": f"{S2.FRAMES} x {S2.SEQ} x {3 * S2.WIDTH}, qkv mode",
+                        "kernel": "attention_mma_kernel",
+                        "device_ms": device_ms(A.fused_attention_qkv, qkv, S2.HEADS, scale)}
+    del qkv, scales
+    for name, entry in rows.items():
+        if name == "bf16_arm":
+            print(f"  bf16 arm at {entry['shape']}: device {entry['device_ms']:.4f} ms")
+        else:
+            print_row(name, entry)
+    print(f"clocks (benches): {clocks()}")
+    s2 = list(S2.run(S2.DEFAULT_CASES))
+    s3 = list(S3.run("full,noattn,notime,nospace,nocls"))
+    for record in s2 + s3:
+        print(f"  {json.dumps(record)}")
+    print(json.dumps({"bench_arms": rows, "s2": s2, "s3": s3, "package": str(package),
+                      "card": nvidia_smi(), "clocks": clocks()}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2732,7 +2856,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 1
     alone = {"--train-steps": train_steps_only, "--row-passes": row_passes_only,
-             "--fp32-attention": fp32_attention_only, "--fit-attention": fit_attention_only}
+             "--fp32-attention": fp32_attention_only, "--fit-attention": fit_attention_only,
+             "--bench-arms": bench_arms_only}
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -2946,7 +3071,8 @@ def main() -> int:
               **{name: BF16_GEMM for name in K2_LAUNCHES_PER_LAYER if name.startswith("bf16_gemm")},
               **{name: LN_KERNEL for name in ("ln_quant", "ln_cast", "ln_quant_one",
                                               "ln_quant_fold", "ln_quant_cast")},
-              "attn_amax": "amax_rows_kernel"}
+              "attn_amax": "amax_rows_kernel", "attention_i8qk": S8_BODY,
+              "attention_i8qkav": S8_BODY, "slice_requant": SLICE_BODY}
     record = [{"name": name, "route": "cuda",
                "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",
                "replaces": replaces.get(name, "fitclip_tpu/ops/block.py:137"),

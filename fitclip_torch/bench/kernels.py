@@ -388,7 +388,8 @@ def _attention_s8(av8: bool, doc: str):
 _S2_S8 = ("scales from attn_amax. Replaces the `{}` mode of "
           "scripts/bench_attn_int8.py:_variant_kernel")
 attention_i8qk = _attention_s8(False, "int8 q and k, QK^T on s8 mma.sync.m16n8k32, fp32 "
-                                      "softmax, bf16 weights, P.V in fp32 -> bf16; "
+                                      "softmax, bf16 weights, P.V on bf16 mma.sync in fp32 "
+                                      "-> bf16; "
                                       + _S2_S8.format("i8qk") + ".")
 attention_i8qkav = _attention_s8(True, "as attention_i8qk, with weights rint(w * 127) and v "
                                        "int8, P.V also on s8 mma.sync -> bf16; "

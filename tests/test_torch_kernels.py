@@ -1394,6 +1394,58 @@ def test_s8_attention_matches_plain(cuda, av8, block):
         torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
 
 
+# The longest L the s8 kernel replaced (bench_arms.cu:attention_s8_kernel, a
+# shared row buffer of 64 rows of fp32 logits) fitted in a block: 488 keys for
+# i8qk, 480 for i8qkav. The register-resident kernel takes at least those.
+S8_LONGEST_OLD = {False: 488, True: 480}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("av8", [False, True])
+@pytest.mark.parametrize("seq", [17, 197, 257, "longest"])
+@pytest.mark.parametrize("block", [1, 2])
+def test_s8_attention_lengths_match_plain(cuda, av8, seq, block):
+    """Both s8 arms from one 16-key tile (17) through the register-resident
+    tier (197) to the sweep (257 and the longest length the old kernel took),
+    per block of 1 and 2 frames, 3 frames (no multiple of 2), 4 heads."""
+    from fitclip_torch.bench import kernels as P
+
+    seq = S8_LONGEST_OLD[av8] if seq == "longest" else seq
+    gen = torch.Generator().manual_seed(27)
+    heads = 4
+    qkv = (0.7 * torch.randn(3, seq, 3 * heads * 64, generator=gen)).to(cuda, torch.bfloat16)
+    wrapper = P.attention_i8qkav if av8 else P.attention_i8qk
+    out = wrapper(qkv, P.attn_amax(qkv, block), heads, 0.125, block)
+    ref = P.attention_s8_plain(qkv, heads, 0.125, block, av8).float()
+    if av8:
+        _assert_s8_close(out, ref, P.attn_amax_plain(qkv, block)[:, 2].max())
+    else:
+        torch.testing.assert_close(out.float(), ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width,row0,rows", [(768, 0, None), (768, 5, 1), (768, 100, 37),
+                                             (101, 0, None), (101, 3, 20), (12, 1, 2)])
+def test_slice_requant_rows_equal_plain(cuda, dtype, width, row0, rows):
+    """slice_requant_rows_kernel: every row of a subset equal to the plain
+    version (the same fp32 product, rounded half to even), the rows outside
+    it untouched; widths that are no multiple of 8 (some rows then start off
+    16 bytes and take the scalar loop, all take a scalar tail)."""
+    from fitclip_torch.bench import kernels as P
+
+    gen = torch.Generator().manual_seed(28)
+    qkv = (3 * torch.randn(3, 157, 3 * width, generator=gen)).to(cuda, dtype)
+    rows = 157 - row0 if rows is None else rows
+    before = P.slice_requant.launches
+    out = P.slice_requant(qkv, 127.0 / 4.0, torch.full((3, 157, width), 7, dtype=torch.int8,
+                                                       device=cuda), row0, rows)
+    assert P.slice_requant.launches == before + 1
+    sub = slice(row0, row0 + rows)
+    assert torch.equal(out[:, sub], P.slice_requant_plain(qkv[:, sub], 127.0 / 4.0))
+    assert bool((out[:, :row0] == 7).all()) and bool((out[:, row0 + rows:] == 7).all())
+
+
 def _assert_s8_close(kernel_out, plain_out, v_amax):
     """The float rule, with i8qkav's int8 weights under the int8 rule: a weight
     rint(w * 127) may round the other way (the softmax sums in another order),
