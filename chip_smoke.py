@@ -7,6 +7,7 @@
     python3 chip_smoke.py --fp32-attention [DIR]  # the fp32 attention rows, encode and step
     python3 chip_smoke.py --fit-attention [DIR]   # FiT's attention rows and encodes
     python3 chip_smoke.py --bench-arms [DIR]      # S2's s8 arms and slice-requant
+    python3 chip_smoke.py --stem-cls [DIR]        # the S3D-G stem, K4's CLS row, their encodes
 
 Drives seven paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -28,10 +29,12 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    also on the qkv in fp32), K5 on 128 frame groups of 196 rows and K6 on 32 x
    784 x 2304, each in bf16 and fp32, all timed by device time too, and the
    time kernel's frame tiers at F = 1, 8 and 16 (8 clips of F x 196 rows,
-   bf16, fp32 and int8 out); the S3D-G stem, K7, on 32 clips x
-   16 frames of 224^2; the float layer's kernels, K2, at 32 x 197 x 768 with its
-   GEMMs at M = 6304 and (N, K) = (2304, 768), (768, 768), (3072, 768),
-   (768, 3072), its attention also at 8 x 77 causal; K8 at 32 x 197 x 768;
+   bf16, fp32 and int8 out), K4's CLS row (cls_rows_kernel) on the joint qkv
+   in bf16 and fp32; the S3D-G stem, K7 (s3dg_stem_wgmma_kernel), on 32 clips x
+   16 frames of 224^2, timed by events and by its own device time; the
+   float layer's kernels, K2, at 32 x 197 x 768 with its GEMMs at M = 6304
+   and (N, K) = (2304, 768), (768, 768), (3072, 768), (768, 3072), its
+   attention also at 8 x 77 causal; K8 at 32 x 197 x 768;
    the fp32 attention (the register-tiled kernels) in its three forward modes
    at one vision layer of the fp32 encode and step (128 x 197 x 2304), at 32
    frames, at the encode's text batch (256 x 77 x 1536 causal) and at L = 577,
@@ -76,9 +79,10 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    bodies (attention_mma_kernel, space_mma_kernel) by kernel name, and no
    CUDA-core attention body (attention_f32_kernel, space_f32_kernel and the
    replaced space_kernel_f32): every bf16 attention runs on the tensor cores;
-   the FiT profiles require the time kernel (time_rows_kernel) and no profile
-   may show the kernels it and space_f32_kernel replaced (time_kernel,
-   space_kernel_f32); the int8 and K2 paths' profiles
+   the FiT profiles require the time kernel (time_rows_kernel), the int8 one
+   the CLS kernel (cls_rows_kernel), and no profile may show the kernels they
+   and space_f32_kernel replaced (time_kernel, cls_kernel, space_kernel_f32),
+   nor the replaced stem kernel (s3dg_stem_kernel); the int8 and K2 paths' profiles
    require the wgmma GEMM kernels (int8_gemm_wgmma_kernel,
    bf16_gemm_wgmma_kernel), and no profile may show the mma.sync GEMM kernels
    they replaced (int8_gemm_kernel, bf16_gemm_kernel), nor the CUDA-core fp32
@@ -145,8 +149,12 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
    encode, none for text. Gates, min-row cosine over the video embeddings: (i)
    each kernel path against the plain versions on the card > 0.999, (ii)
    MIL-NCE int8 against bf16 > 0.99; finite text embeddings; mean row norms.
-   Timings: clips/s, videos/s, text rows/s, peak memory, and a profiler table
-   of the bf16 MIL-NCE encode by kernel with the device's busy share;
+   Timings: clips/s, videos/s, text rows/s, peak memory, and profiler tables
+   of the bf16 MIL-NCE and VideoCLIP encodes by kernel with the device's busy
+   share, each requiring the stem kernel (s3dg_stem_wgmma_kernel).
+   ``--stem-cls DIR`` runs phase 3's stem and CLS rows (bf16 and fp32 qkv, by
+   device time) and the MIL-NCE bf16 and int8, VideoCLIP and FiT int8 encodes
+   alone for the package under DIR (the parent's, say);
 9. the float layer and SLIP (run after phase 5, on phase 4's inputs):
    (a) CLIP ViT-B/16 bf16 loaded with fused_block=True: K2's seven launches
        per layer on 12 layers of each tower and nothing else; gates, min-row
@@ -295,11 +303,14 @@ DEVICE_BELOW_MS = 0.1
 COLD_BYTES = 3 * 50e6  # three times the H100's 50 MB L2
 
 
-def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = None) -> float:
+def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = None,
+              only: str = None) -> float:
     """fn(*args)'s device time per call: the summed device durations of what
     it launches (kernels and memsets), from torch.profiler, over at least
-    ``iters`` calls. The calls rotate among copies of the tensor arguments
-    whose touched bytes together exceed COLD_BYTES, so that each call finds
+    ``iters`` calls (with ``only``, of the kernels whose name holds it: a
+    wrapper's kernel without the operand packing some trees do per call).
+    The calls rotate among copies of the tensor arguments whose touched
+    bytes together exceed COLD_BYTES, so that each call finds
     its inputs out of L2, as the bound (HBM bytes) assumes; ``touched`` is the
     bytes a call reads where that is less than its tensors' size (a slice of
     each row). Where the profiler shows no device time (or with ``graph``),
@@ -323,7 +334,8 @@ def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = No
             torch.cuda.synchronize()
         total_us, launches = 0.0, 0
         for event in prof.key_averages():
-            if str(getattr(event, "device_type", "")).endswith("CUDA"):
+            if str(getattr(event, "device_type", "")).endswith("CUDA") and (
+                    only is None or only in event.key):
                 us = getattr(event, "self_device_time_total", None)
                 total_us += event.self_cuda_time_total if us is None else us
                 launches += event.count
@@ -331,6 +343,7 @@ def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = No
         # calls means the profiler lost events.
         if total_us > 0 and launches % calls == 0:
             return total_us / 1e3 / calls
+        require(only is None, f"device_ms: the profiler lost events of {only}")
         print(f"  device_ms: the profiler shows {launches} device events for {calls} calls of "
               f"{getattr(fn, '__name__', fn)}; timing a CUDA graph of the calls")
     side = torch.cuda.Stream()
@@ -356,15 +369,15 @@ def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = No
 
 
 def timing(kernel_ms, plain_ms, library_ms, bound_pair, kernel=None, library=None,
-           device=False, touched=None):
+           device=False, touched=None, only=None):
     """A row of the kernels' record. kernel and library are (fn, *args) of the
     kernel's wrapper and of the library call: where the kernel reads under
     DEVICE_BELOW_MS (or with ``device``), their device times are added as
-    device_ms and library_device_ms (``touched``: device_ms's)."""
+    device_ms and library_device_ms (``touched``, ``only``: device_ms's)."""
     entry = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
              "bound_ms": bound_pair[0], "bound_by": bound_pair[1]}
     if kernel is not None and (device or kernel_ms < DEVICE_BELOW_MS):
-        entry["device_ms"] = device_ms(*kernel, touched=touched)
+        entry["device_ms"] = device_ms(*kernel, touched=touched, only=only)
         entry["library_device_ms"] = device_ms(*library) if library else None
     return entry
 
@@ -952,7 +965,11 @@ def ln_kernel_phase(torch, checks: KernelChecks):
 # replaced, which no profile may show.
 SPACE_F32 = "space_f32_kernel"
 TIME_ROWS = "time_rows_kernel"
-OLD_FIT_ATTENTION = ("::space_kernel_f32<", "::time_kernel<")
+CLS_ROWS = "cls_rows_kernel"
+OLD_FIT_ATTENTION = ("::space_kernel_f32<", "::time_kernel<", "::cls_kernel<")
+# The S3D-G stem's __global__ body (csrc/s3dg_stem.cu) and the one it replaced.
+STEM_BODY = "s3dg_stem_wgmma_kernel"
+OLD_STEM = ("::s3dg_stem_kernel<",)
 
 
 def fit_kernel_phase(torch, checks: KernelChecks, A):
@@ -1000,14 +1017,7 @@ def fit_kernel_phase(torch, checks: KernelChecks, A):
     qkv = normal(b, n, 3 * w)
     rows_in = b * n * 3 * w * 2
     what = f"{b} x {n} x {3 * w} bf16"
-    out = twice("fit_cls_attention_int8", what, lambda: A.fit_cls_attention_int8(qkv, heads,
-                                                                                   out_mul))
-    checks.int8("fit_cls_attention_int8", what, out[:, :1],
-                quantize_rint(A.cls_attention_plain(qkv, heads, scale, out_mul)))
-    times["fit_cls_attention_int8"] = row(
-        A.fit_cls_attention_int8, (qkv, heads, out_mul, out),
-        lambda: A.cls_attention_plain(qkv, heads, scale, out_mul), None,
-        bound(b * (w + n * 2 * w) * 2 + b * w, 4 * b * heads * n * d, "bf16"))
+    times["fit_cls_attention_int8"] = cls_row(torch, checks, A, qkv)
     for mode, keys in (("time", f + 1), ("space", p + 1)):
         name = f"fit_{mode}_attention_int8"
         wrapper = getattr(A, name)
@@ -1019,8 +1029,11 @@ def fit_kernel_phase(torch, checks: KernelChecks, A):
             lambda: A.fit_rows_attention_int8_plain(qkv, heads, f, mode, out_mul), None,
             bound(rows_in + b * (n - 1) * w, 4 * b * f * p * heads * keys * d, "bf16"),
             kernel=TIME_ROWS if mode == "time" else "space_mma_kernel")
-    # K4's space core on an fp32 qkv (the fp32 space kernel's int8 mode), checked only.
+    # K4's CLS row on an fp32 qkv (timed), and its space core (the fp32 space
+    # kernel's int8 mode), checked only.
     qkv = qkv.float()
+    times["fit_cls_attention_int8"]["fp32"] = cls_row(torch, checks, A, qkv)
+    print_row("fit_cls_attention_int8", times["fit_cls_attention_int8"]["fp32"])
     what = f"{b} x {n} x {3 * w} fp32"
     out = twice("fit_space_attention_int8", what,
                 lambda: A.fit_space_attention_int8(qkv, heads, f, out_mul))
@@ -1109,32 +1122,70 @@ def fit_kernel_phase(torch, checks: KernelChecks, A):
     return times
 
 
-def s3dg_kernel_phase(torch, checks: KernelChecks):
+def cls_row(torch, checks: KernelChecks, A, qkv):
+    """K4's CLS row (fit_cls_attention_int8, cls_rows_kernel) on the joint FiT
+    base qkv (bf16 or fp32) of the package ``A`` belongs to: held to its plain
+    version under the int8 rule, two launches bit-identical, and timed by
+    events and device time (cold L2) beside its plain version and bound (no
+    library call writes int8). Returns its timing() row."""
+    from fitclip_torch.ops.quant import quantize_rint
+
+    b, n, triple = qkv.shape
+    w, heads = triple // 3, FIT["heads"]
+    d, size = w // heads, qkv.element_size()
+    scale, out_mul = d ** -0.5, 127.0 / 2.5
+    what = f"{b} x {n} x {triple} {'bf16' if size == 2 else 'fp32'}"
+    out = A.fit_cls_attention_int8(qkv, heads, out_mul)
+    require(torch.equal(out, A.fit_cls_attention_int8(qkv, heads, out_mul)),
+            f"fit_cls_attention_int8 {what}: two launches differ")
+    print(f"  fit_cls_attention_int8 {what}: two launches bit-identical")
+    checks.int8("fit_cls_attention_int8", what, out[:, :1],
+                quantize_rint(A.cls_attention_plain(qkv, heads, scale, out_mul)))
+    entry = timing(cuda_ms(lambda: A.fit_cls_attention_int8(qkv, heads, out_mul, out)),
+                   cuda_ms(lambda: A.cls_attention_plain(qkv, heads, scale, out_mul)), None,
+                   bound(b * (w + n * 2 * w) * size + b * w, 4 * b * heads * n * d,
+                         "bf16" if size == 2 else "fp32"),
+                   (A.fit_cls_attention_int8, qkv, heads, out_mul, out), device=True)
+    return dict(entry, shape=what, kernel=CLS_ROWS)
+
+
+def s3dg_kernel_phase(torch, checks: KernelChecks, S=None):
     """Phase 3, S3D-G: the stem kernel (K7) against its plain version at the MIL-NCE
     shape, 32 clips x 16 frames of 224^2 bf16, launched twice for bit-identity.
-    Returns {name: timing(...)}; no single PyTorch call computes conv + ReLU + pool,
-    so the library time is null (cuDNN's bf16 conv3d alone is printed beside it)."""
+    Returns {name: timing(...)}, timed by events and by the stem kernel's own
+    device time (the 154 MB input exceeds L2); no single PyTorch call computes
+    conv + ReLU + pool, so the library time is null (cuDNN's bf16 conv3d alone
+    is printed beside it). ``S`` is the ops.s3dg_stem module to run (another
+    tree's in --stem-cls); the weights are packed once where it can keep them."""
     import torch.nn.functional as F
 
-    from fitclip_torch.ops import s3dg_stem as S
+    if S is None:
+        from fitclip_torch.ops import s3dg_stem as S
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     b, t, size = MIL_NCE["clips"], MIL_NCE["frames"], MIL_NCE["size"]
     x = torch.rand(b, t, size, size, 3, generator=gen, device="cuda").to(torch.bfloat16)
     kernel = (0.05 * torch.randn(2, 4, 4, 24, 64, generator=gen, device="cuda")).to(torch.bfloat16)
     bias = (0.1 * torch.randn(64, generator=gen, device="cuda")).to(torch.bfloat16)
+    kept = {"packed": S.stem_operands(kernel, bias)} if hasattr(S, "stem_operands") else {}
+
+    def stem(x, kernel, bias):
+        return S.s3dg_stem(x, kernel, bias, **kept)
+
     what = f"{b} x {t} x {size}^2 bf16"
-    out = S.s3dg_stem(x, kernel, bias)
-    require(torch.equal(out, S.s3dg_stem(x, kernel, bias)), f"s3dg_stem {what}: two launches differ")
+    out = stem(x, kernel, bias)
+    require(torch.equal(out, stem(x, kernel, bias)), f"s3dg_stem {what}: two launches differ")
     print(f"  s3dg_stem {what}: two launches bit-identical")
     checks.bf16_ulp("s3dg_stem", what, out, S.s3dg_stem_plain(x.float(), kernel, bias))
     del out
     positions = b * (t // 2) * (size // 2) ** 2
     times = {"s3dg_stem": timing(
-        cuda_ms(lambda: S.s3dg_stem(x, kernel, bias)),
+        cuda_ms(lambda: stem(x, kernel, bias)),
         cuda_ms(lambda: S.s3dg_stem_plain(x, kernel, bias), iters=5), None,
         bound(x.numel() * 2 + positions // 4 * 64 * 2 + 768 * 64 * 2 + 64 * 4,
-              2 * positions * 768 * 64, "bf16"))}
+              2 * positions * 768 * 64, "bf16"),
+        (stem, x, kernel, bias), device=True, only="s3dg_stem")}
+    times["s3dg_stem"].update(shape=what, kernel=STEM_BODY)
     s = S.space_to_depth(x).contiguous().permute(0, 4, 1, 2, 3)
     weight = kernel.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
     conv_ms = cuda_ms(lambda: F.conv3d(s, weight, padding=(1, 2, 2)), iters=10)
@@ -2214,7 +2265,7 @@ def print_profile(torch, what, fn, top=10, mma=None, kernels=()):
     tensor-core attention bodies ran and no CUDA-core attention body did; with
     kernels, that those kernels (GEMM, LayerNorm, FiT's time and fp32 space)
     ran, each with its share. No profile may show a replaced GEMM, LayerNorm,
-    amax or attention kernel."""
+    amax, attention or stem kernel."""
     per_kernel, busy = profile_ms(torch, fn)
     total = sum(per_kernel.values())
     print(f"{what} profile, device {total:.3f} ms per call, busy share {busy:.3f} of the host "
@@ -2230,7 +2281,7 @@ def print_profile(torch, what, fn, top=10, mma=None, kernels=()):
         require(not slow, f"{what}: a bf16 path ran a CUDA-core attention body: {slow}")
     old = [k for k in per_kernel
            if any(name in k for name in (*OLD_GEMMS, *OLD_ROW_PASSES, *OLD_F32_ATTENTION,
-                                         *OLD_FIT_ATTENTION, *OLD_BENCH_ARMS))]
+                                         *OLD_FIT_ATTENTION, *OLD_BENCH_ARMS, *OLD_STEM))]
     require(not old, f"{what}: the profile shows a replaced kernel: {old}")
 
 
@@ -2334,7 +2385,7 @@ def fit_phase(torch, wrappers):
           f"{timings['text_ms']:.3f} ms, {256e3 / timings['text_ms']:.1f} rows/s")
 
     print_profile(torch, "fit: int8 encode_video", lambda: int8_enc.encode_video(video), top=12,
-                  mma=("space_mma_kernel",), kernels=(INT8_GEMM, LN_KERNEL, TIME_ROWS))
+                  mma=("space_mma_kernel",), kernels=(INT8_GEMM, LN_KERNEL, TIME_ROWS, CLS_ROWS))
     print_profile(torch, "fit: bf16 encode_video", lambda: bf16_enc.encode_video(video), top=6,
                   mma=("space_mma_kernel",), kernels=(TIME_ROWS,))
     return paths, timings
@@ -2528,7 +2579,9 @@ def s3dg_phase(torch, wrappers):
           f"{v['text_rows'] * 1e3 / timings['videoclip_text_ms']:.1f} rows/s")
 
     print_profile(torch, "s3dg: MIL-NCE bf16 encode_video", lambda: bf16_enc.encode_video(video),
-                  top=15)
+                  top=15, kernels=(STEM_BODY,))
+    print_profile(torch, "s3dg: VideoCLIP bf16 encode_video",
+                  lambda: vc_enc.encode_video(vc_video), top=8, kernels=(STEM_BODY,))
     return paths, timings
 
 
@@ -2848,6 +2901,105 @@ def bench_arms_only(torch, package: Path) -> int:
     return 0
 
 
+def stem_cls_only(torch, package: Path) -> int:
+    """``--stem-cls [DIR]``: the S3D-G stem (K7) and K4's CLS row alone for the
+    fitclip_torch package under DIR (default: this checkout), so that two
+    trees' kernels are timed by the same code in one run: phase 3's stem row
+    (32 clips x 16 frames of 224^2; events, and the stem kernel's own device
+    time) and the CLS rows on FiT base's joint 32 x 785 x 2304 qkv in bf16 and
+    fp32 (events and device time, cold L2), each held to its plain version
+    (recorded); then the MIL-NCE bf16 and int8 encodes (32 clips x 16 frames;
+    int8 calibrated on 8 clips), VideoCLIP's (8 videos x 32 frames) and FiT
+    base int8's (32 clips x 4 frames, calibrated on 8): the median, min and
+    max of 5 CUDA-event readings of 10 calls each (and each reading), the
+    host's time to issue one call on an idle card before each reading, and
+    the kernels' device ms per call and busy share from a profile of 3 calls.
+    Prints one JSON line of the readings with the card and its clocks."""
+    sys.path.insert(0, str(package))
+    from fitclip_torch import _build
+    from fitclip_torch.models.frozen_in_time.load import load_frozen_in_time_encoder
+    from fitclip_torch.models.mil_nce import load_mil_nce_encoder
+    from fitclip_torch.models.videoclip import load_videoclip_encoder
+    from fitclip_torch.ops import attention as A
+    from fitclip_torch.ops import s3dg_stem as S
+
+    print(f"stem and CLS of {package}; device: {torch.cuda.get_device_name(0)}; "
+          f"nvidia-smi: {nvidia_smi()}; clocks {clocks()}")
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s")
+    torch.set_grad_enabled(False)
+    checks = KernelChecks()
+    rows = s3dg_kernel_phase(torch, checks, S)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    qkv = (1.5 * torch.randn(FIT["clips"], 1 + FIT["frames"] * FIT["patches"], 3 * FIT["width"],
+                             generator=gen, device="cuda")).to(torch.bfloat16)
+    rows["fit_cls_attention_int8"] = cls_row(torch, checks, A, qkv)
+    rows["fit_cls_attention_int8"]["fp32"] = cls_row(torch, checks, A, qkv.float())
+    del qkv
+    for name, entry in rows.items():
+        # The rows name no kernel: the tree under DIR may run another one.
+        entry.pop("kernel", None)
+        entry.get("fp32", {}).pop("kernel", None)
+        print_row(name, entry)
+        if "fp32" in entry:
+            print_row(name, entry["fp32"])
+    print(f"  largest error against the plain versions: {checks.max_abs_err}")
+    torch.cuda.empty_cache()
+    print(f"clocks (encodes): {clocks()}")
+    encode = {}
+    m, v = MIL_NCE, VIDEOCLIP
+
+    def host_ms(fn):
+        """The host's time to issue one call on an idle card (the least of 3):
+        where it reaches the device time, the host paces the calls."""
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - start) * 1e3)
+        torch.cuda.synchronize()
+        return min(times)
+
+    def reading(fn, items):
+        runs, hosts = [], []
+        for _ in range(5):
+            hosts.append(host_ms(fn))
+            runs.append(cuda_ms(fn, iters=10))
+        ms = sorted(runs)[2]
+        kernels, busy = profile_ms(torch, fn)
+        return {"ms": ms, "ms_min": min(runs), "ms_max": max(runs), "per_s": items * 1e3 / ms,
+                "device_ms": sum(kernels.values()), "busy": busy, "runs": runs,
+                "host_ms": hosts}
+
+    def uint8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+
+    video, vc_video = (uint8(m["clips"], m["frames"], m["size"], m["size"], 3),
+                       uint8(v["videos"], v["frames"], m["size"], m["size"], 3))
+    for dtype in ("bfloat16", "int8"):
+        enc = load_mil_nce_encoder(dtype=dtype, device="cuda", seed=0).encoder
+        if dtype == "int8":
+            enc.calibrate(video[:m["calib"]])
+        encode[f"mil_nce_{dtype}"] = reading(lambda: enc.encode_video(video), m["clips"])
+        del enc
+    enc = load_videoclip_encoder(dtype="bfloat16", device="cuda", seed=0).encoder
+    encode["videoclip_bfloat16"] = reading(lambda: enc.encode_video(vc_video), v["videos"])
+    del enc, video, vc_video
+    torch.cuda.empty_cache()
+    clips = fit_video(torch, FIT["clips"])
+    enc = load_frozen_in_time_encoder(dtype="int8", device="cuda", seed=0).encoder
+    enc.calibrate(clips[:8])
+    encode["fit_int8"] = reading(lambda: enc.encode_video(clips), FIT["clips"])
+    del enc
+    for name, entry in encode.items():
+        print(f"  {name} encode_video: {json.dumps(entry)}")
+    print(json.dumps({"stem_cls": rows, "encode": encode, "package": str(package),
+                      "card": nvidia_smi(), "clocks": clocks()}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2857,7 +3009,7 @@ def main() -> int:
         return 1
     alone = {"--train-steps": train_steps_only, "--row-passes": row_passes_only,
              "--fp32-attention": fp32_attention_only, "--fit-attention": fit_attention_only,
-             "--bench-arms": bench_arms_only}
+             "--bench-arms": bench_arms_only, "--stem-cls": stem_cls_only}
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3072,7 +3224,8 @@ def main() -> int:
               **{name: LN_KERNEL for name in ("ln_quant", "ln_cast", "ln_quant_one",
                                               "ln_quant_fold", "ln_quant_cast")},
               "attn_amax": "amax_rows_kernel", "attention_i8qk": S8_BODY,
-              "attention_i8qkav": S8_BODY, "slice_requant": SLICE_BODY}
+              "attention_i8qkav": S8_BODY, "slice_requant": SLICE_BODY,
+              "s3dg_stem": STEM_BODY, "fit_cls_attention_int8": CLS_ROWS}
     record = [{"name": name, "route": "cuda",
                "source": f"fitclip_torch/csrc/{sources.get(name, 'int8_gemm.cu')}",
                "replaces": replaces.get(name, "fitclip_tpu/ops/block.py:137"),

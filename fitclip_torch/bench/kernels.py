@@ -324,11 +324,13 @@ def attn_amax(qkv: torch.Tensor, block: int) -> torch.Tensor:
 
 def s8_operands_plain(qkv: torch.Tensor, block: int):
     """S2's int8 operands: q, k and v as rint(x * (127 / amax)) clipped to
-    +-127, int8 (frames, L, W) each, with their per-frame amax (frames, 3)."""
+    +-127, int8 (frames, L, W) each, with their per-frame amax (frames, 3).
+    127 / amax is one fp32 division, as the script and the kernel take it
+    (``127.0 / amax`` would be reciprocal(amax) * 127, two roundings)."""
     frames, _, triple = qkv.shape
     width = triple // 3
     amax = attn_amax_plain(qkv, block).repeat_interleave(block, dim=0)[:frames]
-    inv = 127.0 / amax
+    inv = torch.full_like(amax, 127.0) / amax
     x32 = qkv.float()
     ops = [quantize_rint(x32[..., p * width:(p + 1) * width] * inv[:, p, None, None])
            for p in range(3)]

@@ -46,7 +46,10 @@
 // lane's 2F + 3 loads are in flight together. Each logit is a partial dot
 // over the lane's dims reduced by 3 (4) xor-shuffles within its group; K and
 // V are held as loaded, in registers sized by a frame tier (4, 8, 16).
-// cls reads one head's K and V of a clip once per (clip, head) block.
+// cls (cls_rows_kernel) reads one head's K and V of a clip once per (clip,
+// head) block in the time kernel's lane groups: 32 (16) keys an instruction
+// round a block, 8 loads in flight a lane; the softmax stays exact over the
+// logits held in shared memory.
 #include <type_traits>
 
 #include "attention_f32.cuh"
@@ -386,66 +389,134 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
   return r;
 }
 
-// Shared memory: one fp32 logit per key, then kWarps reduction slots and the
-// (4 x kHeadDim) partial sums of P.V.
+// Row 0 of a clip over all of its seq rows, one head: one block per (head,
+// clip), time_rows_kernel's lane mapping. A lane holds one 16-byte vector of a
+// key's head row (kVec dims: 8 bf16 or 4 fp32), a group of kLanes lanes one
+// key, so a block reads kGroups keys an instruction round (32 in bf16, 16 in
+// fp32); key j belongs to group j % kGroups and each lane keeps kUnroll loads
+// in flight. Loops run over the warp's first key, so that every lane of a warp
+// takes each shuffle. Shared memory: the seq logits (then weights), kWarps
+// reduction slots, and kWarps x kHeadDim partial sums of P.V.
+// 1. logits: the lane's partial dot over its dims (one fmaf chain from 0,
+//    q = T(T(q) * T(scale))) reduced by xor-shuffles 1, 2, 4 (, 8) within the
+//    group, written by the group's first lane;
+// 2. the exact softmax over the shared logits: the peak, exps, denom (block
+//    sums), weights T(exps * (out_mul / denom));
+// 3. P.V: each group sums its keys' w_j v_j in fp32 (one fmaf chain a dim, keys
+//    ascending), the groups of a warp then add by xor-shuffles kLanes, ..., 16,
+//    the warps in order through shared memory; the first group of warp 0
+//    rounds to int8 (quant_rint) and stores its kVec bytes.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cls_kernel(const T* __restrict__ qkv, int8_t* __restrict__ out, int out_clip_stride, int seq, int heads,
-           float scale, float out_mul) {
+cls_rows_kernel(const T* __restrict__ qkv, int8_t* __restrict__ out, int out_clip_stride, int seq, int heads,
+                float scale, float out_mul) {
+  constexpr int kVec = 16 / sizeof(T), kLanes = kHeadDim / kVec, kGroupsPerWarp = 32 / kLanes;
+  constexpr int kGroups = kWarps * kGroupsPerWarp, kUnroll = 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* w = reinterpret_cast<float*>(smem);
-  float* red = w + seq;
+  float* weight = reinterpret_cast<float*>(smem);
+  float* red = weight + seq;
   float* part = red + kWarps;
   const int h = blockIdx.x, c = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int dim0 = (lane % kLanes) * kVec, key0 = warp * kGroupsPerWarp, mine = lane / kLanes;
   const int width = heads * kHeadDim;
-  const T* clip = qkv + static_cast<size_t>(c) * seq * 3 * width + h * kHeadDim;
+  const size_t row = 3 * static_cast<size_t>(width);
+  const T* clip = qkv + static_cast<size_t>(c) * seq * row + h * kHeadDim + dim0;
 
   const float scale_t = to_float(from_float<T>(scale));
-  const float q0 = to_float(from_float<T>(mul(to_float(clip[lane]), scale_t)));
-  const float q1 = to_float(from_float<T>(mul(to_float(clip[lane + 32]), scale_t)));
-  for (int j = warp; j < seq; j += kWarps) {
-    const T* k = clip + static_cast<size_t>(j) * 3 * width + width;
-    const float s = warp_sum(fmaf(q0, to_float(k[lane]), q1 * to_float(k[lane + 32])));
-    if (lane == 0) w[j] = s;
+  float q[kVec];
+  unpack(load_vec(clip), q);
+#pragma unroll
+  for (int d = 0; d < kVec; ++d) q[d] = to_float(from_float<T>(mul(q[d], scale_t)));
+
+  for (int j0 = key0; j0 < seq; j0 += kGroups * kUnroll) {
+    uint4 k[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + mine + u * kGroups;
+      if (j < seq) k[u] = load_vec(clip + j * row + width);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + mine + u * kGroups;
+      float s = 0.f;
+      if (j < seq) {
+        float x[kVec];
+        unpack(k[u], x);
+#pragma unroll
+        for (int d = 0; d < kVec; ++d) s = fmaf(q[d], x[d], s);
+      }
+#pragma unroll
+      for (int offset = 1; offset < kLanes; offset <<= 1) s = add(s, __shfl_xor_sync(0xffffffffu, s, offset));
+      if (j < seq && dim0 == 0) weight[j] = s;
+    }
   }
   __syncthreads();
 
   float peak = -INFINITY;
-  for (int j = tid; j < seq; j += kThreads) peak = fmaxf(peak, w[j]);
+  for (int j = tid; j < seq; j += kThreads) peak = fmaxf(peak, weight[j]);
   peak = block_reduce(peak, red, true);
   float denom = 0.f;
   for (int j = tid; j < seq; j += kThreads) {
-    const float e = expf(sub(w[j], peak));
-    w[j] = e;
+    const float e = expf(sub(weight[j], peak));
+    weight[j] = e;
     denom += e;
   }
   denom = block_reduce(denom, red, false);
   const float norm = div(out_mul, denom);
-  for (int j = tid; j < seq; j += kThreads) w[j] = to_float(from_float<T>(mul(w[j], norm)));
+  for (int j = tid; j < seq; j += kThreads) weight[j] = to_float(from_float<T>(mul(weight[j], norm)));
   __syncthreads();
 
-  // P.V: thread t sums keys j = t / 64 (mod 4) for dim t % 64.
-  const int d = tid % kHeadDim, quarter = tid / kHeadDim;
-  float acc = 0.f;
-  for (int j = quarter; j < seq; j += kThreads / kHeadDim) {
-    acc = fmaf(w[j], to_float(clip[static_cast<size_t>(j) * 3 * width + 2 * width + d]), acc);
+  float acc[kVec];
+#pragma unroll
+  for (int d = 0; d < kVec; ++d) acc[d] = 0.f;
+  for (int j0 = key0; j0 < seq; j0 += kGroups * kUnroll) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + mine + u * kGroups;
+      if (j < seq) v[u] = load_vec(clip + j * row + 2 * width);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + mine + u * kGroups;
+      if (j < seq) {
+        float x[kVec];
+        unpack(v[u], x);
+        const float wj = weight[j];
+#pragma unroll
+        for (int d = 0; d < kVec; ++d) acc[d] = fmaf(wj, x[d], acc[d]);
+      }
+    }
   }
-  part[quarter * kHeadDim + d] = acc;
+#pragma unroll
+  for (int offset = kLanes; offset < 32; offset <<= 1) {
+#pragma unroll
+    for (int d = 0; d < kVec; ++d) acc[d] = add(acc[d], __shfl_xor_sync(0xffffffffu, acc[d], offset));
+  }
+  if (lane < kLanes) {
+#pragma unroll
+    for (int d = 0; d < kVec; ++d) part[warp * kHeadDim + dim0 + d] = acc[d];
+  }
   __syncthreads();
-  if (tid < kHeadDim) {
-    const float o = part[d] + part[kHeadDim + d] + part[2 * kHeadDim + d] + part[3 * kHeadDim + d];
-    out[static_cast<size_t>(c) * out_clip_stride + h * kHeadDim + d] = quant_rint(o);
+  if (warp == 0 && lane < kLanes) {
+#pragma unroll
+    for (int d = 0; d < kVec; ++d) acc[d] = part[dim0 + d];
+    for (int w = 1; w < kWarps; ++w) {
+#pragma unroll
+      for (int d = 0; d < kVec; ++d) acc[d] = add(acc[d], part[w * kHeadDim + dim0 + d]);
+    }
+    store_vec(out + static_cast<size_t>(c) * out_clip_stride + h * kHeadDim + dim0, acc);
   }
 }
 
-size_t cls_smem_bytes(int seq) { return sizeof(float) * (static_cast<size_t>(seq) + kWarps + 4 * kHeadDim); }
+size_t cls_smem_bytes(int seq) { return sizeof(float) * (static_cast<size_t>(seq) + kWarps + kWarps * kHeadDim); }
 
 template <typename T>
 int launch_cls(const void* qkv, void* out, int out_clip_stride, int clips, int seq, int heads, float scale,
                float out_mul, cudaStream_t s) {
   const size_t smem = cls_smem_bytes(seq);
-  auto kernel = cls_kernel<T>;
+  auto kernel = cls_rows_kernel<T>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
@@ -510,10 +581,15 @@ extern "C" int fitclip_fit_time_attention(const void* qkv, int qkv_clip_stride, 
 }
 
 // qkv (clips, seq, 3W); writes one int8 row per clip at out + c * out_clip_stride.
+// 16-byte vectors: qkv 16-byte aligned, out and its stride whole int8 vectors
+// (8 bytes from bf16, 4 from fp32).
 extern "C" int fitclip_fit_cls_attention(const void* qkv, int dtype, void* out, int out_clip_stride, int clips,
                                          int seq, int heads, int head_dim, float scale, float out_mul,
                                          void* stream) {
-  if (head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != kHeadDim || seq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = dtype == kBFloat16 ? 8 : 4;
+  if (reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(out) % vec || out_clip_stride % vec)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) return launch_cls<__nv_bfloat16>(qkv, out, out_clip_stride, clips, seq, heads, scale, out_mul, s);
   if (dtype == kFloat32) return launch_cls<float>(qkv, out, out_clip_stride, clips, seq, heads, scale, out_mul, s);

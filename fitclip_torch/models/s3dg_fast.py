@@ -29,7 +29,8 @@ from fitclip_torch.models.s3dg import (BLOCKS, S3DG, STConv3D, conv3d_ndhwc,
                                        max_pool_3d_tf_padding)
 from fitclip_torch.ops.block import dense_operands, int8_gemm_bias, int8_gemm_bias_plain
 from fitclip_torch.ops.quant import quantize_rint, quantize_weight
-from fitclip_torch.ops.s3dg_stem import BN_EPS, fold_bn, s3dg_stem, s3dg_stem_plain
+from fitclip_torch.ops.s3dg_stem import (BN_EPS, fold_bn, s3dg_stem, s3dg_stem_plain,
+                                        stem_operands)
 
 
 # --- operands, folded once per parameter version -----------------------------
@@ -70,6 +71,7 @@ def fold_fast_operands(model: S3DG, dtype: torch.dtype) -> dict:
                      "gate": _gate_operands([getattr(block, f"gating_b{i}") for i in range(4)])}
     for path, site in _sites(model):
         ops[f"int8/{path}"] = dense_operands(site)
+    ops["stem_packed"] = stem_operands(*ops["stem"])  # the stem kernel's operands
     return ops
 
 
@@ -162,13 +164,13 @@ def s3dg_fast_apply(model: S3DG, video: torch.Tensor, dtype: torch.dtype = torch
         raise ValueError(f"the fast S3DG forward runs in bf16 (or fp32), not {dtype}")
     if int8 and not model.quantized:
         raise ValueError("the int8 forward needs a model with int8 sites (quantize_s3dg_fast)")
-    stem, gemm = (s3dg_stem_plain, int8_gemm_bias_plain) if plain else (s3dg_stem,
-                                                                         int8_gemm_bias)
+    gemm = int8_gemm_bias_plain if plain else int8_gemm_bias
     ops = fast_operands(model, dtype)
     q = model.int8 if int8 else {}
     x = video.to(dtype)
     if model.use_space_to_depth:
-        x = stem(x, *ops["stem"])
+        x = (s3dg_stem_plain(x, *ops["stem"]) if plain
+             else s3dg_stem(x, *ops["stem"], packed=ops["stem_packed"]))
     else:
         kernel, bias = ops["stem"]
         x = torch.relu(conv3d_ndhwc(x, kernel, 2, (1, 3, 3)) + bias)

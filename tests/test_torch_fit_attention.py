@@ -10,8 +10,9 @@ wrappers take their plain versions.
   atol = rtol = 1e-4 in fp32 on values pre-scaled by out_mul ~ 30.
 - float64 models of the kernels' decompositions (csrc/fit_attention.cu): the
   fp32 space kernel's tiling (space_f32_kernel, test_torch_attention.py's
-  model of the shared block body with a global key) and the time kernel's
-  lane mapping and reduction order (time_rows_kernel), each held against the
+  model of the shared block body with a global key), the time kernel's
+  lane mapping and reduction order (time_rows_kernel) and the CLS row's
+  (cls_rows_kernel, with its roundings to qkv's dtype), each held against the
   plain version and the Pallas kernel in interpret mode at fp32's atol 1e-5
   (the int8 modes against K4's helpers, over out_mul).
 """
@@ -257,3 +258,90 @@ def test_time_rows_mapping_matches_plain_and_pallas(pallas_time, mode, frames, v
     assert not torch.isnan(model).any()
     np.testing.assert_allclose(model.numpy(), plain.double().numpy(), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(model.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+CLS_WARPS, CLS_UNROLL = 8, 8  # fit_attention.cu: kWarps, cls_rows_kernel's kUnroll
+
+
+def _cls_rows_model(qkv, heads, scale, out_mul):
+    """cls_rows_kernel in float64 with the kernel's roundings to qkv's dtype T
+    (q = T(T(q) * T(scale)), weights T(exps * (out_mul / denom))), lane for
+    lane: a lane holds vec = 16 / sizeof(T) dims of a head, a group of 64 / vec
+    lanes one key; the kernel's loops deal the keys to the groups (each key
+    must land on exactly one), each logit is the lane's partial dot (dims
+    ascending) reduced by xor-shuffles within the group (every lane the same
+    bits); P.V: each group sums its keys' w_j v_j in ascending order, the
+    groups of a warp add by xor-shuffles over the group index, the warps in
+    order. Returns (B, 1, W) before the int8 rounding, and the weights over
+    out_mul (B, N, H)."""
+    batch, seq, triple = qkv.shape
+    width = triple // 3
+    vec = 16 // qkv.element_size()
+    lanes = MODEL_DIM // vec
+    per_warp = 32 // lanes
+    groups = CLS_WARPS * per_warp
+    owner = [-1] * seq
+    for warp in range(CLS_WARPS):
+        for mine in range(per_warp):
+            for j0 in range(warp * per_warp, seq, groups * CLS_UNROLL):
+                for u in range(CLS_UNROLL):
+                    j = j0 + mine + u * groups
+                    if j < seq:
+                        assert owner[j] == -1, f"key {j} dealt twice"
+                        owner[j] = warp * per_warp + mine
+    assert min(owner) >= 0, "a key was dealt to no group"
+    owner = torch.tensor(owner)
+    scale_t = torch.tensor(scale, dtype=qkv.dtype)
+    x = qkv.reshape(batch, seq, 3, heads, lanes, vec)
+    q = (x[:, 0, 0] * scale_t).double()                           # (B, H, lanes, vec)
+    k, v = x[:, :, 1].double(), x[:, :, 2].double()               # (B, N, H, lanes, vec)
+
+    def xor_tree(part, n):                                        # (..., n) -> (...)
+        offset = 1
+        while offset < n:
+            part = part + part[..., torch.arange(n) ^ offset]
+            offset <<= 1
+        assert torch.equal(part, part[..., :1].expand_as(part))
+        return part[..., 0]
+
+    partial = torch.zeros(batch, seq, heads, lanes, dtype=torch.float64)
+    for d in range(vec):
+        partial = partial + q[:, None, ..., d] * k[..., d]
+    logits = xor_tree(partial, lanes)                             # (B, N, H)
+    exps = torch.exp(logits - logits.amax(dim=1, keepdim=True))
+    weights = (exps * (out_mul / exps.sum(dim=1, keepdim=True))).to(qkv.dtype).double()
+    acc = torch.zeros(batch, groups, heads, lanes, vec, dtype=torch.float64)
+    for j in range(seq):                                          # each group's keys ascending
+        acc[:, owner[j]] += weights[:, j, :, None, None] * v[:, j]
+    warp_sums = xor_tree(acc.reshape(batch, CLS_WARPS, per_warp, heads, lanes, vec)
+                         .movedim(2, -1), per_warp)               # (B, warps, H, lanes, vec)
+    out = warp_sums[:, 0]
+    for w in range(1, CLS_WARPS):
+        out = out + warp_sums[:, w]
+    return out.reshape(batch, 1, width), weights / out_mul
+
+
+@pytest.mark.parametrize("seq", [1 + 2 * 20, 1 + 4 * 49, 1 + 16 * 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cls_rows_mapping_matches_plain_and_pallas(dtype, seq):
+    """cls_rows_kernel's lane groups (fp32's 16 lanes a key, bf16's 8) and
+    reduction order, with its roundings to qkv's dtype, against
+    cls_attention_plain and K4's _cls_global_row_packed on the same values,
+    over out_mul: at fp32's 1e-5, and in bf16 at 2^-8 of the largest weight
+    times max |v| (one weight rounded the other way to bf16, the float64
+    exps against fp32's) plus 1e-5."""
+    qkv = torch.from_numpy(_inputs(60 + seq, 2, seq, 3 * MODEL_HEADS * MODEL_DIM)).to(dtype)
+    scale = MODEL_DIM ** -0.5
+    model, weights = _cls_rows_model(qkv, MODEL_HEADS, scale, OUT_MUL)
+    model = model / OUT_MUL
+    plain = A.cls_attention_plain(qkv, MODEL_HEADS, scale, OUT_MUL) / OUT_MUL
+    qkv_j = jnp.asarray(qkv.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                                    else jnp.float32)
+    ref = np.asarray(jax_fit_block._cls_global_row_packed(qkv_j, MODEL_HEADS, scale, OUT_MUL),
+                     np.float32) / OUT_MUL
+    atol = 1e-5
+    if dtype == torch.bfloat16:
+        atol += 2 ** -8 * float(weights.max()) * float(qkv.float().abs().max())
+    assert not torch.isnan(model).any()
+    np.testing.assert_allclose(model.numpy(), plain.double().numpy(), atol=atol, rtol=1e-5)
+    np.testing.assert_allclose(model.numpy(), ref, atol=atol, rtol=1e-5)

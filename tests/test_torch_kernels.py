@@ -729,6 +729,45 @@ def test_time_rows_kernel_frame_tiers_match_plain(cuda, dtype, frames):
     assert torch.equal(out, A.fit_time_attention_int8(joint, heads, frames, out_mul))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("seq,heads", [(1, 3), (2, 3), (33, 3), (785, 12), (3137, 2)])
+def test_cls_rows_kernel_matches_plain(cuda, dtype, seq, heads):
+    """cls_rows_kernel (K4's CLS row) in bf16 and fp32: one key, fewer keys than
+    a block's lane groups, a ragged unrolled round, FiT base's 785 keys and 16
+    frames' 3137, under the int8 rule against cls_attention_plain; two
+    launches give the same bits and count two."""
+    gen = torch.Generator().manual_seed(seq)
+    out_mul = 127.0 / 2.5
+    qkv = (1.5 * torch.randn(3, seq, 3 * heads * 64, generator=gen)).to(cuda, dtype)
+    before = A.fit_cls_attention_int8.launches
+    out = A.fit_cls_attention_int8(qkv, heads, out_mul)
+    plain = torch.round(A.cls_attention_plain(qkv, heads, 64 ** -0.5, out_mul)).clamp(-127, 127)
+    _assert_int8_close(out[:, :1], plain.to(torch.int8))
+    assert not out[:, 1:].any()  # row 0 alone is written
+    assert torch.equal(out, A.fit_cls_attention_int8(qkv, heads, out_mul))
+    assert A.fit_cls_attention_int8.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_cls_rows_kernel_refuses_what_its_vectors_do_not_take(cuda):
+    """The C entry refuses (without a launch) a qkv pointer off 16 bytes, and an
+    output pointer or clip stride that is not a whole int8 vector (8 bytes
+    from bf16, 4 from fp32)."""
+    heads, seq = 2, 9
+    for dtype, vec in ((torch.bfloat16, 8), (torch.float32, 4)):
+        qkv = torch.zeros(2, seq, 3 * heads * 64 + 16, dtype=dtype, device=cuda)
+        out = torch.zeros(2, seq, heads * 64 + 16, dtype=torch.int8, device=cuda)
+        code = _build.dtype_code(dtype)
+        cases = [(qkv.data_ptr() + 8, out.data_ptr(), seq * heads * 64),
+                 (qkv.data_ptr(), out.data_ptr() + vec // 2, seq * heads * 64),
+                 (qkv.data_ptr(), out.data_ptr(), seq * heads * 64 + vec // 2)]
+        for qkv_ptr, out_ptr, stride in cases:
+            with pytest.raises(RuntimeError, match="fitclip_fit_cls_attention"):
+                _build.call("fitclip_fit_cls_attention", qkv_ptr, code, out_ptr, stride, 2, seq,
+                            heads, 64, 0.125, 1.0)
+
+
 def _fit_operands(width, gen, device):
     """Random operands of one FiT block: the time half from one K1 layer's,
     the space half and the MLP (exact GELU) from another's."""
@@ -777,10 +816,14 @@ def test_stem_on_a_cpu_tensor_takes_the_plain_version():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 4, 32, 32, 3), (1, 6, 36, 44, 3), (1, 2, 224, 224, 3)])
+@pytest.mark.parametrize("shape", [(2, 4, 32, 32, 3), (1, 6, 36, 44, 3), (1, 2, 224, 224, 3),
+                                   (1, 2, 8, 8, 3), (3, 8, 64, 240, 3)])
 def test_stem_kernel_matches_plain(cuda, shape):
     """Within one bf16 ulp of the plain fp32 result on all but 1e-3 of the outputs,
-    and the same bits on a second launch."""
+    and the same bits on a second launch: s3dg_stem_wgmma_kernel at a width of 4
+    mod 8 (8-byte copies), one conv column tile, and at 240 columns (four
+    warpgroup tiles) with more pooled rows than blocks (runs cut mid (clip,
+    time): a prologue and carry at each cut)."""
     x, kernel, bias = _stem_operands(shape, torch.Generator().manual_seed(13), cuda)
     before = S.s3dg_stem.launches
     out = S.s3dg_stem(x, kernel, bias)
@@ -791,6 +834,15 @@ def test_stem_kernel_matches_plain(cuda, shape):
     assert float((diff > _bf16_ulp(ref)).float().mean()) <= INT8_MAX_FLIPPED
     assert torch.equal(out, S.s3dg_stem(x, kernel, bias))
     assert S.s3dg_stem.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_stem_kernel_takes_kept_operands(cuda):
+    """The fast forward's kept operands (stem_operands) give the same bits as
+    packing them in the call."""
+    x, kernel, bias = _stem_operands((2, 4, 32, 40, 3), torch.Generator().manual_seed(16), cuda)
+    packed = S.stem_operands(kernel, bias)
+    assert torch.equal(S.s3dg_stem(x, kernel, bias, packed=packed), S.s3dg_stem(x, kernel, bias))
 
 
 @pytest.mark.cuda

@@ -19,7 +19,7 @@ atol/rtol 1e-2 of the script and of each other (two bf16 ulps, the S2 tests'
 bound); i8qkav, the model within 1e-2 of the script but in rows holding a
 weight at a rounding boundary, and the model and the plain version within
 1e-2 plus one weight step v_amax / 127 of it everywhere (the card's s8 rule's
-bound; the plain version rounds 127 / amax twice, see s8_model).
+bound); the plain version's int8 operands equal the script's.
 """
 
 import importlib.util
@@ -163,8 +163,7 @@ def s8_model(qkv, heads, scale, block, av8, tile=None):
     output and i8qkav's weights times 127 before rounding (frames, heads, L,
     L). The scales divide as the kernel and the script do, once each:
     127 / amax (PyTorch's ``127.0 / amax`` is reciprocal(amax) * 127, two
-    roundings, which the plain version takes), q_amax k_amax scale / 127^2
-    and v_amax / 127^2."""
+    roundings), q_amax k_amax scale / 127^2 and v_amax / 127^2."""
     frames, seq, triple = qkv.shape
     width = triple // 3
     d = width // heads
@@ -227,19 +226,32 @@ def test_s8_model_matches_plain_and_script(script, frames, seq, av8):
                                    rtol=1e-2)
         np.testing.assert_allclose(model.float().numpy(), ref, atol=1e-2, rtol=1e-2)
         return
-    # i8qkav: the model quantizes q, k and v as the script does, so its
-    # outputs are the script's but in rows with a weight at a rounding
-    # boundary, where an output may move by one weight step v_amax / 127. The
-    # plain version's 127.0 / amax rounds twice (reciprocal, then * 127) and
-    # can quantize an element of q, k or v one step off the script's: it is
-    # held to the step bound alone.
+    # i8qkav: the model and the plain version quantize q, k and v as the
+    # script does (127 / amax one division), so their outputs are the
+    # script's but in rows with a weight at a rounding boundary, where an
+    # output may move by one weight step v_amax / 127.
     step = float(P.attn_amax_plain(qkv, 1)[:, 2].max()) / 127.0
     ref = torch.from_numpy(ref)
     rows = _rows_near_a_rounding(weights)
-    np.testing.assert_allclose(model.float()[~rows].numpy(), ref[~rows].numpy(), atol=1e-2,
-                               rtol=1e-2)
     for out in (model, plain):
+        np.testing.assert_allclose(out.float()[~rows].numpy(), ref[~rows].numpy(), atol=1e-2,
+                                   rtol=1e-2)
         assert float((out.float() - ref).abs().max()) <= 1e-2 + step
+
+
+@pytest.mark.parametrize("frames,seq", SHAPES)
+def test_s8_plain_operands_are_the_scripts(frames, seq):
+    """s8_operands_plain's int8 q, k and v are the script's, element for
+    element: rint(x * (127 / amax)) clipped to +-127 with 127 / amax one fp32
+    division (scripts/bench_attn_int8.py's _variant_kernel)."""
+    qkv = _qkv(frames, seq)
+    *ops, amax = P.s8_operands_plain(qkv, 1)
+    x = jnp.asarray(qkv.float().numpy())
+    for p, got in enumerate(ops):
+        part = x[..., p * WIDTH:(p + 1) * WIDTH]
+        a = jnp.maximum(jnp.max(jnp.abs(part), axis=(1, 2), keepdims=True), 1e-6)
+        want = np.asarray(jnp.clip(jnp.round(part * (127.0 / a)), -127, 127).astype(jnp.int8))
+        assert int((got.numpy() != want).sum()) == 0, ("q", "k", "v")[p]
 
 
 @pytest.mark.parametrize("av8", [False, True])

@@ -6,11 +6,13 @@ The module path and the fast path (K2 for float, K1 with the exact-GELU
 epilogue for int8, their plain versions here) are held against the JAX
 SlipModel and ``slip_fast`` (Pallas interpret mode, jitted): float at
 atol/rtol 2e-4, int8 at 2e-3 (tests/test_slip_fast.py's bounds), calibration
-at rtol 1e-5. The config is SLIP's at narrow widths with the real head_dim 64.
+at rtol 1e-5, layer by layer on JAX's inputs. The config is SLIP's at narrow
+widths with the real head_dim 64.
 """
 
 import functools
 
+import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from fitclip_tpu.models import slip as jax_slip
 from fitclip_tpu.models import slip_fast as jax_slip_fast
+from fitclip_tpu.models.clip import model as jax_clip_model
 from fitclip_tpu.models.clip.model import TextConfig as JaxText
 from fitclip_tpu.ops import quant as jax_quant
 from fitclip_torch.convert.from_jax import slip_params_from_jax, slip_params_to_jax
@@ -143,19 +146,120 @@ def test_int8_module_path_with_fused_attention_matches_jax(setup):
     _assert_close(_torch_module(model, s["images"], s["ids"]), want, INT8_TOL)
 
 
+def _jax_inputs(jax_cfg, qtree, frames, ids):
+    """JAX's calibration forward (both towers in dynamic-quant mode) with the
+    input of each layer and of each int8 site sown as it is called:
+    {(tower, "layer" or site path within the layer): (layers, ...) array}."""
+    def sow_input(next_fun, args, kwargs, context):
+        if context.method_name == "__call__" and isinstance(
+                context.module, (jax_clip_model.ResidualBlock, jax_clip_model.QuantDense)):
+            context.module.sow("intermediates", "input", args[0])
+        return next_fun(*args, **kwargs)
+
+    def flat(node, prefix=""):
+        for key, child in node.items():
+            if key == "input":
+                yield prefix[:-1] or "layer", np.asarray(child[0])
+            elif isinstance(child, dict):
+                yield from flat(child, f"{prefix}{key}/")
+
+    model = jax_slip.SlipModel(jax_cfg, quantized="dynamic")
+    inputs = {}
+    with flax_nn.intercept_methods(sow_input):
+        for tower, method, x in (("visual", jax_slip.SlipModel.encode_image, frames),
+                                 ("transformer", jax_slip.SlipModel.encode_text, ids)):
+            _, state = model.apply({"params": qtree}, x, method=method, mutable=["intermediates"])
+            node = state["intermediates"][tower]["blocks"]
+            node = node["blocks"] if tower == "visual" else node
+            inputs.update({(tower, path): value for path, value in flat(node)})
+    return inputs
+
+
+def _port_calibrate_teacher_forced(enc, video, ids, jax_inputs):
+    """The port's own calibration (``enc.calibrate``: both towers in
+    dynamic-quant mode, then the observed abs-maxes written into act_scale),
+    teacher-forced: each layer and each int8 site computes its input from
+    JAX's values where the previous one took them, records it, and goes on
+    with JAX's input in its place. Returns {(tower, path): [the input each
+    layer computed]}."""
+    computed, hooks = {}, []
+
+    def substitute(key, layer):
+        def hook(module, args):
+            computed.setdefault(key, []).append(args[0].detach().clone())
+            return (torch.from_numpy(np.array(jax_inputs[key][layer])),)
+        return hook
+
+    for tower, layers in (("visual", enc.model.visual.blocks.blocks),
+                          ("transformer", enc.model.transformer.blocks)):
+        for i, layer in enumerate(layers):
+            hooks.append(layer.register_forward_pre_hook(substitute((tower, "layer"), i)))
+            for path, (site,) in quant.act_scale_sites(layer).items():
+                hooks.append(site.register_forward_pre_hook(substitute((tower, path), i)))
+    try:
+        enc.calibrate(video, ids)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return computed
+
+
 def test_calibration_matches_jax(setup):
+    """The whole calibration of each package covers the same 8 sites (both
+    towers' in_proj, out_proj, mlp_fc and mlp_proj, a scale per layer), all
+    calibrated. The port's calibration is then held to JAX's at rtol 1e-5
+    where it is defined alike on every host: ``enc.calibrate`` runs
+    teacher-forced, each layer and each site on JAX's input, and every
+    act_scale it writes (the two towers merged, layer by layer) is held to
+    JAX's calibrated act_scale. Each input the port computed from JAX's input
+    where the previous one took it (no int8 rounding in between) is held to
+    JAX's within 1e-5 of its largest. (Across whole towers, fp32 sums in
+    another order can move an input of a dynamic quantization across a
+    rounding boundary, and that one-step flip moves every abs-max downstream:
+    tests/test_torch_s3dg.py shows one.)"""
     s = setup
-    jax_enc = jax_slip.SlipVideoTextEncoder(s["jax_cfg"], num_frames=2, quantized=True)
-    ref = jax_enc.calibrate(jax_quant.quantize_clip_params(s["params"]),
-                            jnp.asarray(s["video"]), jnp.asarray(s["calib_ids"]))
+    cfg, jax_cfg = s["cfg"], s["jax_cfg"]
+    qtree = jax_quant.quantize_clip_params(s["params"])
+    jax_enc = jax_slip.SlipVideoTextEncoder(jax_cfg, num_frames=2, quantized=True)
+    ids = jnp.asarray(s["calib_ids"])
+    ref = jax_enc.calibrate(qtree, jnp.asarray(s["video"]), ids)
     want = {path: np.asarray(node["act_scale"]) for path, node in jax_quant._act_scale_items(ref)}
-    model = _model(s["cfg"], s["qparams"], quantized=True)
-    got = {site: np.stack([m.act_scale.numpy() for m in modules])
-           for site, modules in quant.act_scale_sites(model).items()}
-    assert sorted(got) == sorted(want) and len(want) == 8
+    calibrated = _model(cfg, s["qparams"], quantized=True)
+    whole = {site: np.stack([m.act_scale.numpy() for m in modules])
+             for site, modules in quant.act_scale_sites(calibrated).items()}
+    assert sorted(whole) == sorted(want) and len(want) == 8
     for site in want:
-        np.testing.assert_allclose(got[site].reshape(want[site].shape), want[site], rtol=1e-5)
-        assert not np.all(want[site] == 1.0)
+        assert whole[site].size == want[site].size == 2
+        assert not np.all(want[site] == 1.0) and not np.all(whole[site] == 1.0)
+
+    jax_inputs = _jax_inputs(jax_cfg, qtree, jax_enc._prepare_frames(jnp.asarray(s["video"])),
+                             ids)
+    enc = slip.SlipVideoTextEncoder(cfg, num_frames=2, quantized=True)
+    enc.model.load_state_dict(slip_params_from_jax(qtree, cfg))
+    computed = _port_calibrate_teacher_forced(enc, torch.from_numpy(s["video"]),
+                                              torch.from_numpy(s["calib_ids"]).long(),
+                                              jax_inputs)
+    got = {site: np.stack([m.act_scale.numpy() for m in modules])
+           for site, modules in quant.act_scale_sites(enc.model).items()}
+    assert sorted(got) == sorted(want)
+    for site in want:
+        np.testing.assert_allclose(got[site].reshape(want[site].shape), want[site], rtol=1e-5,
+                                   err_msg=site)
+
+    assert sorted(computed) == sorted(jax_inputs) and len(computed) == 10
+    for (tower, path), per_layer in computed.items():
+        assert len(per_layer) == 2
+        for layer, x in enumerate(per_layer):
+            ref_x = jax_inputs[tower, path][layer]
+            np.testing.assert_allclose(x.numpy(), ref_x, rtol=1e-5,
+                                       atol=1e-5 * float(np.abs(ref_x).max()),
+                                       err_msg=f"{tower} layer {layer} {path}")
+            if path == "layer":
+                continue
+            amax = want[f"{tower}/blocks/blocks/{path}" if tower == "visual"
+                        else f"{tower}/blocks/{path}"].reshape(-1)[layer]
+            assert float(np.abs(ref_x).max()) == amax, (tower, path, layer)
+            assert float(x.abs().max()) == pytest.approx(amax, rel=1e-5), (tower, path, layer)
 
 
 @pytest.mark.parametrize("fused_block", [False, True])
