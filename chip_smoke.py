@@ -9,13 +9,14 @@
     python3 chip_smoke.py --bench-arms [DIR]      # S2's s8 arms and slice-requant
     python3 chip_smoke.py --stem-cls [DIR]        # the S3D-G stem, K4's CLS row, their encodes
 
-Drives seven paths at full width, with weights initialized from a seed: int8
+Drives eight paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
 teacher-student, through ``run_train``), Frozen-in-Time base zero-shot
 encoding (int8, bf16 and fp32), the S3D-G family (MIL-NCE bf16 and int8, VideoCLIP
 bf16), CLIP ViT-B/16 bf16 on the float layer kernels (K2), SLIP ViT-B/16 in
-four configurations, and the port's benchmarks (``python -m
-fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
+four configurations, the port's benchmarks (``python -m
+fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench), and the
+eval CLI (``python -m fitclip_torch command=evaluate|predict``). It fails
 (non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
@@ -185,7 +186,24 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench). It fails
     the fp32 oracle, TFLOP/s; SDPA beside S2's `bf16`; the cases that only
     rename an arm print ``same_function_as``), then one encode reading each
     for int8 and bf16 at 128 clips with bench.py's gates; every bench kernel
-    must show launches there.
+    must show launches there;
+11. the eval CLI, last: a seeded MSR-VTT tree (72 MJPG AVIs of 96 frames of
+    320x240 at 30 fps, distinct content and captions; 72 is not a multiple of
+    the eval batch of 32) and a BPE vocabulary over its captions'
+    (write_tiny_test_vocab), then, in this process through
+    fitclip_torch.cli.main.main, ``command=evaluate encoder=clip_vit_b_16
+    ++encoder.dtype=int8 data=msrvtt ++quant.calibration_batches=1`` (the
+    scales persisted to quant.scales_path) and ``command=predict`` with them;
+    prints the decoder that ran, each command's wall seconds and the runners'
+    clips/s with decode included, and the card's busy share over one batch's
+    window (the loader's next batch, the copy, both towers). Gates: (i) the
+    printed R@1/5/10 and MdR equal the rank math of predict's embeddings;
+    (ii) predict's video embeddings against the plain versions
+    (``fused_attention=False``, the same scales) on the same clips, min-row
+    cosine > 0.999; (iii) K1's 7 launches per layer on 12 + 12 layers per eval
+    batch in each command, the evaluate's calibration (fused_attention_qkv
+    once per layer) apart; (iv) finite embeddings; (v) no decoded clip is all
+    zeros. The tree is written under build/chip_smoke_eval/ and deleted.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 Each timed phase prints the card's SM and memory clocks beside its readings.
@@ -197,6 +215,7 @@ before the final {"ok": true, "device": {...}} line.
 import contextlib
 import copy
 import json
+import logging
 import shutil
 import subprocess
 import sys
@@ -3000,6 +3019,325 @@ def stem_cls_only(torch, package: Path) -> int:
     return 0
 
 
+# Phase 11: the eval CLI (python -m fitclip_torch command=evaluate ... data=msrvtt).
+EVAL_VIDEOS = 72  # not a multiple of the eval batch of 32: the last batch is short
+EVAL_BATCH = 32
+EVAL_FRAMES, EVAL_SIZE, EVAL_FPS = 96, (320, 240), 30.0  # MSR-VTT's 320 x 240 at 30 fps
+CAPTION_WORDS = ("man", "woman", "dog", "cat", "car", "ball", "kitchen", "street", "guitar",
+                 "song", "game", "water", "horse", "child", "cooking", "running", "talking",
+                 "playing", "singing", "driving", "red", "blue", "green", "small")
+
+
+def write_msrvtt_tree(root: Path, seed: int = 0):
+    """An MSR-VTT tree as MsrVttDataModule reads it (videos/all,
+    annotation/MSR_VTT.json, structured-symlinks/val_list_jsfusion.txt): 72
+    seeded MJPG AVIs of distinct content (a low-resolution random image per
+    video, upscaled and drifting a few pixels a frame) and distinct captions.
+    Returns (the video ids, the captions)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    videos = root / "videos" / "all"
+    videos.mkdir(parents=True, exist_ok=True)
+    ids, captions = [], []
+    width, height = EVAL_SIZE
+    for i in range(EVAL_VIDEOS):
+        video_id = f"video{7010 + i}"
+        base = cv2.resize(rng.integers(0, 256, (12, 16, 3), dtype=np.uint8), (width, height),
+                          interpolation=cv2.INTER_LINEAR)
+        writer = cv2.VideoWriter(str(videos / f"{video_id}.avi"),
+                                 cv2.VideoWriter_fourcc(*"MJPG"), EVAL_FPS, EVAL_SIZE)
+        require(writer.isOpened(), "cv2 cannot write an MJPG AVI here")
+        for t in range(EVAL_FRAMES):
+            writer.write(np.roll(base, (t, 2 * t), axis=(0, 1)))
+        writer.release()
+        words = rng.choice(CAPTION_WORDS, size=3, replace=False)
+        ids.append(video_id)
+        captions.append(f"a {words[0]} and a {words[1]} {words[2]} in video {i}")
+    (root / "annotation").mkdir(exist_ok=True)
+    (root / "annotation" / "MSR_VTT.json").write_text(json.dumps({"annotations": [
+        {"image_id": video_id, "caption": caption} for video_id, caption in zip(ids, captions)]}))
+    (root / "structured-symlinks").mkdir(exist_ok=True)
+    (root / "structured-symlinks" / "val_list_jsfusion.txt").write_text("\n".join(ids))
+    require(len(set(captions)) == len(captions), "the captions are not distinct")
+    return ids, captions
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def cli_run(torch, wrappers, argv):
+    """fitclip_torch.cli.main.main(argv) in this process, the launch counts
+    zeroed just before and read just after: (stdout, runner log lines, wall
+    seconds, launches)."""
+    import io
+
+    from fitclip_torch.cli.main import main as cli_main
+
+    records = _Records()
+    logging.getLogger("fitclip_torch.cli.runners").addHandler(records)
+    out = io.StringIO()
+    for fn in wrappers.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli_main(argv)
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger("fitclip_torch.cli.runners").removeHandler(records)
+    seconds = time.perf_counter() - start
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(out.getvalue().rstrip())
+    for message in records.messages:
+        print(f"  runner: {message}")
+    return out.getvalue(), records.messages, seconds, launches
+
+
+WINDOW_BATCHES = 8  # the warmed window: batches after a first one, cycling over the tree
+
+
+def warm_eval_window(torch, root: Path, merges: str, scales: Path):
+    """Where a warmed eval batch's time goes. (a) Each host stage of an item, run
+    serially over every clip: reader open, sampling and decode, the transform;
+    then collating a batch and copying it to the card. (b) A running loader's
+    window of WINDOW_BATCHES full batches after a first one (the CLI's loop:
+    next batch, copy, both towers; synchronised once at its end): clips/s, the
+    time the loop waits on the loader and the time it takes to issue the copy
+    and encodes (beside the same issued before any loader thread starts); then
+    the next window under the profiler for the device's busy share. Returns
+    the readings (ms and s as measured)."""
+    from fitclip_torch.cli.runners import _video_text
+    from fitclip_torch.data.datasets.msrvtt import MsrVttDataModule
+    from fitclip_torch.data.loader import DataLoader, item_rng
+    from fitclip_torch.data.video_reader import VideoReader
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.ops.quant import load_act_scales
+
+    start = time.perf_counter()
+    fused = load_clip_encoder("ViT-B/16", dtype="int8", device="cuda", seed=0,
+                              bpe_path=merges)
+    load_s = time.perf_counter() - start
+    load_act_scales(str(scales), fused.encoder.model)
+    loader = MsrVttDataModule(base_path=str(root), encoder=fused,
+                              eval_batch_size=EVAL_BATCH).val_dataloader()
+    dataset, pipeline = loader.dataset, loader.dataset.pipelines["video"]
+    stage_s = {"open": [], "decode": [], "transform": []}
+    for index in range(len(dataset)):
+        t0 = time.perf_counter()
+        reader = VideoReader.from_path(dataset.video_paths[index])
+        end_frame = len(reader) - 1
+        t1 = time.perf_counter()
+        frames = reader(pipeline.sampler(0, end_frame, fps=reader.get_avg_fps(),
+                                         rng=item_rng(loader.seed, 0, index)))
+        t2 = time.perf_counter()
+        pipeline.transform(frames, None)
+        t3 = time.perf_counter()
+        for key, seconds in zip(stage_s, (t1 - t0, t2 - t1, t3 - t2)):
+            stage_s[key].append(seconds)
+        del reader
+    stages = {key: 1e3 * float(np.median(v)) for key, v in stage_s.items()}
+    items = [loader._load_item(i) for i in range(EVAL_BATCH)]
+    collate_ms, copy_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        batch = loader.collate(items)
+        collate_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _video_text(batch, torch.device("cuda"))
+        torch.cuda.synchronize()
+        copy_ms.append(1e3 * (time.perf_counter() - t0))
+    stages.update(collate=float(np.median(collate_ms)), copy=float(np.median(copy_ms)))
+
+    n = len(dataset)
+    # A first batch, the window unprofiled, then profile_ms's warm call and its call.
+    order = [[(b * EVAL_BATCH + i) % n for i in range(EVAL_BATCH)]
+             for b in range(1 + 3 * WINDOW_BATCHES)]
+    records = []  # (wall, waiting on the loader, issuing copy and encodes) per window, s
+
+    def encode(batch):
+        video, text, _ = _video_text(batch, torch.device("cuda"))
+        fused.encode_video(video)
+        fused.encode_text(text)
+
+    idle_issue = []  # the copy and encodes issued before any loader thread starts
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode(batch)
+        idle_issue.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    idle_issue = idle_issue[1:]
+    steady = DataLoader(dataset, collate=loader.collate, batch_sampler=order,
+                        num_threads=loader.num_threads)
+    batches_iter = iter(steady)
+
+    def window():
+        start, waited, issued = time.perf_counter(), 0.0, 0.0
+        for _ in range(WINDOW_BATCHES):
+            t0 = time.perf_counter()
+            batch = next(batches_iter)
+            t1 = time.perf_counter()
+            encode(batch)
+            waited, issued = waited + t1 - t0, issued + time.perf_counter() - t1
+        torch.cuda.synchronize()
+        records.append((time.perf_counter() - start, waited, issued))
+
+    encode(next(batches_iter))
+    torch.cuda.synchronize()
+    window()
+    per_kernel, busy = profile_ms(torch, window, calls=1)
+    ms = [1e3 * v / WINDOW_BATCHES for v in records[0]]
+    profiled_wall_ms = 1e3 * records[-1][0] / WINDOW_BATCHES
+    device_ms = sum(per_kernel.values()) / WINDOW_BATCHES
+    result = {"encoder_load_s": load_s, "item_ms_median": stages,
+              "item_ms_per_batch_on_threads": EVAL_BATCH * sum(
+                  stages[k] for k in ("open", "decode", "transform")) / loader.num_threads,
+              "threads": loader.num_threads, "window_batches": WINDOW_BATCHES,
+              "batch_wall_ms": ms[0], "batch_wait_ms": ms[1], "batch_issue_ms": ms[2],
+              "batch_issue_ms_no_loader": 1e3 * float(np.median(idle_issue)),
+              "clips_per_s": EVAL_BATCH / ms[0] * 1e3,
+              "profiled_batch_wall_ms": profiled_wall_ms, "batch_device_ms": device_ms,
+              "busy_share": busy}
+    print(f"eval cli: the seeded ViT-B/16 int8 load {load_s:.3f} s; one item's host stages, "
+          f"median over {n} clips, serial (ms): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in stages.items() if k in stage_s)
+          + f"; a batch of {EVAL_BATCH}: collate {stages['collate']:.3f} ms, copy to the "
+          f"card {stages['copy']:.3f} ms; the items' stages spread over {loader.num_threads} "
+          f"threads at best {result['item_ms_per_batch_on_threads']:.3f} ms a batch")
+    print(f"eval cli: a warmed window of {WINDOW_BATCHES} batches of {EVAL_BATCH} (after a "
+          f"first one), a batch: {ms[0]:.3f} ms wall, {ms[1]:.3f} waiting on the loader, "
+          f"{ms[2]:.3f} issuing the copy and both encodes (before any loader thread ran: "
+          f"{result['batch_issue_ms_no_loader']:.3f}); {result['clips_per_s']:.1f} clips/s "
+          f"with decode. Profiled: {profiled_wall_ms:.3f} ms wall, device {device_ms:.3f} ms, "
+          f"busy share {busy:.3f}")
+    del fused, batches_iter, steady
+    return result
+
+
+def eval_cli_phase(torch, wrappers):
+    """Phase 11: write the MSR-VTT tree, run ``command=evaluate encoder=clip_vit_b_16
+    ++encoder.dtype=int8 data=msrvtt ++quant.calibration_batches=1`` and then
+    ``command=predict`` (the persisted scales) through the CLI, and gate them."""
+    import os
+
+    from fitclip_torch.data import native
+    from fitclip_torch.data.datasets.msrvtt import MsrVttDataModule
+    from fitclip_torch.data.video_reader import VideoReader
+    from fitclip_torch.evaluation.retrieval import retrieval_metrics
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.models.clip.tokenizer import write_tiny_test_vocab
+    from fitclip_torch.ops.metrics import ranks_from_scores
+    from fitclip_torch.ops.quant import load_act_scales
+
+    work = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "msrvtt"
+    try:
+        start = time.perf_counter()
+        ids, captions = write_msrvtt_tree(root)
+        size_mb = sum(p.stat().st_size for p in root.rglob("*") if p.is_file()) / 1e6
+        merges, _ = write_tiny_test_vocab(str(work), [w for c in captions for w in c.split()])
+        print(f"eval cli: wrote {len(ids)} MJPG AVIs ({EVAL_FRAMES} frames of "
+              f"{EVAL_SIZE[0]}x{EVAL_SIZE[1]}), {size_mb:.1f} MB, and a BPE vocabulary over the "
+              f"captions' words in {time.perf_counter() - start:.1f} s")
+        try:
+            native.load_decoder()
+            native_note = "the native decoder built"
+        except ImportError as e:
+            native_note = f"the native decoder does not build here ({str(e).splitlines()[0]})"
+        reader = VideoReader.from_path(root / "videos" / "all" / f"{ids[0]}.avi")
+        print(f"eval cli: decoder {type(reader).__name__} ({native_note})")
+        del reader
+
+        os.environ["MSRVTT_PATH"] = str(root)
+        scales = work / "act_scales.npz"
+        common = ["encoder=clip_vit_b_16", "++encoder.dtype=int8", "data=msrvtt",
+                  f"+encoder.bpe_path={merges}", f"++quant.scales_path={scales}"]
+        evaluate = ["command=evaluate", *common, "++quant.calibration_batches=1"]
+        print(f"eval cli: python -m fitclip_torch {' '.join(evaluate)}")
+        out, messages, eval_s, eval_launches = cli_run(torch, wrappers, evaluate)
+        metrics = json.loads(out[out.index("{"):])
+        predictions_path = work / "predictions.pt"
+        predict = ["command=predict", *common, f"+output_path={predictions_path}"]
+        print(f"eval cli: python -m fitclip_torch {' '.join(predict)}")
+        _, predict_messages, predict_s, predict_launches = cli_run(torch, wrappers, predict)
+        predictions = torch.load(predictions_path, weights_only=False)
+        videos, texts = predictions["encoded_videos"], predictions["encoded_texts"]
+        print(f"eval cli: evaluate {eval_s:.2f} s wall (encoder load, calibration on one "
+              f"batch, {len(ids)} clips), predict {predict_s:.2f} s wall")
+
+        # Gate (i): the printed metrics are the rank math of predict's embeddings.
+        require(predictions["video_ids"] == ids and videos.shape[0] == len(ids)
+                and texts.shape == videos.shape,
+                f"predictions: {videos.shape}, {texts.shape}, ids in order "
+                f"{predictions['video_ids'] == ids}")
+        scores = texts.float() @ videos.float().T
+        recomputed = retrieval_metrics(ranks_from_scores(scores, torch.arange(len(ids))))
+        print(f"eval cli gate (i): printed {metrics}, recomputed from predict {recomputed}")
+        require(metrics == recomputed, f"printed metrics {metrics} != recomputed {recomputed}")
+        # Gate (iv): the text embeddings are finite.
+        require(bool(torch.isfinite(texts).all()) and bool(torch.isfinite(videos).all()),
+                "non-finite embeddings")
+
+        # Gate (iii): K1's seven launches per layer, 12 + 12 layers, per eval batch;
+        # the calibration pass (the module path in dynamic mode: fused_attention_qkv
+        # once per layer) is left out of K1's count.
+        batches = -(-len(ids) // EVAL_BATCH)
+        expected = {name: 0 for name in wrappers}
+        expected.update({name: n * 2 * LAYERS * batches
+                         for name, n in INT8_LAUNCHES_PER_LAYER.items()})
+        calibration = {"fused_attention_qkv": 2 * LAYERS}
+        print(f"eval cli gate (iii): evaluate launches "
+              f"{({k: n for k, n in eval_launches.items() if n})}, predict launches "
+              f"{({k: n for k, n in predict_launches.items() if n})}; K1 expected per run "
+              f"{({k: n for k, n in expected.items() if n})} ({batches} batches), the "
+              f"calibration {calibration}")
+        require(eval_launches == {**expected, **calibration},
+                f"evaluate launches {eval_launches}")
+        require(predict_launches == expected, f"predict launches {predict_launches}")
+
+        # Gate (ii): predict's video embeddings against the plain versions
+        # (fused_attention=False: the module path) with the same scales, on the same
+        # clips; gate (v): no decoded clip is all zeros.
+        plain = load_clip_encoder("ViT-B/16", dtype="int8", device="cuda", seed=0,
+                                  fused_attention=False, bpe_path=merges)
+        load_act_scales(str(scales), plain.encoder.model)
+        loader = MsrVttDataModule(base_path=str(root), encoder=plain,
+                                  eval_batch_size=EVAL_BATCH).val_dataloader()
+        plain_videos, zero_clips = [], 0
+        for batch in loader:
+            clips = batch["video"]
+            zero_clips += int((clips.reshape(clips.shape[0], -1).max(axis=1) == 0).sum())
+            plain_videos.append(plain.encode_video(torch.from_numpy(clips).cuda()).float().cpu())
+        cos = min_cosine(videos, torch.cat(plain_videos))
+        print(f"eval cli gate (ii): predict video embeddings vs the plain versions, min "
+              f"cosine {cos:.6f}; gate (v): {zero_clips} all-zero clips of {len(ids)}")
+        require(cos > GATE_COSINE, f"eval cli: kernels vs plain versions cosine {cos}")
+        require(zero_clips == 0, f"{zero_clips} decoded clips are all zeros")
+        del plain
+
+        # A warmed window, split. Every clip has been read three times by now (the
+        # files sit in the page cache) and CUDA is warm.
+        window = warm_eval_window(torch, root, merges, scales)
+        rate = [m for m in predict_messages if m.startswith("Encoded")]
+        print(f"eval cli: predict's loop (cold: its first batch has nothing to overlap; 3 "
+              f"batches): {rate[0] if rate else 'no reading'}; evaluate's: "
+              f"{[m for m in messages if m.startswith('Evaluated')]} "
+              f"(clocks {clocks()}; {nvidia_smi()})")
+        print(json.dumps({"eval_cli_window": window, "card": nvidia_smi()}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"eval_cli": eval_launches, "predict_cli": predict_launches}
+
+
 def main() -> int:
     import torch
 
@@ -3174,9 +3512,14 @@ def main() -> int:
     print(f"clocks (phase 10): {clocks()}")
     bench_paths, bench_times, _ = bench_phase(torch, checks, wrappers)
     times.update(bench_times)
+
+    # Phase 11: the eval CLI on the card.
+    torch.cuda.empty_cache()
+    print(f"clocks (phase 11): {clocks()}")
+    cli_paths = eval_cli_phase(torch, wrappers)
     paths = {"encode": launches, **paths, **fit_paths, **fit_fp32_paths, **s3dg_paths,
              **clip_k2_paths,
-             **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths}
+             **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths, **cli_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:

@@ -7,8 +7,9 @@ device, or only cast when the pixel normalization is folded into the patch
 embedding. An int8 encoder calibrates its static activation scales by running
 both towers in dynamic-quant mode.
 
-The tokenizer is not ported yet: ``encode_text`` takes token ids whose EOT
-token carries the largest id of its row, as CLIP's BPE gives them.
+``encode_text`` takes token ids from ``get_tokenizer()`` (CLIP's byte-level
+BPE, ``tokenizer.py``): its EOT token carries the largest id of its row.
+``preprocess`` is the data layer's recipe (``models/api.py``).
 
 ``encode_video`` and ``encode_text`` are differentiable through the module
 path (the train steps differentiate through them); eval callers and the
@@ -17,14 +18,18 @@ frozen teacher run them under ``torch.no_grad()``. The fused layer path
 runs without a graph.
 """
 
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Iterator, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from fitclip_torch.data.frame_sampler import (RandomFromUniformIntervalsFrameSampler,
+                                              UniformFrameSampler)
+from fitclip_torch.models.api import PreprocessSpec
 from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
 from fitclip_torch.models.clip.model import CLIPConfig, CLIPModel, fold_pixel_normalization
+from fitclip_torch.models.clip.tokenizer import ClipTokenizer
 from fitclip_torch.ops.quant import apply_act_scales, dynamic_observing, observed_act_amax
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -61,13 +66,15 @@ class ClipVideoTextEncoder(nn.Module):
     otherwise the module path runs.
     ``pad_seq`` pads the vision sequence of the fused path with masked rows.
     ``remat`` (False, True or "dots") checkpoints each residual block in
-    training (``model.py``)."""
+    training (``model.py``). ``bpe_path`` names the BPE merges file (else
+    ``FITCLIP_BPE_PATH``); ``tokenizer`` gives a built one instead."""
 
     def __init__(self, config: Optional[CLIPConfig] = None, num_frames: int = 4,
                  dtype: torch.dtype = torch.float32, fused_attention: bool = False,
                  pixel_normalization_folded: bool = False, quantized: bool = False,
                  fused_block: Optional[bool] = None, pad_seq: int = 0, device=None,
-                 remat: Union[bool, str] = False):
+                 remat: Union[bool, str] = False, bpe_path: Optional[str] = None,
+                 tokenizer: Optional[ClipTokenizer] = None):
         super().__init__()
         self.config = config or CLIPConfig.vit_b_16()
         self.dtype = dtype
@@ -81,6 +88,16 @@ class ClipVideoTextEncoder(nn.Module):
         self.mean, self.std = CLIP_MEAN, CLIP_STD
         self.model = CLIPModel(self.config, dtype=dtype, fused_attention=fused_attention,
                                quantized=quantized, device=device, remat=remat)
+        self._bpe_path, self._tokenizer = bpe_path, tokenizer
+        self.preprocess = PreprocessSpec(
+            num_frames=num_frames,
+            image_size=self.config.vision.image_size,
+            mean=CLIP_MEAN,
+            std=CLIP_STD,
+            train_frame_sampler=RandomFromUniformIntervalsFrameSampler(num_frames),
+            eval_frame_sampler=UniformFrameSampler(num_frames),
+            max_tokens=self.config.text.context_length,
+        )
 
     def fold_pixel_normalization(self) -> "ClipVideoTextEncoder":
         """Fold this encoder's pixel normalization into the patch embedding,
@@ -132,3 +149,14 @@ class ClipVideoTextEncoder(nn.Module):
         abs-maxes into the act_scale buffers, in place."""
         apply_act_scales(self.model, self.collect_act_amax(video, text), margin=margin)
         return self
+
+    def get_tokenizer(self) -> Callable[[Sequence[str]], np.ndarray]:
+        if self._tokenizer is None:
+            self._tokenizer = ClipTokenizer(bpe_path=self._bpe_path,
+                                            context_length=self.config.text.context_length)
+        return self._tokenizer
+
+    def decode_text(self, ids) -> Iterator[str]:
+        tokenizer = self.get_tokenizer()
+        for row in np.asarray(ids):
+            yield tokenizer.decode(row[row != 0])

@@ -1,10 +1,14 @@
-"""Encoder factory (port of ``fitclip_tpu/models/clip/load.py``): a preset
-name and a dtype give a ``ClipVideoTextEncoder`` on a device.
+"""Encoder factories (port of ``fitclip_tpu/models/clip/load.py``): the
+``_target_``s behind ``config/encoder/clip*.yaml``.
 
-There are no released weights here, so the encoder is initialized from a
-seed (``model.init_float_params``). ``dtype="int8"`` is the W8A8 inference
+A preset name, or a torch checkpoint (``checkpoint_path``, OpenAI or HF
+layout, read by ``convert/torch_state_dict.py``; an OpenAI one gives its own
+architecture), and a dtype give a ``ClipVideoTextEncoder`` on a device.
+Without a checkpoint the encoder is initialized from a seed
+(``model.init_float_params``). ``dtype="int8"`` is the W8A8 inference
 configuration: bf16 activations and int8 block denses, quantized from the
-seeded float weights, so a float and an int8 encoder of one seed share them.
+float weights, so a float and an int8 encoder of one seed or checkpoint share
+them.
 
 The encoder runs on CUDA unless the caller asks for another device
 (``device="cpu"``); without a card a CUDA request raises. The kernel defaults
@@ -21,8 +25,12 @@ from typing import Optional, Union
 import torch
 
 from fitclip_torch.convert.from_jax import params_from_jax, params_to_jax
+from fitclip_torch.convert.torch_state_dict import (clip_tree_from_torch,
+                                                    config_from_openai_state_dict,
+                                                    detect_schema, load_torch_state_dict)
 from fitclip_torch.models.clip.encoder import ClipVideoTextEncoder
 from fitclip_torch.models.clip.model import CLIPConfig, CLIPModel, init_float_params
+from fitclip_torch.models.clip.tokenizer import ClipTokenizer
 from fitclip_torch.ops.quant import quantize_clip_params
 
 LOGGER = logging.getLogger(__name__)
@@ -50,7 +58,7 @@ def resolve_device(device) -> torch.device:
 @dataclasses.dataclass
 class LoadedEncoder:
     """An encoder with its weights, as the CLI wires it into task modules."""
-    encoder: ClipVideoTextEncoder
+    encoder: torch.nn.Module
 
     def encode_video(self, video: torch.Tensor) -> torch.Tensor:
         return self.encoder.encode_video(video)
@@ -58,31 +66,79 @@ class LoadedEncoder:
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
         return self.encoder.encode_text(text)
 
+    def get_tokenizer(self):
+        return self.encoder.get_tokenizer()
 
-def load_clip_encoder(name: str = "ViT-B/16", dtype: str = "float32",
-                      device="cuda", seed: int = 0, num_frames: int = 4,
+    def decode_text(self, ids):
+        return self.encoder.decode_text(ids)
+
+    @property
+    def preprocess(self):
+        return self.encoder.preprocess
+
+
+def load_clip_encoder(name: str = "ViT-B/16", checkpoint_path: Optional[str] = None,
+                      num_frames: int = 4, dtype: str = "float32",
+                      remat: Union[bool, str] = False,
                       fused_attention: Optional[bool] = None,
-                      fused_block: Optional[bool] = None,
-                      pad_seq: int = 0, remat: Union[bool, str] = False) -> LoadedEncoder:
-    if name not in PRESETS:
-        raise ValueError(f"Unknown CLIP preset {name!r}. Presets: {sorted(PRESETS)}")
+                      fused_block: Optional[bool] = None, bpe_path: Optional[str] = None,
+                      seed: int = 0, strip_prefix: Optional[str] = None, device="cuda",
+                      pad_seq: int = 0) -> LoadedEncoder:
     quantized = str(dtype) == "int8"
     if not quantized and str(dtype) not in _DTYPES:
         raise ValueError(f"Unknown encoder dtype {dtype!r} — expected one of "
                          f"{sorted(_DTYPES)} or 'int8'")
+    state_dict = None
+    if checkpoint_path:
+        state_dict = load_torch_state_dict(checkpoint_path, strip_prefix=strip_prefix)
+        if "visual.attnpool.q_proj.weight" in state_dict:
+            raise NotImplementedError("CLIP ResNet checkpoints are not ported yet "
+                                      "(ROADMAP.md, queue 1)")
+        if detect_schema(state_dict) == "openai":
+            config = config_from_openai_state_dict(state_dict)
+        else:
+            config = PRESETS[name]()
+    elif name in PRESETS:
+        config = PRESETS[name]()
+    else:
+        raise ValueError(f"Unknown CLIP preset {name!r} and no checkpoint_path given. "
+                         f"Presets: {sorted(PRESETS)}")
     device = resolve_device(device)
     if fused_attention is None:
         fused_attention = device.type == "cuda"
-    config = PRESETS[name]()
     encoder = ClipVideoTextEncoder(config, num_frames=num_frames,
                                    dtype=_DTYPES["bfloat16" if quantized else str(dtype)],
                                    fused_attention=fused_attention, quantized=quantized,
                                    fused_block=fused_block, pad_seq=pad_seq, device="cpu",
-                                   remat=remat)
-    LOGGER.warning("No checkpoint for CLIP %s: initializing from seed %d.", name, seed)
-    float_model = init_float_params(CLIPModel(config), seed)
-    state = float_model.state_dict()
-    if quantized:
-        state = params_from_jax(quantize_clip_params(params_to_jax(state, config)), config)
+                                   remat=remat, bpe_path=bpe_path)
+    if state_dict is not None:
+        tree = clip_tree_from_torch(state_dict, config)
+        state = params_from_jax(quantize_clip_params(tree) if quantized else tree, config)
+    else:
+        LOGGER.warning("No checkpoint for CLIP %s: initializing from seed %d.", name, seed)
+        state = init_float_params(CLIPModel(config), seed).state_dict()
+        if quantized:
+            state = params_from_jax(quantize_clip_params(params_to_jax(state, config)), config)
     encoder.model.load_state_dict(state)
+    return LoadedEncoder(encoder.to(device))
+
+
+def load_clip_from_scratch(name: str = "ViT-B/16", **kwargs) -> LoadedEncoder:
+    """A fresh seeded initialization (config/encoder/clip_from_scratch_*.yaml)."""
+    return load_clip_encoder(name=name, checkpoint_path=None, **kwargs)
+
+
+def load_tiny_test_encoder(num_frames: int = 4, seed: int = 0, bpe_path: Optional[str] = None,
+                           vocab_path: Optional[str] = None, device="cuda") -> LoadedEncoder:
+    """A tiny seeded CLIP (``CLIPConfig.tiny_test``, context 16) for tests and
+    CLI dry runs; its vocabulary is the tokenizer's when ``bpe_path`` is given."""
+    tokenizer = None
+    if bpe_path:
+        tokenizer = ClipTokenizer(bpe_path=bpe_path, vocab_path=vocab_path, context_length=16)
+    config = CLIPConfig.tiny_test(vocab_size=tokenizer.vocab_size if tokenizer else 64)
+    device = resolve_device(device)
+    # head_dim 12: the module path with plain attention on either device.
+    encoder = ClipVideoTextEncoder(config, num_frames=num_frames, device="cpu",
+                                   tokenizer=tokenizer)
+    encoder.model.load_state_dict(init_float_params(CLIPModel(config), seed).state_dict())
     return LoadedEncoder(encoder.to(device))

@@ -29,6 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from fitclip_torch.data.frame_sampler import (RandomFromUniformIntervalsFrameSampler,
+                                              UniformFrameSampler)
+from fitclip_torch.models.api import PreprocessSpec
 from fitclip_torch.models.clip.encoder import l2_normalize
 from fitclip_torch.models.frozen_in_time.distilbert import DistilBertConfig, DistilBertModel
 from fitclip_torch.models.frozen_in_time.fit_fast import encode_video_features_fast
@@ -72,6 +75,11 @@ class FrozenInTimeVideoTextEncoder(nn.Module):
         self.fused_block = quantized and fused_attention if fused_block is None else fused_block
         self.num_frames, self.max_tokens, self.vocab_path = num_frames, max_tokens, vocab_path
         self._tokenizer = None
+        self.preprocess = PreprocessSpec(
+            num_frames=num_frames, image_size=config.img_size, mean=IMAGENET_MEAN,
+            std=IMAGENET_STD,
+            train_frame_sampler=RandomFromUniformIntervalsFrameSampler(num_frames),
+            eval_frame_sampler=UniformFrameSampler(num_frames), max_tokens=max_tokens)
         self.video = SpaceTimeTransformer(config.embed_dim, config.depth, config.num_heads,
                                           config.patch_size, config.img_size, config.num_frames,
                                           dtype, fused_attention, quantized, device)

@@ -21,6 +21,9 @@ import torch
 from torch import nn
 
 from fitclip_torch.convert.from_jax import mil_nce_params_from_jax
+from fitclip_torch.convert.torch_state_dict import load_torch_state_dict
+from fitclip_torch.data.frame_sampler import ConsecutiveFrameSampler
+from fitclip_torch.models.api import PreprocessSpec
 from fitclip_torch.models.clip.load import _DTYPES, LoadedEncoder, resolve_device
 from fitclip_torch.models.s3dg import S3DG, MilNceTextEncoder, init_s3dg_params, nest
 from fitclip_torch.models.s3dg_fast import quantize_s3dg_fast, s3dg_fast_apply
@@ -98,16 +101,6 @@ def mil_nce_params_from_torch(video_state_dict: Mapping[str, np.ndarray],
             "text": torch_tree_to_jax(text_state_dict)}
 
 
-def load_torch_state_dict(path: str) -> dict:
-    """A torch checkpoint (a state dict, or {"state_dict": ...}) as fp32 numpy arrays."""
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(obj, dict) and isinstance(obj.get("state_dict"), dict):
-        obj = obj["state_dict"]
-    if not isinstance(obj, dict):
-        obj = obj.state_dict()
-    return {k: v.detach().float().numpy() for k, v in obj.items() if hasattr(v, "detach")}
-
-
 def init_mil_nce_params(seed: int = 0, vocab_size: int = 66250) -> dict:
     """A seeded tree: ``init_s3dg_params`` for the video tower, the text tower's
     word embedding from normal(1.0) and its FC kernels LeCun-normal (numpy)."""
@@ -141,6 +134,12 @@ class MilNceVideoTextEncoder(nn.Module):
         self.num_frames, self.max_tokens = num_frames, max_tokens
         self._tokenizer = (MilNceTokenizer.from_npy(vocab_path, max_tokens=max_tokens)
                            if vocab_path else None)
+        self.preprocess = PreprocessSpec(
+            num_frames=num_frames, image_size=224, mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0),
+            train_frame_sampler=ConsecutiveFrameSampler(num_frames, fps=5),
+            eval_frame_sampler=ConsecutiveFrameSampler(num_frames, fps=5),
+            resize_mode="bilinear", should_pad_batch=False, pad_to_min_frames=num_frames,
+            max_tokens=max_tokens)
         self.video = S3DG(dtype=dtype, int8_from=int8_from if quantized else False)
         self.text = MilNceTextEncoder(vocab_size=vocab_size)
 

@@ -13,8 +13,8 @@ Module names mirror the JAX parameter tree (``visual.blocks.blocks.3.attn.
 in_proj`` is ``visual/blocks/blocks/attn/in_proj`` at layer 3), so
 ``convert/from_jax.py`` and the act-scale files map one to one.
 
-Evaluation only, as the reference (its train sampler raises). The CLIP BPE
-tokenizer is not ported yet: ``encode_text`` takes token ids whose EOT token
+Evaluation only, as the reference (its train sampler raises).
+``encode_text`` takes CLIP BPE ids (``get_tokenizer()``): the EOT token
 carries the largest id of its row.
 """
 
@@ -27,7 +27,12 @@ import torch
 from torch import nn
 
 from fitclip_torch.convert.from_jax import slip_params_from_jax, slip_params_to_jax
+from fitclip_torch.convert.torch_state_dict import (_dense_stack, _ln_stack,
+                                                   _openai_tower_blocks, _patch_kernel)
+from fitclip_torch.data.frame_sampler import UniformFrameSampler
+from fitclip_torch.models.api import PreprocessSpec
 from fitclip_torch.models.clip.encoder import l2_normalize, prepare_frames
+from fitclip_torch.models.clip.tokenizer import ClipTokenizer
 from fitclip_torch.models.clip.load import _DTYPES, LoadedEncoder, resolve_device
 from fitclip_torch.models.clip.model import (Dense, LayerNormFp32, TextConfig, Transformer,
                                              _truncated_normal)
@@ -194,9 +199,16 @@ class SlipVideoTextEncoder(nn.Module):
 
     def __init__(self, config: Optional[SlipConfig] = None, num_frames: int = 4,
                  dtype: torch.dtype = torch.float32, fused_attention: bool = False,
-                 quantized: bool = False, fused_block: Optional[bool] = None, device=None):
+                 quantized: bool = False, fused_block: Optional[bool] = None, device=None,
+                 bpe_path: Optional[str] = None):
         super().__init__()
         self.config = config or SlipConfig.vit_b16()
+        self._bpe_path, self._tokenizer = bpe_path, None
+        self.preprocess = PreprocessSpec(
+            num_frames=num_frames, image_size=self.config.image_size, mean=IMAGENET_MEAN,
+            std=IMAGENET_STD, train_frame_sampler=_raise_train_sampler,
+            eval_frame_sampler=UniformFrameSampler(num_frames), resize_mode="bilinear",
+            max_tokens=self.config.text.context_length)
         self.dtype, self.quantized, self.num_frames = dtype, quantized, num_frames
         self.fused_attention = fused_attention
         self.fused_block = (bool(quantized) and fused_attention
@@ -246,35 +258,22 @@ class SlipVideoTextEncoder(nn.Module):
         apply_act_scales(self.model, self.collect_act_amax(video, text), margin=margin)
         return self
 
-    def get_tokenizer(self):
-        raise NotImplementedError("SLIP's tokenizer is CLIP's byte-level BPE, which is not "
-                                  "ported yet (queued in ROADMAP.md); encode_text takes "
-                                  "token ids")
+    def get_tokenizer(self) -> ClipTokenizer:
+        """CLIP's byte-level BPE (``bpe_path``, else ``FITCLIP_BPE_PATH``)."""
+        if self._tokenizer is None:
+            self._tokenizer = ClipTokenizer(bpe_path=self._bpe_path,
+                                            context_length=self.config.text.context_length)
+        return self._tokenizer
+
+    def decode_text(self, ids):
+        tokenizer = self.get_tokenizer()
+        for row in np.asarray(ids):
+            yield tokenizer.decode(row[row != 0])
 
 
 # --- a SLIP checkpoint's state dict -> the port --------------------------------
-# Own copies of the JAX package's converter helpers
-# (fitclip_tpu/convert/torch_state_dict.py, models/slip.py): they build the JAX
-# layout as numpy, which slip_params_from_jax then maps.
-
-def _stack(arrays):
-    return np.stack(arrays, axis=0)
-
-
-def _patch_kernel(conv_weight: np.ndarray) -> np.ndarray:
-    """torch conv (out, in=3, ph, pw) -> matmul kernel rows ordered (ph, pw, c)."""
-    return conv_weight.transpose(2, 3, 1, 0).reshape(-1, conv_weight.shape[0])
-
-
-def _dense_stack(sd, fmt, layers):
-    return {"kernel": _stack([sd[fmt.format(i=i, leaf="weight")].T for i in range(layers)]),
-            "bias": _stack([sd[fmt.format(i=i, leaf="bias")] for i in range(layers)])}
-
-
-def _ln_stack(sd, fmt, layers):
-    return {"ln": {"scale": _stack([sd[fmt.format(i=i, leaf="weight")] for i in range(layers)]),
-                   "bias": _stack([sd[fmt.format(i=i, leaf="bias")] for i in range(layers)])}}
-
+# The JAX layout is built as numpy (convert/torch_state_dict.py's helpers), and
+# slip_params_from_jax then maps it.
 
 def _timm_blocks(sd, prefix: str, layers: int) -> dict:
     return {
@@ -284,23 +283,6 @@ def _timm_blocks(sd, prefix: str, layers: int) -> dict:
         "ln_2": _ln_stack(sd, prefix + ".{i}.norm2.{leaf}", layers),
         "mlp_fc": _dense_stack(sd, prefix + ".{i}.mlp.fc1.{leaf}", layers),
         "mlp_proj": _dense_stack(sd, prefix + ".{i}.mlp.fc2.{leaf}", layers),
-    }
-
-
-def _openai_tower_blocks(sd, prefix: str, layers: int) -> dict:
-    """OpenAI resblocks (in_proj_weight/in_proj_bias, c_fc/c_proj) in the scan layout."""
-    r = prefix + ".resblocks.{i}."
-    return {
-        "attn": {"in_proj": {
-                     "kernel": _stack([sd[r.format(i=i) + "attn.in_proj_weight"].T
-                                       for i in range(layers)]),
-                     "bias": _stack([sd[r.format(i=i) + "attn.in_proj_bias"]
-                                     for i in range(layers)])},
-                 "out_proj": _dense_stack(sd, r + "attn.out_proj.{leaf}", layers)},
-        "ln_1": _ln_stack(sd, r + "ln_1.{leaf}", layers),
-        "ln_2": _ln_stack(sd, r + "ln_2.{leaf}", layers),
-        "mlp_fc": _dense_stack(sd, r + "mlp.c_fc.{leaf}", layers),
-        "mlp_proj": _dense_stack(sd, r + "mlp.c_proj.{leaf}", layers),
     }
 
 
@@ -347,7 +329,8 @@ SLIP_MODEL_CONFIGS = {
 def load_slip_encoder(checkpoint_path: Optional[str] = None, model: str = "SLIP_VITB16",
                       num_frames: int = 4, dtype: str = "float32", device="cuda", seed: int = 0,
                       fused_attention: Optional[bool] = None,
-                      fused_block: Optional[bool] = None) -> LoadedEncoder:
+                      fused_block: Optional[bool] = None,
+                      bpe_path: Optional[str] = None) -> LoadedEncoder:
     """A SLIP encoder on a device (config/encoder/slip_* in the JAX package).
 
     A released checkpoint names its factory in ``args.model``; with no
@@ -379,7 +362,7 @@ def load_slip_encoder(checkpoint_path: Optional[str] = None, model: str = "SLIP_
     encoder = SlipVideoTextEncoder(config, num_frames=num_frames,
                                    dtype=_DTYPES["bfloat16" if quantized else str(dtype)],
                                    fused_attention=fused_attention, quantized=quantized,
-                                   fused_block=fused_block, device="cpu")
+                                   fused_block=fused_block, device="cpu", bpe_path=bpe_path)
     if state_dict is not None:
         tree = slip_tree_from_torch(state_dict, config)
     else:

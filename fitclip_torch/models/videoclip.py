@@ -30,7 +30,10 @@ from torch import nn
 from fitclip_torch.convert.from_jax import videoclip_params_from_jax
 from fitclip_torch.models.clip.load import _DTYPES, LoadedEncoder, resolve_device
 from fitclip_torch.models.clip.model import Dense, LayerNormFp32
-from fitclip_torch.models.mil_nce import load_torch_state_dict, torch_tree_to_jax
+from fitclip_torch.convert.torch_state_dict import load_torch_state_dict
+from fitclip_torch.data.frame_sampler import ConsecutiveFrameSampler
+from fitclip_torch.models.api import PreprocessSpec
+from fitclip_torch.models.mil_nce import torch_tree_to_jax
 from fitclip_torch.models.s3dg import S3DG, init_s3dg_params
 from fitclip_torch.models.s3dg_fast import quantize_s3dg_fast, s3dg_fast_apply
 from fitclip_torch.ops.quant import apply_act_scales, dynamic_observing, observed_act_amax
@@ -194,6 +197,12 @@ class VideoClipVideoTextEncoder(nn.Module):
         self.num_frames, self.max_tokens, self.frames_per_clip = (num_frames, max_tokens,
                                                                   frames_per_clip)
         self.vocab_path, self._tokenizer = vocab_path, None
+        self.preprocess = PreprocessSpec(
+            num_frames=num_frames, image_size=224, mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0),
+            train_frame_sampler=ConsecutiveFrameSampler(num_frames, fps=30),
+            eval_frame_sampler=ConsecutiveFrameSampler(num_frames, fps=30),
+            resize_mode="bilinear", should_pad_batch=False, pad_to_min_frames=num_frames,
+            max_tokens=max_tokens)
         self.s3dg = S3DG(dtype=dtype, int8_from=int8_from if quantized else False)
         self.model = VideoClipModel(self.config, dtype=dtype)
 

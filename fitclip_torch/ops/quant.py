@@ -153,12 +153,15 @@ def observed_act_amax(model: nn.Module, prefix: str = "") -> Dict[str, np.ndarra
 
 
 def merge_act_amax(a, b):
-    """Elementwise-max merge of two act-amax dicts; either may be None."""
+    """Elementwise-max merge of two act-amax dicts; either may be None, and a
+    site that only one observed (a batch without text) keeps its abs-max."""
     if a is None:
         return b
     if b is None:
         return a
-    return {key: np.maximum(np.asarray(a[key]), np.asarray(b[key])) for key in a}
+    return {key: np.maximum(np.asarray(a[key]), np.asarray(b[key]))
+            if key in a and key in b else np.asarray(a[key] if key in a else b[key])
+            for key in a.keys() | b.keys()}
 
 
 def _write_scales(modules: List[nn.Module], values: np.ndarray) -> None:

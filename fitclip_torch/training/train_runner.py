@@ -10,7 +10,7 @@ blocking). Distribution (DDP, FSDP, several hosts) is not ported yet
 """
 
 import logging
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,6 +123,16 @@ def _refuse_untrainable(slot_name: str, enc) -> None:
             "to train")
 
 
+def load_prompts(prompts_path: str, student, teacher, device) -> Tuple[torch.Tensor, ...]:
+    """The prompt file's non-empty lines, tokenized by the student's and the
+    teacher's tokenizers, as int64 ids on the device (they replace the
+    unlabeled text of the teacher-student step)."""
+    with open(prompts_path) as file:
+        prompts = [line.strip() for line in file if line.strip()]
+    return tuple(torch.from_numpy(np.asarray(enc.get_tokenizer()(prompts))).long().to(device)
+                 for enc in (student, teacher))
+
+
 def run_train(encoder_slot, data_module, model_cfg: Mapping[str, Any],
               trainer_cfg: Mapping[str, Any], optimizer_cfg: Mapping[str, Any],
               callbacks_cfg: Optional[Mapping[str, Any]] = None,
@@ -136,12 +146,6 @@ def run_train(encoder_slot, data_module, model_cfg: Mapping[str, Any],
     # The frozen teacher never receives gradients, so an inference-form teacher
     # (int8, fused layer kernels) is valid; a gradient-carrying slot is not.
     _refuse_untrainable("student" if is_teacher_student else "encoder", student.encoder)
-    if prompts_path:
-        raise NotImplementedError(
-            "prompts_path needs the CLIP tokenizer, which fitclip_torch does not have yet "
-            "(ROADMAP.md §1, Tokenizer); pass prompt token ids to "
-            "make_teacher_student_train_step instead")
-
     encoder = student.encoder
     device = next(encoder.parameters()).device
     params_template = {"encoder": encoder, "logit_scale": torch.zeros(1)}
@@ -175,9 +179,12 @@ def run_train(encoder_slot, data_module, model_cfg: Mapping[str, Any],
         LOGGER.info("Resumed full TrainState at step %d from %s", state.step, checkpoint_path)
 
     if is_teacher_student:
+        student_prompts, teacher_prompts = (load_prompts(prompts_path, student, teacher, device)
+                                            if prompts_path else (None, None))
         step = make_teacher_student_train_step(
             encoder, teacher.encoder, optimizer,
-            labeled_loss_share=float(model_cfg.get("labeled_dataset_loss_share", 0.5)))
+            labeled_loss_share=float(model_cfg.get("labeled_dataset_loss_share", 0.5)),
+            student_prompt_ids=student_prompts, teacher_prompt_ids=teacher_prompts)
     else:
         step = make_contrastive_train_step(encoder, optimizer)
 

@@ -159,9 +159,13 @@ def test_untrainable_student_slots_are_refused(kwargs, match):
         run_train({"student": _encoder(0, **kwargs), "teacher": _encoder(1)}, data, {}, {}, {})
 
 
-def test_prompts_need_the_tokenizer(tmp_path):
+def test_prompts_need_the_tokenizer(tmp_path, monkeypatch):
+    """prompts_path is tokenized by each tower's CLIP tokenizer before any
+    step: without a BPE merges file that fails (the ids themselves are held to
+    JAX's in tests/test_torch_tokenizer.py)."""
+    monkeypatch.delenv("FITCLIP_BPE_PATH", raising=False)
     prompts = tmp_path / "prompts.txt"
     prompts.write_text("a video of a cat\n")
-    with pytest.raises(NotImplementedError, match="Tokenizer"):
+    with pytest.raises(FileNotFoundError, match="BPE"):
         run_train({"student": _encoder(0), "teacher": _encoder(1)}, DataModule([]), {}, {}, {},
                   prompts_path=str(prompts))
