@@ -9,14 +9,15 @@
     python3 chip_smoke.py --bench-arms [DIR]      # S2's s8 arms and slice-requant
     python3 chip_smoke.py --stem-cls [DIR]        # the S3D-G stem, K4's CLS row, their encodes
 
-Drives eight paths at full width, with weights initialized from a seed: int8
+Drives these paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
 teacher-student, through ``run_train``), Frozen-in-Time base zero-shot
 encoding (int8, bf16 and fp32), the S3D-G family (MIL-NCE bf16 and int8, VideoCLIP
 bf16), CLIP ViT-B/16 bf16 on the float layer kernels (K2), SLIP ViT-B/16 in
 four configurations, the port's benchmarks (``python -m
 fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench), and the
-eval CLI (``python -m fitclip_torch command=evaluate|predict``). It fails
+eval CLI (``python -m fitclip_torch command=evaluate|predict``, one data module
+and the drift_eval group) and the embed service over HTTP. It fails
 (non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
@@ -203,7 +204,33 @@ eval CLI (``python -m fitclip_torch command=evaluate|predict``). It fails
     cosine > 0.999; (iii) K1's 7 launches per layer on 12 + 12 layers per eval
     batch in each command, the evaluate's calibration (fused_attention_qkv
     once per layer) apart; (iv) finite embeddings; (v) no decoded clip is all
-    zeros. The tree is written under build/chip_smoke_eval/ and deleted.
+    zeros. Then grouped eval, ``data=drift_eval`` with those scales over the
+    MSR-VTT tree, a CC3M val tree (32 JPEGs, a comma CSV whose captions hold
+    commas and quotes) and a WebVid val tree (32 AVIs and a CSV): its
+    ``*_msrvtt`` metrics must equal evaluate's, the ``*_cc3m`` and ``*_webvid``
+    ones exist and are finite, K1's launches are 5 batches' worth.
+12. the embed service (``fitclip_torch.serving.embed_service``), after phase 11
+    and on its files: the seeded int8 CLIP ViT-B/16 composed from
+    ``EMBED_ENCODER=clip_vit_b_16`` with ``EMBED_OVERRIDES=++encoder.dtype=int8
+    ...``, phase 11's scales as EMBED_SCALES and predict's dump as
+    EMBED_INDEX; one CUDA graph per bucket of each tower (text 1-32, video
+    1-8), captured before any dispatcher starts; the stdlib Handler on
+    127.0.0.1. Traffic: (a) 64 serial /embed_text of one text, (b) 32 client
+    threads x 16 requests of 1-4 texts (from a spawned process, so that the
+    clients do not share the service's interpreter lock), (c) 16 /embed_video
+    posts of phase 11's AVIs from 4 threads, (d) 8 /search_videos, (e) an
+    empty body, bytes that are not a video, an oversized body and an unknown
+    path. Prints the set-up seconds and each capture's ms, p50/p99 latency
+    of (a)-(c), requests/s and texts/s of (b), clips/s of (c), /health, and
+    each bucket's replay against the eager kernel-path call (CUDA events).
+    Gates: (i) served text rows against encode_text on the same ids, min
+    cosine >= 0.9999 (the plain versions > 0.999); (ii) served clips against
+    the eval pipeline and encode_video by hand, the same rules; (iii)
+    /search_videos ranks as the host does from the index and the served
+    query; (iv) the captures record K1's 84 launches a bucket (840) and the
+    traffic launches nothing eagerly; (v) /health counts what was sent and
+    every response has one row per text; (vi) (e) gives 400, 400, 413, 404.
+    The trees are written under build/chip_smoke_eval/ and deleted.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 Each timed phase prints the card's SM and memory clocks beside its readings.
@@ -319,11 +346,12 @@ def bound(bytes_moved: float, ops, kind: str = None):
 # wrapper's host work (operand checks, torch.empty, the ctypes call) can set
 # the events' pace instead of the kernel.
 DEVICE_BELOW_MS = 0.1
+PROFILER_PASSES = 3
 COLD_BYTES = 3 * 50e6  # three times the H100's 50 MB L2
 
 
 def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = None,
-              only: str = None) -> float:
+              only: str = None) -> float | None:
     """fn(*args)'s device time per call: the summed device durations of what
     it launches (kernels and memsets), from torch.profiler, over at least
     ``iters`` calls (with ``only``, of the kernels whose name holds it: a
@@ -332,9 +360,13 @@ def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = No
     bytes together exceed COLD_BYTES, so that each call finds
     its inputs out of L2, as the bound (HBM bytes) assumes; ``touched`` is the
     bytes a call reads where that is less than its tensors' size (a slice of
-    each row). Where the profiler shows no device time (or with ``graph``),
+    each row). The profiler drops an event now and then, so a pass whose
+    count of events is no multiple of the calls is run again, up to
+    PROFILER_PASSES times. Where every pass lost events (or with ``graph``),
     the same calls are captured in a CUDA graph and its replays timed with
-    events."""
+    events; a callable marked ``capturable = False`` (autograd on a forward
+    that ran outside the capture) is not captured, and its device time is
+    then None (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -346,7 +378,8 @@ def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = No
     for inputs in sets:  # warm-up: each copy once
         fn(*inputs)
     torch.cuda.synchronize()
-    if not graph:
+    name = getattr(fn, "__name__", fn)
+    for _ in range(0 if graph else PROFILER_PASSES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for i in range(calls):
                 fn(*sets[i % copies])
@@ -362,9 +395,15 @@ def device_ms(fn, *args, iters: int = 20, graph: bool = False, touched: int = No
         # calls means the profiler lost events.
         if total_us > 0 and launches % calls == 0:
             return total_us / 1e3 / calls
-        require(only is None, f"device_ms: the profiler lost events of {only}")
         print(f"  device_ms: the profiler shows {launches} device events for {calls} calls of "
-              f"{getattr(fn, '__name__', fn)}; timing a CUDA graph of the calls")
+              f"{name}")
+    if not graph:
+        require(only is None, f"device_ms: the profiler lost events of {only}")
+    if not getattr(fn, "capturable", True):
+        print(f"  device_ms: {name} cannot be captured; its device time is not measured")
+        return None
+    if not graph:
+        print(f"  device_ms: timing a CUDA graph of the calls of {name}")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -415,7 +454,9 @@ def sdpa_backward(torch, q, k, v, scale, causal=False):
     """(fn, q, k, v, grad): SDPA's backward on (N, H, S, D) operands, as
     timing() takes it. fn runs SDPA's forward on the first call with a set of
     inputs (a warm-up call in cuda_ms and device_ms, which give each copy of
-    the inputs one) and the backward alone on every call."""
+    the inputs one) and the backward alone on every call. Autograd runs each
+    backward op on its forward's stream, here the default one, so fn cannot
+    be captured in a CUDA graph (which records on a stream of its own)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     graphs = {}
 
@@ -427,6 +468,7 @@ def sdpa_backward(torch, q, k, v, scale, causal=False):
         leaves, out = graphs[key]
         return torch.autograd.grad(out, leaves, grad, retain_graph=True)
 
+    backward.capturable = False
     return backward, q, k, v, torch.ones_like(q)
 
 
@@ -3026,31 +3068,36 @@ EVAL_FRAMES, EVAL_SIZE, EVAL_FPS = 96, (320, 240), 30.0  # MSR-VTT's 320 x 240 a
 CAPTION_WORDS = ("man", "woman", "dog", "cat", "car", "ball", "kitchen", "street", "guitar",
                  "song", "game", "water", "horse", "child", "cooking", "running", "talking",
                  "playing", "singing", "driving", "red", "blue", "green", "small")
+DRIFT_ITEMS, DRIFT_FRAMES = 32, 48  # each of CC3M's and WebVid's val trees in data=drift_eval
+
+
+def write_avi(path: Path, rng: np.random.Generator, frames: int = EVAL_FRAMES) -> None:
+    """A seeded MJPG AVI of distinct content: a low-resolution random image,
+    upscaled and drifting a few pixels a frame."""
+    import cv2
+
+    width, height = EVAL_SIZE
+    base = cv2.resize(rng.integers(0, 256, (12, 16, 3), dtype=np.uint8), (width, height),
+                      interpolation=cv2.INTER_LINEAR)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), EVAL_FPS, EVAL_SIZE)
+    require(writer.isOpened(), "cv2 cannot write an MJPG AVI here")
+    for t in range(frames):
+        writer.write(np.roll(base, (t, 2 * t), axis=(0, 1)))
+    writer.release()
 
 
 def write_msrvtt_tree(root: Path, seed: int = 0):
     """An MSR-VTT tree as MsrVttDataModule reads it (videos/all,
     annotation/MSR_VTT.json, structured-symlinks/val_list_jsfusion.txt): 72
-    seeded MJPG AVIs of distinct content (a low-resolution random image per
-    video, upscaled and drifting a few pixels a frame) and distinct captions.
-    Returns (the video ids, the captions)."""
-    import cv2
-
+    seeded MJPG AVIs of distinct content and distinct captions. Returns (the
+    video ids, the captions)."""
     rng = np.random.default_rng(seed)
     videos = root / "videos" / "all"
     videos.mkdir(parents=True, exist_ok=True)
     ids, captions = [], []
-    width, height = EVAL_SIZE
     for i in range(EVAL_VIDEOS):
         video_id = f"video{7010 + i}"
-        base = cv2.resize(rng.integers(0, 256, (12, 16, 3), dtype=np.uint8), (width, height),
-                          interpolation=cv2.INTER_LINEAR)
-        writer = cv2.VideoWriter(str(videos / f"{video_id}.avi"),
-                                 cv2.VideoWriter_fourcc(*"MJPG"), EVAL_FPS, EVAL_SIZE)
-        require(writer.isOpened(), "cv2 cannot write an MJPG AVI here")
-        for t in range(EVAL_FRAMES):
-            writer.write(np.roll(base, (t, 2 * t), axis=(0, 1)))
-        writer.release()
+        write_avi(videos / f"{video_id}.avi", rng)
         words = rng.choice(CAPTION_WORDS, size=3, replace=False)
         ids.append(video_id)
         captions.append(f"a {words[0]} and a {words[1]} {words[2]} in video {i}")
@@ -3061,6 +3108,34 @@ def write_msrvtt_tree(root: Path, seed: int = 0):
     (root / "structured-symlinks" / "val_list_jsfusion.txt").write_text("\n".join(ids))
     require(len(set(captions)) == len(captions), "the captions are not distinct")
     return ids, captions
+
+
+def write_drift_trees(root: Path, seed: int = 1):
+    """The other two members of data=drift_eval: a CC3M val tree (32 JPEGs and
+    a comma CSV of caption,url,filename rows whose captions hold commas and
+    quotes) and a WebVid val tree (32 MJPG AVIs and a videoid,name CSV).
+    Returns the CC3M_VAL_* and WEBVID_VAL_* settings."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    images, videos = root / "cc3m" / "val", root / "webvid" / "val"
+    images.mkdir(parents=True)
+    videos.mkdir(parents=True)
+    cc3m_rows, webvid_rows = [], ["videoid,name,page_dir"]
+    for i in range(DRIFT_ITEMS):
+        words = rng.choice(CAPTION_WORDS, size=3, replace=False)
+        cv2.imwrite(str(images / f"{i:08d}.jpg"), cv2.resize(
+            rng.integers(0, 256, (12, 16, 3), dtype=np.uint8), EVAL_SIZE,
+            interpolation=cv2.INTER_LINEAR))
+        cc3m_rows.append(f'"a {words[0]}, a {words[1]} and ""{words[2]}"" {i}",'
+                         f"http://images.invalid/{i}.jpg,{i:08d}.jpg")
+        write_avi(videos / f"{31000 + i}.avi", rng, frames=DRIFT_FRAMES)
+        webvid_rows.append(f'{31000 + i},"the {words[0]}, {words[2]} clip {i}",dir{i % 4}')
+    (root / "cc3m" / "val.csv").write_text("\n".join(cc3m_rows) + "\n")
+    (root / "webvid" / "val.csv").write_text("\n".join(webvid_rows) + "\n")
+    return {"CC3M_VAL_TSV": str(root / "cc3m" / "val.csv"), "CC3M_VAL_IMAGES": str(images),
+            "WEBVID_VAL_CSV": str(root / "webvid" / "val.csv"),
+            "WEBVID_VAL_VIDEOS": str(videos)}
 
 
 class _Records(logging.Handler):
@@ -3222,10 +3297,13 @@ def warm_eval_window(torch, root: Path, merges: str, scales: Path):
     return result
 
 
-def eval_cli_phase(torch, wrappers):
-    """Phase 11: write the MSR-VTT tree, run ``command=evaluate encoder=clip_vit_b_16
-    ++encoder.dtype=int8 data=msrvtt ++quant.calibration_batches=1`` and then
-    ``command=predict`` (the persisted scales) through the CLI, and gate them."""
+def eval_cli_phase(torch, wrappers, work: Path):
+    """Phase 11: write the MSR-VTT tree under ``work``, run ``command=evaluate
+    encoder=clip_vit_b_16 ++encoder.dtype=int8 data=msrvtt ++quant.calibration_batches=1``
+    and then ``command=predict`` (the persisted scales) through the CLI, then
+    ``data=drift_eval`` with those scales, and gate them. Returns the launch
+    counts per command and what phase 12 serves from (the tree, the BPE merges,
+    the scales, predict's dump)."""
     import os
 
     from fitclip_torch.data import native
@@ -3237,105 +3315,462 @@ def eval_cli_phase(torch, wrappers):
     from fitclip_torch.ops.metrics import ranks_from_scores
     from fitclip_torch.ops.quant import load_act_scales
 
-    work = ROOT / "build" / "chip_smoke_eval"
     shutil.rmtree(work, ignore_errors=True)
     root = work / "msrvtt"
+    start = time.perf_counter()
+    ids, captions = write_msrvtt_tree(root)
+    size_mb = sum(p.stat().st_size for p in root.rglob("*") if p.is_file()) / 1e6
+    merges, _ = write_tiny_test_vocab(str(work), [w for c in captions for w in c.split()])
+    print(f"eval cli: wrote {len(ids)} MJPG AVIs ({EVAL_FRAMES} frames of "
+          f"{EVAL_SIZE[0]}x{EVAL_SIZE[1]}), {size_mb:.1f} MB, and a BPE vocabulary over the "
+          f"captions' words in {time.perf_counter() - start:.1f} s")
     try:
-        start = time.perf_counter()
-        ids, captions = write_msrvtt_tree(root)
-        size_mb = sum(p.stat().st_size for p in root.rglob("*") if p.is_file()) / 1e6
-        merges, _ = write_tiny_test_vocab(str(work), [w for c in captions for w in c.split()])
-        print(f"eval cli: wrote {len(ids)} MJPG AVIs ({EVAL_FRAMES} frames of "
-              f"{EVAL_SIZE[0]}x{EVAL_SIZE[1]}), {size_mb:.1f} MB, and a BPE vocabulary over the "
-              f"captions' words in {time.perf_counter() - start:.1f} s")
-        try:
-            native.load_decoder()
-            native_note = "the native decoder built"
-        except ImportError as e:
-            native_note = f"the native decoder does not build here ({str(e).splitlines()[0]})"
-        reader = VideoReader.from_path(root / "videos" / "all" / f"{ids[0]}.avi")
-        print(f"eval cli: decoder {type(reader).__name__} ({native_note})")
-        del reader
+        native.load_decoder()
+        native_note = "the native decoder built"
+    except ImportError as e:
+        native_note = f"the native decoder does not build here ({str(e).splitlines()[0]})"
+    reader = VideoReader.from_path(root / "videos" / "all" / f"{ids[0]}.avi")
+    print(f"eval cli: decoder {type(reader).__name__} ({native_note})")
+    del reader
 
-        os.environ["MSRVTT_PATH"] = str(root)
-        scales = work / "act_scales.npz"
-        common = ["encoder=clip_vit_b_16", "++encoder.dtype=int8", "data=msrvtt",
-                  f"+encoder.bpe_path={merges}", f"++quant.scales_path={scales}"]
-        evaluate = ["command=evaluate", *common, "++quant.calibration_batches=1"]
-        print(f"eval cli: python -m fitclip_torch {' '.join(evaluate)}")
-        out, messages, eval_s, eval_launches = cli_run(torch, wrappers, evaluate)
-        metrics = json.loads(out[out.index("{"):])
-        predictions_path = work / "predictions.pt"
-        predict = ["command=predict", *common, f"+output_path={predictions_path}"]
-        print(f"eval cli: python -m fitclip_torch {' '.join(predict)}")
-        _, predict_messages, predict_s, predict_launches = cli_run(torch, wrappers, predict)
-        predictions = torch.load(predictions_path, weights_only=False)
-        videos, texts = predictions["encoded_videos"], predictions["encoded_texts"]
-        print(f"eval cli: evaluate {eval_s:.2f} s wall (encoder load, calibration on one "
-              f"batch, {len(ids)} clips), predict {predict_s:.2f} s wall")
+    os.environ["MSRVTT_PATH"] = str(root)
+    scales = work / "act_scales.npz"
+    common = ["encoder=clip_vit_b_16", "++encoder.dtype=int8", "data=msrvtt",
+              f"+encoder.bpe_path={merges}", f"++quant.scales_path={scales}"]
+    evaluate = ["command=evaluate", *common, "++quant.calibration_batches=1"]
+    print(f"eval cli: python -m fitclip_torch {' '.join(evaluate)}")
+    out, messages, eval_s, eval_launches = cli_run(torch, wrappers, evaluate)
+    metrics = json.loads(out[out.index("{"):])
+    predictions_path = work / "predictions.pt"
+    predict = ["command=predict", *common, f"+output_path={predictions_path}"]
+    print(f"eval cli: python -m fitclip_torch {' '.join(predict)}")
+    _, predict_messages, predict_s, predict_launches = cli_run(torch, wrappers, predict)
+    predictions = torch.load(predictions_path, weights_only=False)
+    videos, texts = predictions["encoded_videos"], predictions["encoded_texts"]
+    print(f"eval cli: evaluate {eval_s:.2f} s wall (encoder load, calibration on one "
+          f"batch, {len(ids)} clips), predict {predict_s:.2f} s wall")
 
-        # Gate (i): the printed metrics are the rank math of predict's embeddings.
-        require(predictions["video_ids"] == ids and videos.shape[0] == len(ids)
-                and texts.shape == videos.shape,
-                f"predictions: {videos.shape}, {texts.shape}, ids in order "
-                f"{predictions['video_ids'] == ids}")
-        scores = texts.float() @ videos.float().T
-        recomputed = retrieval_metrics(ranks_from_scores(scores, torch.arange(len(ids))))
-        print(f"eval cli gate (i): printed {metrics}, recomputed from predict {recomputed}")
-        require(metrics == recomputed, f"printed metrics {metrics} != recomputed {recomputed}")
-        # Gate (iv): the text embeddings are finite.
-        require(bool(torch.isfinite(texts).all()) and bool(torch.isfinite(videos).all()),
-                "non-finite embeddings")
+    # Gate (i): the printed metrics are the rank math of predict's embeddings.
+    require(predictions["video_ids"] == ids and videos.shape[0] == len(ids)
+            and texts.shape == videos.shape,
+            f"predictions: {videos.shape}, {texts.shape}, ids in order "
+            f"{predictions['video_ids'] == ids}")
+    scores = texts.float() @ videos.float().T
+    recomputed = retrieval_metrics(ranks_from_scores(scores, torch.arange(len(ids))))
+    print(f"eval cli gate (i): printed {metrics}, recomputed from predict {recomputed}")
+    require(metrics == recomputed, f"printed metrics {metrics} != recomputed {recomputed}")
+    # Gate (iv): the text embeddings are finite.
+    require(bool(torch.isfinite(texts).all()) and bool(torch.isfinite(videos).all()),
+            "non-finite embeddings")
 
-        # Gate (iii): K1's seven launches per layer, 12 + 12 layers, per eval batch;
-        # the calibration pass (the module path in dynamic mode: fused_attention_qkv
-        # once per layer) is left out of K1's count.
-        batches = -(-len(ids) // EVAL_BATCH)
-        expected = {name: 0 for name in wrappers}
-        expected.update({name: n * 2 * LAYERS * batches
-                         for name, n in INT8_LAUNCHES_PER_LAYER.items()})
-        calibration = {"fused_attention_qkv": 2 * LAYERS}
-        print(f"eval cli gate (iii): evaluate launches "
-              f"{({k: n for k, n in eval_launches.items() if n})}, predict launches "
-              f"{({k: n for k, n in predict_launches.items() if n})}; K1 expected per run "
-              f"{({k: n for k, n in expected.items() if n})} ({batches} batches), the "
-              f"calibration {calibration}")
-        require(eval_launches == {**expected, **calibration},
-                f"evaluate launches {eval_launches}")
-        require(predict_launches == expected, f"predict launches {predict_launches}")
+    # Gate (iii): K1's seven launches per layer, 12 + 12 layers, per eval batch;
+    # the calibration pass (the module path in dynamic mode: fused_attention_qkv
+    # once per layer) is left out of K1's count.
+    batches = -(-len(ids) // EVAL_BATCH)
+    expected = {name: 0 for name in wrappers}
+    expected.update({name: n * 2 * LAYERS * batches
+                     for name, n in INT8_LAUNCHES_PER_LAYER.items()})
+    calibration = {"fused_attention_qkv": 2 * LAYERS}
+    print(f"eval cli gate (iii): evaluate launches "
+          f"{({k: n for k, n in eval_launches.items() if n})}, predict launches "
+          f"{({k: n for k, n in predict_launches.items() if n})}; K1 expected per run "
+          f"{({k: n for k, n in expected.items() if n})} ({batches} batches), the "
+          f"calibration {calibration}")
+    require(eval_launches == {**expected, **calibration},
+            f"evaluate launches {eval_launches}")
+    require(predict_launches == expected, f"predict launches {predict_launches}")
 
-        # Gate (ii): predict's video embeddings against the plain versions
-        # (fused_attention=False: the module path) with the same scales, on the same
-        # clips; gate (v): no decoded clip is all zeros.
-        plain = load_clip_encoder("ViT-B/16", dtype="int8", device="cuda", seed=0,
-                                  fused_attention=False, bpe_path=merges)
-        load_act_scales(str(scales), plain.encoder.model)
-        loader = MsrVttDataModule(base_path=str(root), encoder=plain,
-                                  eval_batch_size=EVAL_BATCH).val_dataloader()
-        plain_videos, zero_clips = [], 0
-        for batch in loader:
-            clips = batch["video"]
-            zero_clips += int((clips.reshape(clips.shape[0], -1).max(axis=1) == 0).sum())
-            plain_videos.append(plain.encode_video(torch.from_numpy(clips).cuda()).float().cpu())
-        cos = min_cosine(videos, torch.cat(plain_videos))
-        print(f"eval cli gate (ii): predict video embeddings vs the plain versions, min "
-              f"cosine {cos:.6f}; gate (v): {zero_clips} all-zero clips of {len(ids)}")
-        require(cos > GATE_COSINE, f"eval cli: kernels vs plain versions cosine {cos}")
-        require(zero_clips == 0, f"{zero_clips} decoded clips are all zeros")
-        del plain
+    # Gate (ii): predict's video embeddings against the plain versions
+    # (fused_attention=False: the module path) with the same scales, on the same
+    # clips; gate (v): no decoded clip is all zeros.
+    plain = load_clip_encoder("ViT-B/16", dtype="int8", device="cuda", seed=0,
+                              fused_attention=False, bpe_path=merges)
+    load_act_scales(str(scales), plain.encoder.model)
+    loader = MsrVttDataModule(base_path=str(root), encoder=plain,
+                              eval_batch_size=EVAL_BATCH).val_dataloader()
+    plain_videos, zero_clips = [], 0
+    for batch in loader:
+        clips = batch["video"]
+        zero_clips += int((clips.reshape(clips.shape[0], -1).max(axis=1) == 0).sum())
+        plain_videos.append(plain.encode_video(torch.from_numpy(clips).cuda()).float().cpu())
+    cos = min_cosine(videos, torch.cat(plain_videos))
+    print(f"eval cli gate (ii): predict video embeddings vs the plain versions, min "
+          f"cosine {cos:.6f}; gate (v): {zero_clips} all-zero clips of {len(ids)}")
+    require(cos > GATE_COSINE, f"eval cli: kernels vs plain versions cosine {cos}")
+    require(zero_clips == 0, f"{zero_clips} decoded clips are all zeros")
+    del plain
 
-        # A warmed window, split. Every clip has been read three times by now (the
-        # files sit in the page cache) and CUDA is warm.
-        window = warm_eval_window(torch, root, merges, scales)
-        rate = [m for m in predict_messages if m.startswith("Encoded")]
-        print(f"eval cli: predict's loop (cold: its first batch has nothing to overlap; 3 "
-              f"batches): {rate[0] if rate else 'no reading'}; evaluate's: "
-              f"{[m for m in messages if m.startswith('Evaluated')]} "
-              f"(clocks {clocks()}; {nvidia_smi()})")
-        print(json.dumps({"eval_cli_window": window, "card": nvidia_smi()}))
+    # Grouped eval: data=drift_eval (CC3M, MSR-VTT, WebVid) with the persisted
+    # scales. Its _msrvtt metrics are evaluate's: the same scales, clips and texts.
+    start = time.perf_counter()
+    os.environ.update(write_drift_trees(work))
+    print(f"eval cli: wrote CC3M and WebVid val trees of {DRIFT_ITEMS} JPEGs and "
+          f"{DRIFT_ITEMS} AVIs in {time.perf_counter() - start:.1f} s")
+    drift = ["command=evaluate", "encoder=clip_vit_b_16", "++encoder.dtype=int8",
+             "data=drift_eval", f"+encoder.bpe_path={merges}", f"++quant.scales_path={scales}"]
+    print(f"eval cli: python -m fitclip_torch {' '.join(drift)}")
+    out, _, drift_s, drift_launches = cli_run(torch, wrappers, drift)
+    grouped = json.loads(out[out.index("{"):])
+    names = ("cc3m", "msrvtt", "webvid")
+    drift_batches = 1 + batches + 1
+    drift_expected = {name: 0 for name in wrappers}
+    drift_expected.update({name: n * 2 * LAYERS * drift_batches
+                           for name, n in INT8_LAUNCHES_PER_LAYER.items()})
+    print(f"eval cli grouped gate: {drift_s:.2f} s wall; printed {grouped}; launches "
+          f"{({k: n for k, n in drift_launches.items() if n})} ({drift_batches} batches)")
+    require(sorted(grouped) == sorted(f"{k}_{name}" for k in metrics for name in names),
+            f"drift_eval keys {sorted(grouped)}")
+    require({k: grouped[f"{k}_msrvtt"] for k in metrics} == metrics,
+            f"drift_eval's msrvtt metrics differ from evaluate's {metrics}")
+    require(all(np.isfinite(v) for v in grouped.values()), "non-finite grouped metrics")
+    require(drift_launches == drift_expected, f"drift_eval launches {drift_launches}")
+
+    # A warmed window, split. Every clip has been read three times by now (the
+    # files sit in the page cache) and CUDA is warm.
+    window = warm_eval_window(torch, root, merges, scales)
+    rate = [m for m in predict_messages if m.startswith("Encoded")]
+    print(f"eval cli: predict's loop (cold: its first batch has nothing to overlap; 3 "
+          f"batches): {rate[0] if rate else 'no reading'}; evaluate's: "
+          f"{[m for m in messages if m.startswith('Evaluated')]} "
+          f"(clocks {clocks()}; {nvidia_smi()})")
+    print(json.dumps({"eval_cli_window": window, "card": nvidia_smi()}))
+    tree = {"root": root, "ids": ids, "captions": captions, "merges": merges,
+            "scales": scales, "predictions": predictions_path}
+    return {"eval_cli": eval_launches, "predict_cli": predict_launches,
+            "drift_eval_cli": drift_launches}, tree
+
+
+# Phase 12: the embed service (python -m fitclip_torch.serving.embed_service).
+SERVE_TEXT_BUCKETS, SERVE_VIDEO_BUCKETS = (1, 2, 4, 8, 16, 32), (1, 2, 4, 8)
+SERVE_CLIENTS, SERVE_REQUESTS = 32, 16  # traffic (b): threads x requests of 1-4 texts
+SERVE_SERIAL, SERVE_VIDEOS, SERVE_VIDEO_THREADS, SERVE_QUERIES = 64, 16, 4, 8
+SERVE_MAX_VIDEO_MB = 2
+SERVE_GATE_EAGER = 0.9999  # served against the eager kernel path on the same inputs
+
+
+def percentiles(seconds) -> str:
+    ms = 1e3 * np.asarray(seconds)
+    return f"p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms"
+
+
+def http(url: str, body: bytes = None):
+    """(status, parsed JSON body, seconds, seconds to connect) of one request
+    to the local service, on a connection of its own (as urllib opens one)."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(url)
+    start = time.perf_counter()
+    connection = http.client.HTTPConnection(parts.hostname, parts.port, timeout=120)
+    try:
+        connection.connect()
+        connected = time.perf_counter()
+        target = parts.path + (f"?{parts.query}" if parts.query else "")
+        connection.request("POST" if body is not None else "GET", target, body=body)
+        reply = connection.getresponse()
+        status, payload = reply.status, reply.read()
     finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return {"eval_cli": eval_launches, "predict_cli": predict_launches}
+        connection.close()
+    end = time.perf_counter()
+    return status, json.loads(payload), end - start, connected - start
+
+
+def serve_texts(rng: np.random.Generator, n: int):
+    words = rng.choice(CAPTION_WORDS, size=(n, 3))
+    return [f"a {a} with the {b} and a {c}" for a, b, c in words]
+
+
+def burst(url: str, plans):
+    """Traffic (b): one client thread per plan, each posting its requests of
+    texts to /embed_text in turn. Returns each client's latencies (s), every
+    request's seconds to connect, every (texts, rows) reply, and the wall
+    seconds."""
+    import threading
+
+    latencies, connects, replies = [[] for _ in plans], [], []
+    lock = threading.Lock()
+
+    def client(c):
+        for texts in plans[c]:
+            status, reply, seconds, connect = http(url + "/embed_text",
+                                                   json.dumps({"texts": texts}).encode())
+            if status != 200 or len(reply["embeddings"]) != len(texts):
+                return
+            with lock:
+                replies.append((texts, reply["embeddings"]))
+                connects.append(connect)
+            latencies[c].append(seconds)
+
+    start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(len(plans))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return latencies, connects, replies, time.perf_counter() - start
+
+
+def serving_phase(torch, wrappers, tree):
+    """Phase 12: the port's embed service on the card, over HTTP on
+    127.0.0.1: seeded int8 CLIP ViT-B/16 at full width, phase 11's scales as
+    EMBED_SCALES and predict's dump as EMBED_INDEX, one CUDA graph per bucket
+    of each tower. Traffic (a)-(e), the readings, and gates (i)-(vi)."""
+    import multiprocessing
+    import os
+    import threading
+    from concurrent.futures import ProcessPoolExecutor
+    from urllib.parse import urlencode
+
+    from fitclip_torch.data.data_module import build_pipeline
+    from fitclip_torch.data.transforms import pad_to_min_frames
+    from fitclip_torch.data.video_reader import VideoReader
+    from fitclip_torch.models.clip.encoder import l2_normalize
+    from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
+    from fitclip_torch.ops import block as K
+    from fitclip_torch.serving import embed_service as es
+    from fitclip_torch.serving.embed_service import RetrievalIndex
+
+    os.environ.update({
+        "EMBED_ENCODER": "clip_vit_b_16",
+        "EMBED_OVERRIDES": f"++encoder.dtype=int8 +encoder.bpe_path={tree['merges']}",
+        "EMBED_SCALES": str(tree["scales"]), "EMBED_INDEX": str(tree["predictions"]),
+        "EMBED_MAX_WAIT_MS": "2", "EMBED_MAX_BATCH": str(SERVE_TEXT_BUCKETS[-1]),
+        "EMBED_MAX_VIDEO_BATCH": str(SERVE_VIDEO_BUCKETS[-1]),
+        "EMBED_MAX_VIDEO_MB": str(SERVE_MAX_VIDEO_MB)})
+    start = time.perf_counter()
+    encoder = es._ensure_loaded().encoder
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - start
+    start = time.perf_counter()
+    graphs = es.warm_graphs()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - start
+    for fn in wrappers.values():
+        fn.launches = 0
+    es._ensure_service()
+    es._ensure_video_service()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    capture_launches = {name: fn.launches for name, fn in wrappers.items()}
+    buckets = len(SERVE_TEXT_BUCKETS) + len(SERVE_VIDEO_BUCKETS)
+    expected = {name: 0 for name in wrappers}
+    expected.update({name: n * LAYERS * buckets for name, n in INT8_LAUNCHES_PER_LAYER.items()})
+    print(f"serving: seeded int8 ViT-B/16 loaded in {load_s:.2f} s; set-up to both services "
+          f"ready {setup_s:.3f} s (each bucket's eager warm-up {warm_s:.3f} s, then the "
+          "captures): " + "; ".join(
+              f"{tower} capture ms " + ", ".join(f"{b}: {ms:.1f}"
+                                                  for b, ms in g.capture_ms.items())
+              for tower, g in graphs.items()))
+    print(f"serving gate (iv): launches recorded by the {buckets} captures "
+          f"{({k: n for k, n in capture_launches.items() if n})}, expected "
+          f"{({k: n for k, n in expected.items() if n})} (84 a bucket)")
+    require(capture_launches == expected, f"capture launches {capture_launches}")
+
+    handled = []  # seconds each request spent in the service's handler
+
+    class TimedHandler(es.Handler):
+        def _respond(self, method):
+            start = time.perf_counter()
+            super()._respond(method)
+            handled.append(time.perf_counter() - start)
+
+    server = es.EmbedHTTPServer(("127.0.0.1", 0), TimedHandler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(12)
+    served_texts, served_rows, serial_connects = [], [], []
+    lock = threading.Lock()
+    text_requests = 0
+
+    def embed_text(texts):
+        status, reply, seconds, connect = http(url + "/embed_text",
+                                               json.dumps({"texts": texts}).encode())
+        serial_connects.append(connect)
+        require(status == 200 and len(reply["embeddings"]) == len(texts),
+                f"/embed_text {status}: {len(reply.get('embeddings', []))} rows for "
+                f"{len(texts)} texts")
+        with lock:
+            served_texts.extend(texts)
+            served_rows.extend(reply["embeddings"])
+        return seconds
+
+    try:
+        for fn in wrappers.values():
+            fn.launches = 0
+        # (a) one client, serial single texts.
+        serial = [embed_text([t]) for t in serve_texts(rng, SERVE_SERIAL)]
+        text_requests += SERVE_SERIAL
+        # (b) 32 client threads x 16 requests of 1-4 texts, from a process of their own
+        # (spawned; it imports numpy only), so that the clients do not share the
+        # service's interpreter lock.
+        plans = [[serve_texts(np.random.default_rng(100 + c), int(k))
+                  for k in np.random.default_rng(200 + c).integers(1, 5, SERVE_REQUESTS)]
+                 for c in range(SERVE_CLIENTS)]
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            handled.clear()
+            concurrent, burst_connects, replies, burst_s = pool.submit(
+                burst, url, plans).result(timeout=600)
+            burst_handled = list(handled)
+        for texts, rows in replies:
+            served_texts.extend(texts)
+            served_rows.extend(rows)
+        burst_texts = sum(len(texts) for plan in plans for texts in plan)
+        text_requests += burst_texts
+        require(all(len(c) == SERVE_REQUESTS for c in concurrent), "a client's request failed")
+        # (c) phase 11's AVIs from 4 threads.
+        paths = [tree["root"] / "videos" / "all" / f"{i}.avi" for i in tree["ids"][:SERVE_VIDEOS]]
+        video_rows, video_s = [None] * SERVE_VIDEOS, [None] * SERVE_VIDEOS
+
+        def video_client(k):
+            for i in range(k, SERVE_VIDEOS, SERVE_VIDEO_THREADS):
+                status, reply, video_s[i], _ = http(url + "/embed_video?format=avi",
+                                                    paths[i].read_bytes())
+                require(status == 200, f"/embed_video {status}: {reply}")
+                video_rows[i] = reply["embedding"]
+
+        start = time.perf_counter()
+        threads = [threading.Thread(target=video_client, args=(k,))
+                   for k in range(SERVE_VIDEO_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        videos_s = time.perf_counter() - start
+        require(all(row is not None for row in video_rows), "a video request failed")
+        # (d) searches, each query also embedded on its own for the host ranking.
+        queries = serve_texts(np.random.default_rng(300), SERVE_QUERIES)
+        searches = []
+        for q in queries:
+            embed_text([q])
+            status, reply, _, _ = http(url + "/search_videos?" +
+                                       urlencode({"q": q, "top_k": 5}))
+            require(status == 200, f"/search_videos {status}: {reply}")
+            searches.append(reply["results"])
+        text_requests += 2 * SERVE_QUERIES
+        # (e) refusals.
+        refused = [http(url + "/embed_video", b"")[0],
+                   http(url + "/embed_video?format=avi", b"not a video")[0],
+                   http(url + "/embed_video", b"\0" * (SERVE_MAX_VIDEO_MB * 2 ** 20 + 1))[0],
+                   http(url + "/nope")[0]]
+        status, health, _, _ = http(url + "/health")
+        torch.cuda.synchronize()
+        traffic_launches = {name: fn.launches for name, fn in wrappers.items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+        for service in (es._SERVICE, es._VIDEO_SERVICE):
+            if service is not None:
+                service.stop()
+
+    print(f"serving (a) {SERVE_SERIAL} serial /embed_text of one text: {percentiles(serial)}")
+    burst_latencies = [s for c in concurrent for s in c]
+    print(f"serving: seconds to connect, of (a): {percentiles(serial_connects)}; of (b): "
+          f"{percentiles(burst_connects)}; (b)'s requests inside the service's handler: "
+          f"{percentiles(burst_handled)}")
+    print(f"serving (b) {SERVE_CLIENTS} client threads (another process) x {SERVE_REQUESTS} "
+          f"requests of 1-4 texts ({burst_texts} texts): {percentiles(burst_latencies)}; "
+          f"{len(burst_latencies) / burst_s:.1f} requests/s, "
+          f"{burst_texts / burst_s:.1f} texts/s over {burst_s:.3f} s")
+    print(f"serving (c) {SERVE_VIDEOS} /embed_video AVIs from {SERVE_VIDEO_THREADS} threads: "
+          f"{percentiles(video_s)}; {SERVE_VIDEOS / videos_s:.2f} clips/s")
+    print(f"serving /health: {health}")
+    # Gate (iv): every batch of the traffic was a replay.
+    print(f"serving gate (iv): launches while traffic ran "
+          f"{({k: n for k, n in traffic_launches.items() if n}) or 'none'}")
+    require(not any(traffic_launches.values()), f"traffic launched eagerly: {traffic_launches}")
+    # Gate (v): the service counted what was sent; no padding row came back.
+    print(f"serving gate (v): /health requests {health['requests']} (sent {text_requests} "
+          f"texts), video {health['video']['requests']} (sent {SERVE_VIDEOS})")
+    require(status == 200 and health["requests"] == text_requests
+            and health["video"]["requests"] == SERVE_VIDEOS, f"/health {health}")
+    # /search_videos embeds its query inside the service: one text each, no row back.
+    require(len(served_rows) == len(served_texts) == text_requests - SERVE_QUERIES,
+            f"{len(served_rows)} rows for {len(served_texts)} texts")
+    # Gate (vi): the refusals.
+    print(f"serving gate (vi): empty, not a video, oversized, unknown path -> {refused}")
+    require(refused == [400, 400, 413, 404], f"refusals {refused}")
+
+    # Gate (i): each served text row against encode_text on the same ids.
+    model = encoder.model
+    tokenizer = encoder.get_tokenizer()
+    served = torch.tensor(served_rows, dtype=torch.float32)
+    eager, plain = [], []
+    with torch.no_grad():
+        for i in range(0, len(served_texts), 32):
+            ids = torch.from_numpy(tokenizer(served_texts[i:i + 32])).long().cuda()
+            eager.append(encoder.encode_text(ids).float().cpu())
+            plain.append(l2_normalize(encode_text_fast(
+                model, ids, layer_fn=K.fused_int8_layer_plain)).float().cpu())
+    eager, plain = torch.cat(eager), torch.cat(plain)
+    text_cos, text_plain_cos = min_cosine(served, eager), min_cosine(served, plain)
+    print(f"serving gate (i): {len(served_texts)} served texts against encode_text on the "
+          f"eager kernel path: min cosine {text_cos:.6f}, max abs diff "
+          f"{float((served - eager).abs().max()):.3e}; against the plain versions "
+          f"{text_plain_cos:.6f}")
+    require(text_cos >= SERVE_GATE_EAGER and text_plain_cos > GATE_COSINE, "served text rows")
+    # Gate (ii): each served clip against the eval pipeline and encode_video by hand.
+    pipeline = build_pipeline(encoder, train=False)
+    frames = encoder.preprocess.num_frames
+    clips = []
+    for path in paths:
+        reader = VideoReader.from_path(path)
+        indices = pipeline.sampler(0, len(reader) - 1, fps=reader.get_avg_fps())
+        clips.append(pad_to_min_frames(pipeline.transform(reader(indices), None), frames))
+    clips = torch.from_numpy(np.stack(clips)).cuda()
+    with torch.no_grad():
+        eager = torch.cat([encoder.encode_video(clips[i:i + 8]).float()
+                           for i in range(0, len(paths), 8)]).cpu()
+        flat = encoder._prepare_frames(clips)
+        plain = l2_normalize(encode_frames_fast(model, flat, layer_fn=K.fused_int8_layer_plain))
+        plain = plain.reshape(len(paths), frames, -1).mean(dim=1).float().cpu()
+    served = torch.tensor(video_rows, dtype=torch.float32)
+    video_cos, video_plain_cos = min_cosine(served, eager), min_cosine(served, plain)
+    print(f"serving gate (ii): {len(paths)} served clips against the eval pipeline and "
+          f"encode_video: min cosine {video_cos:.6f}, max abs diff "
+          f"{float((served - eager).abs().max()):.3e}; against the plain versions "
+          f"{video_plain_cos:.6f}")
+    require(video_cos >= SERVE_GATE_EAGER and video_plain_cos > GATE_COSINE, "served clips")
+    # Gate (iii): /search_videos ranks as the host does with the served query.
+    index = RetrievalIndex(str(tree["predictions"]))
+    rows = {t: r for t, r in zip(served_texts, served_rows)}
+    for q, results in zip(queries, searches):
+        want = index.search(np.asarray(rows[q], np.float32), 5)
+        require([r["video_id"] for r in results] == [r["video_id"] for r in want],
+                f"search {q!r}: {results} against {want}")
+    print(f"serving gate (iii): {len(queries)} searches rank the index as the host does")
+
+    # Each bucket's replay against the eager kernel-path call at the same batch.
+    replay_ms = {}
+    with torch.no_grad():
+        for tower, g in graphs.items():
+            for b in g.bucket_sizes:
+                if tower == "text":
+                    inputs = torch.from_numpy(tokenizer(serve_texts(rng, b))).long().cuda()
+                    eager_fn = lambda x=inputs: encoder.encode_text(x)  # noqa: E731
+                else:
+                    inputs = clips[:b]
+                    eager_fn = lambda x=inputs: encoder.encode_video(x)  # noqa: E731
+                replay_ms[f"{tower}_{b}"] = (cuda_ms(lambda g=g, b=b: g.replay(b)),
+                                             cuda_ms(eager_fn))
+    print("serving: replay ms against the eager kernel path (CUDA events, 20 calls): " +
+          ", ".join(f"{k} {r:.3f} / {e:.3f}" for k, (r, e) in replay_ms.items()) +
+          f" (clocks {clocks()}; {nvidia_smi()})")
+    print(json.dumps({"serving": {
+        "load_s": load_s, "setup_s": setup_s, "warm_s": warm_s,
+        "capture_ms": {t: g.capture_ms for t, g in graphs.items()},
+        "replay_vs_eager_ms": replay_ms,
+        "serial_text_ms": [1e3 * float(np.percentile(serial, q)) for q in (50, 99)],
+        "burst_ms": [1e3 * float(np.percentile(burst_latencies, q)) for q in (50, 99)],
+        "burst_connect_ms": [1e3 * float(np.percentile(burst_connects, q)) for q in (50, 99)],
+        "burst_handler_ms": [1e3 * float(np.percentile(burst_handled, q)) for q in (50, 99)],
+        "burst_requests_per_s": len(burst_latencies) / burst_s, "burst_texts_per_s": burst_texts / burst_s,
+        "video_ms": [1e3 * float(np.percentile(video_s, q)) for q in (50, 99)],
+        "clips_per_s": SERVE_VIDEOS / videos_s, "health": health,
+        "card": nvidia_smi()}}))
+    for name in ("_SERVICE", "_VIDEO_SERVICE", "_INDEX", "_LOADED", "_GRAPHS"):
+        setattr(es, name, None)
+    return {"serve_capture": capture_launches, "serve_traffic": traffic_launches}
 
 
 def main() -> int:
@@ -3513,13 +3948,22 @@ def main() -> int:
     bench_paths, bench_times, _ = bench_phase(torch, checks, wrappers)
     times.update(bench_times)
 
-    # Phase 11: the eval CLI on the card.
+    # Phase 11: the eval CLI on the card; phase 12: the embed service, on phase 11's
+    # scales, predictions and videos.
     torch.cuda.empty_cache()
     print(f"clocks (phase 11): {clocks()}")
-    cli_paths = eval_cli_phase(torch, wrappers)
+    work = ROOT / "build" / "chip_smoke_eval"
+    try:
+        cli_paths, eval_tree = eval_cli_phase(torch, wrappers, work)
+        torch.cuda.empty_cache()
+        print(f"clocks (phase 12): {clocks()}")
+        serving_paths = serving_phase(torch, wrappers, eval_tree)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     paths = {"encode": launches, **paths, **fit_paths, **fit_fp32_paths, **s3dg_paths,
              **clip_k2_paths,
-             **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths, **cli_paths}
+             **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths, **cli_paths,
+             **serving_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:

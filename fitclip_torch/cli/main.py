@@ -6,7 +6,9 @@ repository's ``config/`` tree: config groups, ``++``/``+``/``~`` overrides,
 ``--multirun`` and ``--config-name``. Commands: evaluate, validate, test
 (the test split) and predict, on one device: CUDA unless
 ``++encoder.device=cpu``. A classification data module switches the eval to
-zero-shot classification. ``quant.calibration_batches`` and
+zero-shot classification. A grouped data module (``data=drift_eval``) is
+built member by member, each with the encoder, and evaluated per member
+(``runners.py``). ``quant.calibration_batches`` and
 ``quant.scales_path`` calibrate and persist an int8 encoder's scales
 (``runners.py``). ``checkpoint_path`` names a bare-params torch checkpoint
 (OpenAI or HF layout) whose weights replace the encoder's; an Orbax directory
@@ -26,6 +28,15 @@ DEFAULT_CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 COMMANDS = ("train", "evaluate", "validate", "test", "predict", "tune")
 NOT_PORTED = ("train", "tune")
+
+# The JAX package's combinators of data modules: their members are data
+# module configs, instantiated one by one with the encoder.
+GROUP_DATA_MODULE_TARGETS = {
+    "fitclip_tpu.data.data_module_group.EvalDataModuleGroup",
+    "fitclip_tpu.data.data_module_group.DataModuleStructuredGroup",
+    "fitclip_tpu.data.data_module_group.MixedBatchDataModule",
+    "fitclip_tpu.data.data_module_group.TrainAndEvalDataModules",
+}
 
 
 def parse_args(argv: List[str]) -> Tuple[str, str, bool, List[str]]:
@@ -70,10 +81,26 @@ def seed_everything(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def _is_classification(data_module) -> bool:
-    from fitclip_torch.data.data_module import VideoClassificationDataModule
+def instantiate_data_module(node: Mapping[str, Any], encoder_slot):
+    """Group-aware instantiation (``fitclip_tpu/cli/main.py:instantiate_data_module``).
+    A group's target resolves first, so that a combinator the port lacks raises
+    before any member is built."""
+    from fitclip_torch.config_engine import instantiate
+    from fitclip_torch.config_engine.instantiate import resolve_target
 
-    return isinstance(data_module, VideoClassificationDataModule)
+    target = node.get("_target_", "")
+    if target not in GROUP_DATA_MODULE_TARGETS:
+        return instantiate(node, encoder=encoder_slot)
+    cls = resolve_target(target)
+    kwargs = {k: v for k, v in node.items() if k != "_target_"}
+    if "data_modules" in kwargs:
+        kwargs["data_modules"] = {name: instantiate_data_module(sub, encoder_slot)
+                                  for name, sub in kwargs["data_modules"].items()}
+    for key in ("train_data_module", "eval_data_module"):
+        if key in kwargs:
+            kwargs[key] = instantiate_data_module(kwargs[key], encoder_slot)
+    return cls(**{k: instantiate(v) if isinstance(v, Mapping) and "_target_" in v else v
+                  for k, v in kwargs.items()})
 
 
 def load_checkpoint(loaded, checkpoint_path: str):
@@ -96,8 +123,7 @@ def load_checkpoint(loaded, checkpoint_path: str):
 
 
 def run(cfg: Dict[str, Any]) -> Optional[float]:
-    from fitclip_torch.cli.runners import (run_classification_eval, run_predict,
-                                           run_retrieval_eval)
+    from fitclip_torch.cli.runners import run_eval, run_predict
     from fitclip_torch.config_engine import instantiate
 
     seed_everything(int(cfg.get("seed", 42)))
@@ -118,7 +144,7 @@ def run(cfg: Dict[str, Any]) -> Optional[float]:
     if isinstance(encoder_slot, Mapping):
         raise NotImplementedError("a {student, teacher} encoder slot is for command=train, "
                                   "which is not ported to fitclip_torch yet (ROADMAP.md, queue 1)")
-    data_module = instantiate(cfg["data"], encoder=encoder_slot)
+    data_module = instantiate_data_module(cfg["data"], encoder_slot)
     if cfg.get("checkpoint_path"):
         encoder_slot = load_checkpoint(encoder_slot, cfg["checkpoint_path"])
 
@@ -126,12 +152,7 @@ def run(cfg: Dict[str, Any]) -> Optional[float]:
     quant_cfg = cfg.get("quant")
     if command in ("evaluate", "validate", "test"):
         split = "test" if command == "test" else "val"
-        if _is_classification(data_module):
-            metrics = run_classification_eval(encoder_slot, data_module, split=split,
-                                              quant_cfg=quant_cfg)
-        else:
-            metrics = run_retrieval_eval(encoder_slot, data_module, split=split,
-                                         quant_cfg=quant_cfg)
+        metrics = run_eval(encoder_slot, data_module, split=split, quant_cfg=quant_cfg)
         print(json.dumps(metrics, indent=2))
     else:
         run_predict(encoder_slot, data_module,

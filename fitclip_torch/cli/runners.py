@@ -2,28 +2,34 @@
 ``evaluate``/``validate``/``test`` and ``predict``, on the encoder's device.
 
 Each runner iterates a data module's loader (host decode in threads,
-prefetched), moves each batch to the encoder's device and encodes it, on one
-encoder and one data module (grouped data modules are not ported yet).
-Metrics come back as plain dicts.
+prefetched), moves each batch to the encoder's device and encodes it. A
+grouped data module (``data_module_group.EvalDataModuleGroup``) runs each
+member's loader in turn: eval gives each member its own evaluator and
+suffixes its metrics ``{key}_{name}``, predict concatenates the members'
+embeddings. Each member is scored by its own task: retrieval, or zero-shot
+classification for a classification data module. Metrics come back as plain
+dicts.
 
 An int8 encoder is calibrated before its first encode: from the persisted
 scales of ``quant.scales_path`` when that file exists, otherwise on the first
-``quant.calibration_batches`` batches (default 4), the running abs-max over
-them written once and saved to ``quant.scales_path`` if one is named. The head
-batches are then encoded with the rest. ``predict`` takes the same route (the
-JAX package's predict does not calibrate).
+``quant.calibration_batches`` batches (default 4) of the first loader, the
+running abs-max over them written once and saved to ``quant.scales_path`` if
+one is named; later loaders of a group keep those scales. The head batches are
+then encoded with the rest. ``predict`` takes the same route (the JAX
+package's predict does not calibrate).
 """
 
 import itertools
 import logging
 import os
 import time
-from typing import Any, Dict, Iterator, List, Mapping, Optional
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fitclip_torch.data.data_module import VideoClassificationDataModule
+from fitclip_torch.data.data_module_group import EvalDataModuleGroup
 from fitclip_torch.evaluation.classification import (ClassificationEvaluator,
                                                      encode_label_bank, tokenize_label_bank)
 from fitclip_torch.evaluation.retrieval import RetrievalEvaluator
@@ -47,8 +53,13 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return tensor.to(device, non_blocking=True)
 
 
-def _eval_loader(data_module, split: str):
-    return data_module.test_dataloader() if split == "test" else data_module.val_dataloader()
+def _members(data_module, split: str) -> List[Tuple[Optional[str], Any, Any]]:
+    """(name, data module, loader) of each member of a group, in order, or
+    [(None, data_module, its loader)]. split: "val", "test" or "predict"."""
+    loaders = getattr(data_module, f"{split}_dataloader")()
+    if isinstance(data_module, EvalDataModuleGroup):
+        return list(zip(data_module.names, data_module.data_modules, loaders))
+    return [(None, data_module, loaders)]
 
 
 def _load_persisted_scales(encoder, quant_cfg) -> bool:
@@ -107,19 +118,11 @@ def _calibrated_batches(encoder, batches: Iterator, quant_cfg, calibrate: bool) 
     return itertools.chain(head, batches)
 
 
-@torch.no_grad()
-def run_retrieval_eval(loaded, data_module, split: str = "val",
-                       quant_cfg: Optional[Mapping[str, Any]] = None) -> Dict[str, float]:
-    """Zero-shot text->video retrieval (command=evaluate/validate/test;
-    command=test routes to the test split)."""
-    encoder = loaded.encoder
-    device = encoder_device(encoder)
-    calibrate = _needs_calibration(encoder, quant_cfg)
+def _retrieval_metrics(encoder, device, loader, quant_cfg, calibrate: bool) -> Dict[str, float]:
     evaluator = RetrievalEvaluator()
     start, clips = time.perf_counter(), 0
-    batches = _calibrated_batches(
-        encoder, (_video_text(b, device) for b in _eval_loader(data_module, split)),
-        quant_cfg, calibrate)
+    batches = _calibrated_batches(encoder, (_video_text(b, device) for b in loader), quant_cfg,
+                                  calibrate)
     for video, text, _ in batches:
         evaluator.update(encoder.encode_video(video), encoder.encode_text(text))
         clips += video.shape[0]
@@ -135,10 +138,10 @@ def _label_bank(encoder, data_module):
 
 
 def _classification_head(encoder, batches: Iterator, tokenized: np.ndarray, quant_cfg,
-                         device) -> List[Any]:
+                         device, calibrate: bool) -> List[Any]:
     """Calibrate an int8 encoder on the head batches (the text tower on a
     slice of the real label bank each); return them for the eval loop."""
-    if not _needs_calibration(encoder, quant_cfg):
+    if not calibrate:
         return []
     head = list(itertools.islice(batches, _calibration_batches(quant_cfg)))
     observations = []
@@ -151,15 +154,12 @@ def _classification_head(encoder, batches: Iterator, tokenized: np.ndarray, quan
     return head
 
 
-@torch.no_grad()
-def run_classification_eval(loaded, data_module, split: str = "val",
-                            quant_cfg: Optional[Mapping[str, Any]] = None) -> Dict[str, float]:
+def _classification_metrics(encoder, device, loader, quant_cfg, calibrate: bool,
+                            data_module) -> Dict[str, float]:
     """Zero-shot classification: videos scored against the encoded label bank."""
-    encoder = loaded.encoder
-    device = encoder_device(encoder)
     labels, tokenized = _label_bank(encoder, data_module)
-    batches = iter(_eval_loader(data_module, split))
-    head = _classification_head(encoder, batches, tokenized, quant_cfg, device)
+    batches = iter(loader)
+    head = _classification_head(encoder, batches, tokenized, quant_cfg, device, calibrate)
     label_bank = encode_label_bank(encoder, tokenized, len(labels), device)
     evaluator = ClassificationEvaluator(label_bank=label_bank)
     for batch in itertools.chain(head, batches):
@@ -169,45 +169,77 @@ def run_classification_eval(loaded, data_module, split: str = "val",
 
 
 @torch.no_grad()
-def run_predict(loaded, data_module, output_path: str = "predictions.pt",
-                quant_cfg: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
-    """command=predict: the embeddings and video ids, saved with torch.save
-    under the JAX package's keys. A classification data module gets the
-    argmax-prediction variant."""
-    if isinstance(data_module, VideoClassificationDataModule):
-        return _run_predict_classification(loaded, data_module, output_path, quant_cfg)
+def run_eval(loaded, data_module, split: str = "val",
+             quant_cfg: Optional[Mapping[str, Any]] = None) -> Dict[str, float]:
+    """command=evaluate/validate/test (test routes to the test split): zero-shot
+    text->video retrieval, or zero-shot classification for a classification
+    data module; over a group, each member by its own task with its metrics
+    suffixed by its name."""
     encoder = loaded.encoder
     device = encoder_device(encoder)
     calibrate = _needs_calibration(encoder, quant_cfg)
+    results: Dict[str, float] = {}
+    for name, member, loader in _members(data_module, split):
+        if isinstance(member, VideoClassificationDataModule):
+            metrics = _classification_metrics(encoder, device, loader, quant_cfg, calibrate,
+                                              member)
+        else:
+            metrics = _retrieval_metrics(encoder, device, loader, quant_cfg, calibrate)
+        calibrate = False
+        suffix = f"_{name}" if name else ""
+        results.update({f"{key}{suffix}": value for key, value in metrics.items()})
+    return results
+
+
+@torch.no_grad()
+def run_predict(loaded, data_module, output_path: str = "predictions.pt",
+                quant_cfg: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+    """command=predict: the embeddings and video ids, saved with torch.save
+    under the JAX package's keys, a group's members concatenated. Classification
+    data modules get the argmax-prediction variant, each member against its own
+    label bank."""
+    members = [(member, loader) for _, member, loader in _members(data_module, "predict")]
+    kinds = {isinstance(member, VideoClassificationDataModule) for member, _ in members}
+    if len(kinds) > 1:
+        raise ValueError("predict over a group that mixes classification and retrieval data "
+                         "modules: their predictions have different keys")
+    encoder = loaded.encoder
+    device = encoder_device(encoder)
+    calibrate = _needs_calibration(encoder, quant_cfg)
+    if kinds == {True}:
+        return _run_predict_classification(encoder, device, members, output_path, quant_cfg,
+                                           calibrate)
     encoded_videos, encoded_texts, video_ids = [], [], []
-    start = time.perf_counter()
-    batches = _calibrated_batches(
-        encoder, (_video_text(b, device) for b in data_module.predict_dataloader()),
-        quant_cfg, calibrate)
-    for video, text, ids in batches:
-        encoded_videos.append(encoder.encode_video(video).float())
-        encoded_texts.append(encoder.encode_text(text).float())
-        video_ids.extend(ids)
+    start, calibrated = time.perf_counter(), calibrate
+    for _, loader in members:
+        batches = _calibrated_batches(encoder, (_video_text(b, device) for b in loader),
+                                      quant_cfg, calibrate)
+        calibrate = False
+        for video, text, ids in batches:
+            encoded_videos.append(encoder.encode_video(video).float())
+            encoded_texts.append(encoder.encode_text(text).float())
+            video_ids.extend(ids)
     predictions = {"encoded_videos": torch.cat(encoded_videos).cpu(),  # waits for the device
                    "encoded_texts": torch.cat(encoded_texts).cpu(),
                    "video_ids": video_ids}
-    _log_rate("Encoded", predictions["encoded_videos"].shape[0], start, calibrate)
+    _log_rate("Encoded", predictions["encoded_videos"].shape[0], start, calibrated)
     return _save_predictions(predictions, output_path)
 
 
-def _run_predict_classification(loaded, data_module, output_path, quant_cfg):
-    encoder = loaded.encoder
-    device = encoder_device(encoder)
-    labels, tokenized = _label_bank(encoder, data_module)
-    batches = iter(data_module.predict_dataloader())
-    head = _classification_head(encoder, batches, tokenized, quant_cfg, device)
-    label_bank = encode_label_bank(encoder, tokenized, len(labels), device)
+def _run_predict_classification(encoder, device, members, output_path, quant_cfg, calibrate):
     predicted, label_list, video_ids = [], [], []
-    for batch in itertools.chain(head, batches):
-        scores = encoder.encode_video(to_device(batch["video"], device)).float() @ label_bank.T
-        predicted.append(scores.argmax(dim=-1))
-        label_list.append(torch.as_tensor(np.asarray(batch["label"])))
-        video_ids.extend(batch.get("video_id", []))
+    for member, loader in members:
+        labels, tokenized = _label_bank(encoder, member)
+        batches = iter(loader)
+        head = _classification_head(encoder, batches, tokenized, quant_cfg, device, calibrate)
+        calibrate = False
+        label_bank = encode_label_bank(encoder, tokenized, len(labels), device)
+        for batch in itertools.chain(head, batches):
+            scores = (encoder.encode_video(to_device(batch["video"], device)).float()
+                      @ label_bank.T)
+            predicted.append(scores.argmax(dim=-1))
+            label_list.append(torch.as_tensor(np.asarray(batch["label"])))
+            video_ids.extend(batch.get("video_id", []))
     predictions = {"predictions": torch.cat(predicted).cpu(), "labels": torch.cat(label_list),
                    "video_ids": video_ids}
     return _save_predictions(predictions, output_path)

@@ -18,7 +18,8 @@ frozen teacher run them under ``torch.no_grad()``. The fused layer path
 runs without a graph.
 """
 
-from typing import Callable, Dict, Iterator, Optional, Sequence, Union
+import functools
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +37,15 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
+@functools.lru_cache(maxsize=None)
+def _pixel_constants(mean: Tuple[float, ...], std: Tuple[float, ...], dtype: torch.dtype,
+                     device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean * 255, 1 / (std * 255)) on the device, made once: a host-to-device
+    copy on every call could not be captured in a CUDA graph."""
+    mean_t = torch.tensor(mean, dtype=dtype, device=device) * 255.0
+    return mean_t, 1.0 / (torch.tensor(std, dtype=dtype, device=device) * 255.0)
+
+
 def prepare_frames(video: torch.Tensor, dtype: torch.dtype, mean, std,
                    normalization_folded: bool = False) -> torch.Tensor:
     """(B, T, H, W, C) -> (B*T, H, W, C) in dtype. uint8 video is normalized
@@ -45,8 +55,7 @@ def prepare_frames(video: torch.Tensor, dtype: torch.dtype, mean, std,
         if normalization_folded:
             video = video.to(dtype)
         else:
-            mean = torch.tensor(mean, dtype=dtype, device=video.device) * 255.0
-            inv_std = 1.0 / (torch.tensor(std, dtype=dtype, device=video.device) * 255.0)
+            mean, inv_std = _pixel_constants(tuple(mean), tuple(std), dtype, video.device)
             video = (video.to(dtype) - mean) * inv_std
     b, t = video.shape[0], video.shape[1]
     return video.reshape(b * t, *video.shape[2:])

@@ -231,3 +231,12 @@ def frozen_in_time_params_from_torch(state_dict: Mapping[str, np.ndarray],
     text_sd = {k[len("text_model."):]: v for k, v in sd.items() if k.startswith("text_model.")}
     return {"video": video, "text": distilbert_params_from_torch(text_sd, config.text),
             "vid_proj": _linear(sd, "vid_proj.0"), "txt_proj": _linear(sd, "txt_proj.1")}
+
+
+def load_frozen_in_time_encoder(*args, **kwargs):
+    """The factory that ``config/encoder/frozen_in_time*.yaml`` names, at the
+    path where the JAX package defines it: ``load.load_frozen_in_time_encoder``
+    (imported here when called: ``load`` imports this module)."""
+    from fitclip_torch.models.frozen_in_time.load import load_frozen_in_time_encoder as load
+
+    return load(*args, **kwargs)

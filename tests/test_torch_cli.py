@@ -421,3 +421,66 @@ def test_int8_calibration_writes_jax_scales_teacher_forced(vocab, tmp_path_facto
     predictions = torch.load(str(root / "predictions.pt"), weights_only=False)
     assert predictions["encoded_videos"].shape == (10, 32)
     assert bool(torch.isfinite(predictions["encoded_texts"]).all())
+
+
+# --- predict through each ported family's config (F5) ------------------------------
+
+BERT_WORDS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *dict.fromkeys(WORDS)]
+
+
+def _family_encoder(family, tmp_path, vocab):
+    """(config overrides, env, the factory called directly) of one family at the
+    config's widths, seeded, with a vocabulary the test writes."""
+    from fitclip_torch.models import mil_nce, slip, videoclip
+    from fitclip_torch.models.frozen_in_time import load as fit_load
+
+    merges, _ = vocab
+    (tmp_path / "vocab.txt").write_text("\n".join(BERT_WORDS) + "\n")
+    np.save(tmp_path / "s3d_dict.npy", np.array(BERT_WORDS[5:]))
+    bert = str(tmp_path / "vocab.txt")
+    if family == "frozen_in_time":
+        return ([], {"DISTILBERT_VOCAB": bert},
+                lambda: fit_load.load_frozen_in_time_encoder(vocab_path=bert, device="cpu"))
+    if family == "slip":
+        return (["++encoder.model=SLIP_VITS16", f"+encoder.bpe_path={merges}"], {},
+                lambda: slip.load_slip_encoder(model="SLIP_VITS16", bpe_path=merges,
+                                               device="cpu"))
+    if family == "mil_nce":
+        npy = str(tmp_path / "s3d_dict.npy")
+        return (["++encoder.num_frames=8"], {"MIL_NCE_VOCAB": npy},
+                lambda: mil_nce.load_mil_nce_encoder(vocab_path=npy, num_frames=8,
+                                                     device="cpu"))
+    return ([], {"BERT_VOCAB": bert},
+            lambda: videoclip.load_videoclip_encoder(vocab_path=bert, device="cpu"))
+
+
+@pytest.mark.parametrize("family", ["frozen_in_time", "slip", "mil_nce", "videoclip"])
+def test_predict_builds_each_family_from_its_config(vocab, family, tmp_path_factory,
+                                                    monkeypatch):
+    """``command=predict encoder=<family>`` through the config's factory (FiT's
+    names ``fitclip_tpu.models.frozen_in_time.encoder``): the embeddings of the
+    family's encoder called directly on the same clips. The JAX factories take
+    no tiny config, so the port's own encoder is the reference here."""
+    from fitclip_torch.data.datasets.msrvtt import MsrVttDataModule
+
+    root = tmp_path_factory.mktemp(family)
+    msrvtt_root = _msrvtt_tree(root / "msrvtt", 2)
+    overrides, env, direct = _family_encoder(family, root, vocab)
+    for key, value in {"MSRVTT_PATH": msrvtt_root, **env}.items():
+        monkeypatch.setenv(key, value)
+    out = root / "predictions.pt"
+    cli.main(["command=predict", f"encoder={family}", *overrides, "++encoder.device=cpu",
+              "data=msrvtt", "data.eval_batch_size=2", "+data.num_threads=2",
+              f"+output_path={out}"])
+    got = torch.load(str(out), weights_only=False)
+    assert got["video_ids"] == ["video0", "video1"]
+    encoder = direct()
+    batch = next(iter(MsrVttDataModule(base_path=msrvtt_root, encoder=encoder,
+                                       eval_batch_size=2, num_threads=2).val_dataloader()))
+    with torch.no_grad():
+        want = {"encoded_videos": encoder.encode_video(torch.from_numpy(batch["video"])),
+                "encoded_texts": encoder.encode_text(runners.to_device(batch["text"], "cpu"))}
+    for key, value in want.items():
+        assert got[key].shape == value.shape and bool(torch.isfinite(got[key]).all())
+        np.testing.assert_allclose(got[key].numpy(), value.float().numpy(), atol=2e-4,
+                                   rtol=2e-4, err_msg=key)

@@ -1,5 +1,5 @@
 """fitclip_torch stands without JAX: every module imports with jax and flax
-blocked, and chip_smoke.py refuses to run (non-zero exit, no result line)
+blocked and loads nothing of fitclip_tpu or demo/, and chip_smoke.py refuses to run (non-zero exit, no result line)
 without a CUDA device or without the package beside it."""
 
 import json
@@ -30,6 +30,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "triton"))
 assert not leaked, leaked
 assert not any(m.startswith("fitclip_tpu") for m in sys.modules)
+assert not any(m.split(".")[0] == "demo" for m in sys.modules)
 print(" ".join(names))
 """
 
@@ -50,6 +51,8 @@ def test_every_module_imports_without_jax():
     bench = {f"fitclip_torch.bench.{m}" for m in ("__main__", "kernels", "encode", "block_layer",
                                                    "attn_int8", "fit_block")}
     assert bench <= set(names) and "fitclip_torch.utils.benchmarking" in names
+    assert {f"fitclip_torch.serving.{m}" for m in ("batcher", "graphs", "embed_service")} <= \
+        set(names)
 
 
 def _last_line_is_ok(stdout: str) -> bool:

@@ -1654,3 +1654,81 @@ def test_fit_block_arms_match_their_plain_twins(cuda):
     assert not any(missed.values()), missed
     # A planted wrong arm: `nocls` (only the CLS row differs) held as `full`.
     assert _block_rule_misses(outs["nocls"][0], outs["full"][1], x) is not None
+
+
+def _small_int8_clip(cuda):
+    """A seeded int8 CLIP small enough to capture fast (width 128, head_dim 64,
+    2 + 2 layers), calibrated on the card."""
+    from fitclip_torch.convert.from_jax import params_from_jax, params_to_jax
+    from fitclip_torch.models.clip.encoder import ClipVideoTextEncoder
+    from fitclip_torch.models.clip.model import (CLIPConfig, CLIPModel, TextConfig, VisionConfig,
+                                                 init_float_params)
+    from fitclip_torch.ops.quant import quantize_clip_params
+
+    config = CLIPConfig(embed_dim=64,
+                        vision=VisionConfig(image_size=64, patch_size=16, width=128, layers=2,
+                                            heads=2),
+                        text=TextConfig(context_length=16, vocab_size=512, width=128, layers=2,
+                                        heads=2))
+    state = init_float_params(CLIPModel(config), 3).state_dict()
+    enc = ClipVideoTextEncoder(config, num_frames=2, dtype=torch.bfloat16, quantized=True,
+                               fused_attention=True, device="cpu")
+    enc.model.load_state_dict(params_from_jax(quantize_clip_params(params_to_jax(state, config)),
+                                              config))
+    enc = enc.to(cuda)
+    gen = torch.Generator().manual_seed(5)
+    video = torch.randint(0, 256, (4, 2, 64, 64, 3), generator=gen, dtype=torch.uint8)
+    enc.calibrate(video.to(cuda), torch.randint(1, 511, (4, 16), generator=gen).to(cuda))
+    return enc, video, torch.randint(1, 511, (8, 16), generator=gen)
+
+
+@pytest.mark.cuda
+def test_bucket_graphs_replay_k1_and_the_batcher_keeps_each_row(cuda):
+    """Each bucket's graph records K1's seven launches a layer (the wrappers'
+    counts move at capture, not at replay); a replay equals the eager kernel
+    path; 48 concurrent requests through the batcher over the graphs each get
+    their own row, although every replay overwrites its bucket's output."""
+    import threading
+
+    from fitclip_torch.serving.batcher import BatchServer
+    from fitclip_torch.serving.graphs import BucketGraphs
+
+    wrappers = (K.ln_quant, K.int8_gemm_bias, K.int8_gemm_residual, K.int8_gemm_gelu,
+                A.attention_int8)
+    enc, video, ids = _small_int8_clip(cuda)
+    with torch.no_grad():
+        towers = {"text": (lambda t: enc.encode_text(t).float(), ids, (16,), torch.int64),
+                  "video": (lambda v: enc.encode_video(v).float(), video, (2, 64, 64, 3),
+                            torch.uint8)}
+        for name, (fn, inputs, item_shape, dtype) in towers.items():
+            graphs = BucketGraphs(fn, item_shape, dtype, (1, 2, 4), cuda, name=name).warm()
+            before = [w.launches for w in wrappers]
+            graphs.capture()
+            captured = [w.launches - b for w, b in zip(wrappers, before)]
+            assert captured == [3 * 2 * n for n in (2, 1, 2, 1, 1)], (name, captured)
+            eager = fn(inputs[:4].to(cuda))
+            counts = [w.launches for w in wrappers]
+            replayed = graphs(inputs[:4].to(cuda)).clone()
+            assert [w.launches for w in wrappers] == counts  # a replay calls no wrapper
+            torch.testing.assert_close(replayed, eager, rtol=0, atol=0)
+
+            server = BatchServer(graphs, item_shape, inputs.numpy().dtype, bucket_sizes=(1, 2, 4),
+                                 max_wait_ms=1, device=cuda).start()
+            rows = [i % inputs.shape[0] for i in range(48)]
+            results = [None] * len(rows)
+
+            def client(i):
+                results[i] = server.submit(inputs[rows[i]].numpy()).result(timeout=60)
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(rows))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            server.stop()
+            single = torch.cat([fn(inputs[i:i + 1].to(cuda)) for i in range(inputs.shape[0])])
+            got = torch.from_numpy(np.stack(results))
+            want = single.cpu()[rows]
+            cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+            assert float(cos.min()) > 0.9999, (name, float(cos.min()))
+            assert server.stats.batches < len(rows) and server.stats.requests == len(rows)
