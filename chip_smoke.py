@@ -8,6 +8,7 @@
     python3 chip_smoke.py --fit-attention [DIR]   # FiT's attention rows and encodes
     python3 chip_smoke.py --bench-arms [DIR]      # S2's s8 arms and slice-requant
     python3 chip_smoke.py --stem-cls [DIR]        # the S3D-G stem, K4's CLS row, their encodes
+    python3 chip_smoke.py --train-cli             # phase 13 alone, on phase 11's trees
 
 Drives these paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -17,8 +18,9 @@ bf16), CLIP ViT-B/16 bf16 on the float layer kernels (K2), SLIP ViT-B/16 in
 four configurations, the port's benchmarks (``python -m
 fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench), and the
 eval CLI (``python -m fitclip_torch command=evaluate|predict``, one data module
-and the drift_eval group) and the embed service over HTTP. It fails
-(non-zero exit) if any phase fails:
+and the drift_eval group), the embed service over HTTP, and the train-side CLI
+(``command=train`` contrastive, teacher-student and with a sweep, resume,
+``command=tune``). It fails (non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
@@ -231,6 +233,35 @@ and the drift_eval group) and the embed service over HTTP. It fails
     traffic launches nothing eagerly; (v) /health counts what was sent and
     every response has one row per text; (vi) (e) gives 400, 400, 413, 404.
     The trees are written under build/chip_smoke_eval/ and deleted.
+13. the train-side CLI, after phase 12 on phase 11's trees, through
+    fitclip_torch.cli.main.main with CLIP ViT-B/16 from seed 0 at full width
+    (fp32 unless said) and a WebVid train tree it writes (112 seeded mp4v
+    clips of 48 frames: 4 steps of webvid.yaml's batch of 28) and MSR-VTT's
+    train list: (a) ``command=train encoder=clip_vit_b_16 data=webvid``, one
+    epoch, validated on the WebVid val tree: 4 finite losses, per step 24 + 24
+    launches of the fp32 attention forward and backward and nothing else, r1,
+    r5, r10 and mr logged, ``last`` a full train state; prints clips/s from
+    the first batch to the last step (decode included), each step's wall, its
+    wait for the loader and its time in the step, beside phase 6 (e)'s
+    device-only step; (b) ``+trainer.max_steps=2``, then ``+checkpoint_path=
+    <last> +trainer.max_steps=4``: the last equals (a)'s bit for bit; (c) (a)
+    on the plain attention: losses within relative 2e-2 of (a)'s, no launch;
+    (d) ``--config-name teacher_student_trainer`` with a bf16 student and a
+    bf16 ``fused_block`` teacher over ``data=mixed_batch_msrvtt_webvid``, 3
+    steps of 8 + 8 clips: finite losses, per step K2's launches on both teacher
+    towers and 24 + 24 bf16 attention launches, ``r1_labeled`` and
+    ``r1_unlabeled`` logged, a ``best`` checkpoint; (e) ``--config-name
+    drift_eval_trainer +hparam_search=random ++hparam_search.n_trials=2``, 2
+    steps a trial: each trial validated with ``r10_cc3m``, ``r10_msrvtt`` and
+    ``r10_webvid``, the printed best one of them; (f) ``command=evaluate
+    data=msrvtt +checkpoint_path=<(a)'s last>``: the printed metrics equal
+    RetrievalEvaluator over that state's encoder called directly, whose
+    embeddings differ from the untrained encoder's; (g) ``command=tune
+    data=webvid``, the doubling from 28 over enough trials to meet one CUDA
+    OOM (sized from phase 6 (e)'s peak memory, printed), 20 LR steps: the
+    suggestion is the last size that ran, the allocated memory after the
+    search within 1% of before it, the LR in [1e-8, 1]. ``--train-cli`` runs
+    this phase alone (on trees it writes as phase 11 does).
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 Each timed phase prints the card's SM and memory clocks beside its readings.
@@ -3071,16 +3102,18 @@ CAPTION_WORDS = ("man", "woman", "dog", "cat", "car", "ball", "kitchen", "street
 DRIFT_ITEMS, DRIFT_FRAMES = 32, 48  # each of CC3M's and WebVid's val trees in data=drift_eval
 
 
-def write_avi(path: Path, rng: np.random.Generator, frames: int = EVAL_FRAMES) -> None:
-    """A seeded MJPG AVI of distinct content: a low-resolution random image,
+def write_avi(path: Path, rng: np.random.Generator, frames: int = EVAL_FRAMES,
+              fourcc: str = "MJPG") -> None:
+    """A seeded MJPG AVI (or another codec in the container the name gives:
+    mp4v in an .mp4) of distinct content: a low-resolution random image,
     upscaled and drifting a few pixels a frame."""
     import cv2
 
     width, height = EVAL_SIZE
     base = cv2.resize(rng.integers(0, 256, (12, 16, 3), dtype=np.uint8), (width, height),
                       interpolation=cv2.INTER_LINEAR)
-    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), EVAL_FPS, EVAL_SIZE)
-    require(writer.isOpened(), "cv2 cannot write an MJPG AVI here")
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), EVAL_FPS, EVAL_SIZE)
+    require(writer.isOpened(), f"cv2 cannot write {fourcc} to {path.suffix} here")
     for t in range(frames):
         writer.write(np.roll(base, (t, 2 * t), axis=(0, 1)))
     writer.release()
@@ -3773,6 +3806,377 @@ def serving_phase(torch, wrappers, tree):
     return {"serve_capture": capture_launches, "serve_traffic": traffic_launches}
 
 
+# Phase 13: the train-side CLI (python -m fitclip_torch command=train|tune, sweeps).
+TRAIN_VIDEOS, TRAIN_FRAMES = 112, 48  # 4 steps of config/data/webvid.yaml's batch of 28
+TRAIN_BATCH = 28
+TUNE_LR_STEPS = 20
+
+
+def write_webvid_train_tree(root: Path, seed: int = 3):
+    """A WebVid train tree: 112 seeded mp4v clips of 48 frames named {videoid}.mp4
+    (webvid4_5k reads the CSV's ids as .mp4 names) and a videoid,name CSV.
+    Returns the WEBVID_TRAIN_* settings."""
+    rng = np.random.default_rng(seed)
+    videos = root / "webvid" / "train"
+    videos.mkdir(parents=True)
+    rows = ["videoid,name,page_dir"]
+    for i in range(TRAIN_VIDEOS):
+        words = rng.choice(CAPTION_WORDS, size=3, replace=False)
+        write_avi(videos / f"{41000 + i}.mp4", rng, frames=TRAIN_FRAMES, fourcc="mp4v")
+        rows.append(f'{41000 + i},"a {words[0]} with a {words[1]}, {words[2]} {i}",dir{i % 4}')
+    (root / "webvid" / "train.csv").write_text("\n".join(rows) + "\n")
+    return {"WEBVID_TRAIN_CSV": str(root / "webvid" / "train.csv"),
+            "WEBVID_TRAIN_VIDEOS": str(videos),
+            "WEBVID_TRAIN_4_5K_CSV": str(root / "webvid" / "train.csv")}
+
+
+@contextlib.contextmanager
+def timed_steps(torch, counters):
+    """Wraps the train steps that run_train makes: per step the launches, the
+    host's wait for the batch (from the end of the step before, or for the
+    first from the step's making, just before the loader starts), the step
+    until its loss is on the host, and the wall time from the step before's
+    end."""
+    from fitclip_torch.training import train_runner
+
+    steps = []
+    last = [time.perf_counter()]
+
+    def wrap(make):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+            last[0] = time.perf_counter()  # the run is built: its loader starts next
+
+            def counted(state, batch):
+                start, before = time.perf_counter(), counters()
+                state, metrics = step(state, batch)
+                float(metrics["loss/train"])
+                end = time.perf_counter()
+                after = counters()
+                steps.append({"launches": {k: after[k] - before[k] for k in after},
+                              "wait_ms": (start - last[0]) * 1e3,
+                              "step_ms": (end - start) * 1e3,
+                              "wall_ms": (end - last[0]) * 1e3, "start": start, "end": end})
+                last[0] = end
+                return state, metrics
+            return counted
+        return made
+
+    with swapped(train_runner,
+                 make_contrastive_train_step=wrap(train_runner.make_contrastive_train_step),
+                 make_teacher_student_train_step=wrap(
+                     train_runner.make_teacher_student_train_step)):
+        yield steps
+
+
+def train_cli_run(torch, wrappers, argv, log_dir: Path):
+    """cli_run with the steps wrapped: (stdout, wall s, launches of the whole
+    run, per-step records, metrics.jsonl entries)."""
+    def counters():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    print(f"train cli: python -m fitclip_torch {' '.join(argv)}")
+    with timed_steps(torch, counters) as steps:
+        out, _, seconds, launches = cli_run(torch, wrappers, argv)
+    entries = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    return out, seconds, launches, steps, entries
+
+
+def checkpoints_equal(torch, a, b) -> bool:
+    """Params, both moments, AdamW count and step of two train-state files."""
+    from fitclip_torch.training.checkpointing import load_checkpoint
+
+    a, b = load_checkpoint(str(a)), load_checkpoint(str(b))
+    return (a["step"] == b["step"] and a["opt_state"]["count"] == b["opt_state"]["count"]
+            and set(a["params"]) == set(b["params"])
+            and all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"])
+            and all(torch.equal(a["opt_state"][k][n], b["opt_state"][k][n])
+                    for k in ("mu", "nu") for n in a["params"]))
+
+
+def step_line(steps):
+    return "; ".join(f"{s['wall_ms']:.1f} wall = {s['wait_ms']:.1f} waiting + "
+                     f"{s['step_ms']:.1f} in the step" for s in steps)
+
+
+def train_cli_phase(torch, wrappers, work: Path, tree, fp32_step):
+    """Phase 13, after phase 12 on phase 11's trees: (a) contrastive training
+    through the CLI, (b) resume through the CLI, (c) (a) on the plain
+    attention, (d) teacher-student, (e) drift_eval_trainer with a random
+    sweep of 2 trials, (f) evaluate (a)'s checkpoint, (g) tune. ``fp32_step``
+    is phase 6 (e)'s device-only contrastive step ({"ms", "peak_gib"}) or
+    None. Returns the launch counts per run. Runs with PyTorch's default cuDNN
+    settings, restored after."""
+    # cuDNN as a user's process has it (PyTorch's defaults: TF32 allowed, any
+    # algorithm): the CLI's own settings must give (b) its bits and (c) its losses.
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, False
+    try:
+        return _train_cli_phase(torch, wrappers, work, tree, fp32_step)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
+
+
+def _train_cli_phase(torch, wrappers, work: Path, tree, fp32_step):
+    import gc
+    import os
+
+    import fitclip_torch.models.clip.model as model_module
+    from fitclip_torch.cli import tune
+    from fitclip_torch.data.datasets.msrvtt import MsrVttDataModule
+    from fitclip_torch.evaluation.retrieval import RetrievalEvaluator
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.models.clip.model import CLIPConfig, CLIPModel
+    from fitclip_torch.training.checkpointing import is_full_train_state, load_checkpoint
+
+    phase_start = time.perf_counter()
+    start = time.perf_counter()
+    os.environ.update(write_webvid_train_tree(work))
+    (tree["root"] / "structured-symlinks" / "train_list_jsfusion.txt").write_text(
+        "\n".join(tree["ids"]))
+    print(f"train cli: wrote {TRAIN_VIDEOS} mp4v clips of {TRAIN_FRAMES} frames and MSR-VTT's "
+          f"train list in {time.perf_counter() - start:.1f} s")
+    encoder = ["encoder=clip_vit_b_16", f"+encoder.bpe_path={tree['merges']}"]
+
+    def dirs(name):
+        return [f"+log_dir={work / name / 'logs'}",
+                f"trainer.callbacks.checkpoint.dirpath={work / name / 'ckpt'}"]
+
+    contrastive = ["command=train", *encoder, "data=webvid", "trainer.log_every_n_steps=1"]
+    paths = {}
+
+    # (a) Contrastive, one epoch of 4 steps of 28 clips, epoch-end validation.
+    out, a_s, launches, steps, entries = train_cli_run(torch, wrappers, [*contrastive, *dirs("a")],
+                                                       work / "a" / "logs")
+    paths["train_cli"] = launches
+    losses = [e["loss/train"] for e in entries if "loss/train" in e]
+    validation = [e for e in entries if "r1" in e]
+    per_layer = {"fused_attention_qkv": 1, "fused_attention_qkv_backward": 1, "attention_f32": 1,
+                 "attention_bwd_f32": 1}
+    expected = {k: 2 * LAYERS * per_layer.get(k, 0) for k in wrappers}
+    clips_s = len(steps) * TRAIN_BATCH / (steps[-1]["end"] - steps[0]["start"])
+    device_step = "not run" if fp32_step is None else f"{fp32_step['ms']:.3f} ms"
+    print(f"train cli (a): {a_s:.2f} s wall; losses {losses}; launches per step "
+          f"{[{k: n for k, n in s['launches'].items() if n} for s in steps]}; validation "
+          f"{validation}")
+    print(f"train cli (a) rate: {clips_s:.2f} clips/s from the first batch to the last step, "
+          f"decode included ({len(steps)} steps of {TRAIN_BATCH} clips x 4 frames, fp32); per "
+          f"step ms: {step_line(steps)}; phase 6 (e)'s device-only fp32 step at 32 clips: "
+          f"{device_step} ({clocks()}; {nvidia_smi()})")
+    require(len(losses) == 4 and all(np.isfinite(losses)), f"(a) losses {losses}")
+    require(len(steps) == 4 and all(s["launches"] == expected for s in steps),
+            f"(a) launches per step {[s['launches'] for s in steps]}, expected {expected}")
+    require(len(validation) == 1 and {"r1", "r5", "r10", "mr"} <= set(validation[0]),
+            f"(a) validation {validation}")
+    last_a = work / "a" / "ckpt" / "last"
+    require(is_full_train_state(str(last_a)), "(a) last is not a full train state")
+
+    # (b) Resume through the CLI: 2 steps, then +checkpoint_path=last to 4.
+    _, _, first, _, _ = train_cli_run(torch, wrappers,
+                                      [*contrastive, *dirs("b"), "+trainer.max_steps=2"],
+                                      work / "b" / "logs")
+    last_b = work / "b" / "ckpt" / "last"
+    _, _, second, resumed, _ = train_cli_run(
+        torch, wrappers, [*contrastive, *dirs("b"), f"+checkpoint_path={last_b}",
+                          "+trainer.max_steps=4"], work / "b" / "logs")
+    paths["train_cli_resume"] = {k: first[k] + second[k] for k in first}
+    bitwise = checkpoints_equal(torch, last_b, last_a)
+    print(f"train cli (b): 2 steps, then {len(resumed)} resumed to step 4: bit-identical to (a)'s "
+          f"last: {bitwise}")
+    require(len(resumed) == 2 and bitwise, "(b) the resumed last differs from (a)'s")
+
+    # (c) (a) on the plain attention forward and backward.
+    with swapped(model_module, fused_attention_qkv=plain_attention_function(torch)):
+        _, _, plain, _, plain_entries = train_cli_run(torch, wrappers,
+                                                      [*contrastive, *dirs("c")],
+                                                      work / "c" / "logs")
+    plain_losses = [e["loss/train"] for e in plain_entries if "loss/train" in e]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    print(f"train cli (c) plain attention: losses {plain_losses}; relative differences {rel}")
+    require(not any(plain.values()), f"(c) the plain run launched {plain}")
+    require(len(plain_losses) == 4 and max(rel) <= LOSS_RTOL, f"(c) relative differences {rel}")
+
+    # (d) Teacher-student: bf16 student, bf16 fused_block teacher (K2), 3 steps
+    # of 8 + 8 clips, validated on each member at step 3.
+    ts = ["--config-name", "teacher_student_trainer", "command=train",
+          "+encoder@encoder.student=clip_vit_b_16", "+encoder@encoder.teacher=clip_vit_b_16",
+          f"+encoder.student.bpe_path={tree['merges']}",
+          f"+encoder.teacher.bpe_path={tree['merges']}",
+          "++encoder.student.dtype=bfloat16", "++encoder.teacher.dtype=bfloat16",
+          "++encoder.teacher.fused_block=true", "data=mixed_batch_msrvtt_webvid",
+          "++model.labeled_dataset_loss_share=0.9999", "+trainer.max_steps=3",
+          "trainer.val_check_interval=0.25", "trainer.log_every_n_steps=1", *dirs("d")]
+    _, d_s, launches, steps, entries = train_cli_run(torch, wrappers, ts, work / "d" / "logs")
+    paths["train_cli_teacher_student"] = launches
+    ts_losses = [e["loss/train"] for e in entries if "loss/train" in e]
+    validation = [e for e in entries if "r1_labeled" in e]
+    expected = {k: 0 for k in wrappers}
+    expected.update({**k2_launches(LAYERS), "fused_attention_qkv": 2 * LAYERS,
+                     "fused_attention_qkv_backward": 2 * LAYERS})
+    print(f"train cli (d) teacher-student: {d_s:.2f} s wall; losses {ts_losses}; launches per "
+          f"step {[{k: n for k, n in s['launches'].items() if n} for s in steps]}; validation "
+          f"{validation}; per step ms: {step_line(steps)}")
+    require(len(ts_losses) == 3 and all(np.isfinite(ts_losses)), f"(d) losses {ts_losses}")
+    require(len(steps) == 3 and all(s["launches"] == expected for s in steps),
+            f"(d) launches per step {[s['launches'] for s in steps]}, expected {expected}")
+    require(len(validation) == 1 and "r1_unlabeled" in validation[0],
+            f"(d) validation {validation}")
+    require(is_full_train_state(str(work / "d" / "ckpt" / "best")),
+            "(d) no best checkpoint by r1_labeled")
+    torch.cuda.empty_cache()
+
+    # (e) drift_eval_trainer with a random sweep of 2 trials, 2 steps each,
+    # validated on data=drift_eval at step 2.
+    sweep = ["--config-name", "drift_eval_trainer", "command=train", *encoder,
+             "+hparam_search=random", "++hparam_search.n_trials=2", "+trainer.max_steps=2",
+             "trainer.val_check_interval=0.5", "trainer.log_every_n_steps=1", *dirs("e")]
+    out, e_s, launches, steps, entries = train_cli_run(torch, wrappers, sweep,
+                                                       work / "e" / "logs")
+    paths["train_cli_sweep"] = launches
+    validation = [e for e in entries if "r10_cc3m" in e]
+    best = float(out.strip().splitlines()[-1])
+    print(f"train cli (e) sweep: {e_s:.2f} s wall; {len(steps)} steps; trials' validation "
+          f"{validation}; printed best {best}")
+    require(len(steps) == 4 and len(validation) == 2, f"(e) {len(steps)} steps, {validation}")
+    require(all({"r10_msrvtt", "r10_webvid"} <= set(v) for v in validation),
+            f"(e) validation keys {validation}")
+    require(best in [v["r10_cc3m"] for v in validation], f"(e) printed best {best}")
+
+    # (f) Evaluate (a)'s checkpoint through the CLI, against RetrievalEvaluator
+    # over that state's encoder called directly.
+    out, _, f_s, launches = cli_run(torch, wrappers, ["command=evaluate", *encoder,
+                                                      "data=msrvtt", f"+checkpoint_path={last_a}"])
+    paths["evaluate_trained_cli"] = launches
+    metrics = json.loads(out[out.index("{"):])
+    trained = load_clip_encoder("ViT-B/16", device="cuda", seed=0, bpe_path=tree["merges"])
+    state = load_checkpoint(str(last_a))["params"]
+    trained.encoder.model.load_state_dict(
+        {k[len("encoder."):]: v for k, v in state.items() if k.startswith("encoder.")})
+    untrained = load_clip_encoder("ViT-B/16", device="cuda", seed=0, bpe_path=tree["merges"])
+    evaluator, moved = RetrievalEvaluator(), 0.0
+    with torch.no_grad():
+        for batch in MsrVttDataModule(base_path=str(tree["root"]), encoder=trained,
+                                      eval_batch_size=EVAL_BATCH).val_dataloader():
+            video = torch.from_numpy(batch["video"]).cuda()
+            text = torch.from_numpy(batch["text"]).long().cuda()
+            video_emb = trained.encode_video(video)
+            evaluator.update(video_emb, trained.encode_text(text))
+            moved = max(moved, float((video_emb - untrained.encode_video(video)).abs().max()))
+    direct = evaluator.compute()
+    print(f"train cli (f) evaluate (a)'s last: {f_s:.2f} s wall; printed {metrics}; direct "
+          f"{direct}; max |trained - untrained| video embedding {moved:.3e}")
+    require(metrics == direct, f"(f) printed {metrics} != direct {direct}")
+    require(moved > 0, "(f) the trained and untrained embeddings are equal")
+    del trained, untrained, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) Tune: the doubling search sized to meet one OOM, then 20 LR steps.
+    total = torch.cuda.get_device_properties(0).total_memory
+    if fp32_step is None:
+        per_clip, fixed = 0.55 * 2 ** 30, 2.5 * 2 ** 30
+        source = "assumed"
+    else:
+        with torch.device("meta"):
+            numel = sum(p.numel() for p in CLIPModel(CLIPConfig.vit_b_16()).parameters())
+        fixed = 4 * 4 * numel  # fp32 params, gradients and two moments
+        per_clip = (fp32_step["peak_gib"] * 2 ** 30 - fixed) / 32
+        source = f"from phase 6 (e)'s peak {fp32_step['peak_gib']:.2f} GiB at 32 clips"
+    fits = int((total - fixed) / per_clip)
+    trials = 1
+    while TRAIN_BATCH * 2 ** (trials - 1) <= 2 * fits:
+        trials += 1
+    print(f"train cli (g) estimate: {per_clip / 2 ** 30:.3f} GiB of activations a clip and "
+          f"{fixed / 2 ** 30:.2f} GiB of params, gradients and moments ({source}) -> about "
+          f"{fits} clips fit in {total / 2 ** 30:.1f} GiB; doubling from {TRAIN_BATCH} over "
+          f"{trials} trials (up to {TRAIN_BATCH * 2 ** (trials - 1)})")
+    memory = {}
+
+    def scale_batch_size(*args, **kwargs):
+        memory["before"] = torch.cuda.memory_allocated()
+        result = search(*args, **kwargs)
+        memory["after"] = torch.cuda.memory_allocated()
+        memory["reserved_after"] = torch.cuda.memory_reserved()
+        return result
+
+    search = tune.scale_batch_size
+    records = _Records()
+    logging.getLogger("fitclip_torch.cli.tune").addHandler(records)
+    try:
+        with swapped(tune, scale_batch_size=scale_batch_size):
+            out, _, g_s, launches = cli_run(torch, wrappers, [
+                "command=tune", *encoder, "data=webvid",
+                f"++tune.init_batch_size={TRAIN_BATCH}", f"++tune.max_trials={trials}",
+                f"++tune.num_lr_steps={TUNE_LR_STEPS}"])
+    finally:
+        logging.getLogger("fitclip_torch.cli.tune").removeHandler(records)
+    paths["tune_cli"] = launches
+    suggested = json.loads(out[out.index("{"):])
+    ran = [int(m.split("=")[1].split()[0]) for m in records.messages if m.endswith("fits")]
+    oom = [m for m in records.messages if "ran out of device memory" in m]
+    print(f"train cli (g) tune: {g_s:.2f} s wall; suggested {suggested}; sizes that ran {ran}, "
+          f"{oom}; memory allocated before the search {memory['before'] / 2 ** 30:.3f} GiB, "
+          f"after {memory['after'] / 2 ** 30:.3f} GiB (reserved after "
+          f"{memory['reserved_after'] / 2 ** 30:.3f} GiB)")
+    require(len(oom) == 1 and ran and suggested["batch_size"] == ran[-1],
+            f"(g) the doubling met no OOM or suggested another size: {records.messages}")
+    require(abs(memory["after"] - memory["before"]) <= 0.01 * memory["before"],
+            f"(g) memory after the search {memory}")
+    require(1e-8 <= suggested["lr"] <= 1.0, f"(g) suggested lr {suggested['lr']}")
+    print(f"train cli: phase 13 took {time.perf_counter() - phase_start:.1f} s ({nvidia_smi()})")
+    return paths
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the main paths by name; each counts its launches."""
+    from fitclip_torch.ops import attention as A
+    from fitclip_torch.ops import block as K
+    from fitclip_torch.ops.s3dg_stem import s3dg_stem
+
+    return {"ln_quant": K.ln_quant, "int8_gemm_bias": K.int8_gemm_bias,
+                "int8_gemm_residual": K.int8_gemm_residual,
+                "int8_gemm_gelu": K.int8_gemm_gelu, "attention_int8": A.attention_int8,
+                "fused_attention_qkv": A.fused_attention_qkv,
+                "fused_attention_qkv_backward": A.fused_attention_qkv_backward,
+                "fused_attention_qkv_gkv": A.fused_attention_qkv_gkv,
+                "fused_time_attention": A.fused_time_attention,
+                "fit_cls_attention_int8": A.fit_cls_attention_int8,
+                "fit_time_attention_int8": A.fit_time_attention_int8,
+                "fit_space_attention_int8": A.fit_space_attention_int8,
+                "s3dg_stem": s3dg_stem, "ln_cast": K.ln_cast, "bf16_gemm_bias": K.bf16_gemm_bias,
+                "bf16_gemm_residual": K.bf16_gemm_residual, "bf16_gemm_gelu": K.bf16_gemm_gelu,
+                "attention_block": A.attention_block,
+                "fused_int8_qkv_attention": A.fused_int8_qkv_attention,
+                "attention_f32": A.attention_f32, "attention_bwd_f32": A.attention_bwd_f32}
+
+
+def train_cli_only(torch) -> int:
+    """Phase 13 alone (``--train-cli``): the build, phase 11's trees and BPE
+    vocabulary (no eval command runs), then phase 13."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    from fitclip_torch import _build
+    from fitclip_torch.models.clip.tokenizer import write_tiny_test_vocab
+
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s; {nvidia_smi()}")
+    work = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        ids, captions = write_msrvtt_tree(work / "msrvtt")
+        merges, _ = write_tiny_test_vocab(str(work), [w for c in captions for w in c.split()])
+        os.environ.update(write_drift_trees(work), MSRVTT_PATH=str(work / "msrvtt"))
+        tree = {"root": work / "msrvtt", "ids": ids, "merges": merges}
+        paths = train_cli_phase(torch, kernel_wrappers(), work, tree, None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"train_cli": {path: {k: n for k, n in c.items() if n}
+                                    for path, c in paths.items()}, "card": nvidia_smi()}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3783,6 +4187,10 @@ def main() -> int:
     alone = {"--train-steps": train_steps_only, "--row-passes": row_passes_only,
              "--fp32-attention": fp32_attention_only, "--fit-attention": fit_attention_only,
              "--bench-arms": bench_arms_only, "--stem-cls": stem_cls_only}
+    if sys.argv[1:2] == ["--train-cli"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return train_cli_only(torch)
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3838,21 +4246,7 @@ def main() -> int:
     calib_text = torch.from_numpy(token_ids(32, rng)).cuda()
     text = torch.from_numpy(token_ids(8, rng)).cuda()
 
-    wrappers = {"ln_quant": K.ln_quant, "int8_gemm_bias": K.int8_gemm_bias,
-                "int8_gemm_residual": K.int8_gemm_residual,
-                "int8_gemm_gelu": K.int8_gemm_gelu, "attention_int8": A.attention_int8,
-                "fused_attention_qkv": A.fused_attention_qkv,
-                "fused_attention_qkv_backward": A.fused_attention_qkv_backward,
-                "fused_attention_qkv_gkv": A.fused_attention_qkv_gkv,
-                "fused_time_attention": A.fused_time_attention,
-                "fit_cls_attention_int8": A.fit_cls_attention_int8,
-                "fit_time_attention_int8": A.fit_time_attention_int8,
-                "fit_space_attention_int8": A.fit_space_attention_int8,
-                "s3dg_stem": s3dg_stem, "ln_cast": K.ln_cast, "bf16_gemm_bias": K.bf16_gemm_bias,
-                "bf16_gemm_residual": K.bf16_gemm_residual, "bf16_gemm_gelu": K.bf16_gemm_gelu,
-                "attention_block": A.attention_block,
-                "fused_int8_qkv_attention": A.fused_int8_qkv_attention,
-                "attention_f32": A.attention_f32, "attention_bwd_f32": A.attention_bwd_f32}
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     int8_enc.calibrate(video, calib_text)
@@ -3958,12 +4352,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"clocks (phase 12): {clocks()}")
         serving_paths = serving_phase(torch, wrappers, eval_tree)
+        # Phase 13: the train-side CLI, on phase 11's trees.
+        torch.cuda.empty_cache()
+        print(f"clocks (phase 13): {clocks()}")
+        torch.set_grad_enabled(True)
+        train_cli_paths = train_cli_phase(torch, wrappers, work, eval_tree,
+                                          fp32_train_times.get("contrastive"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"encode": launches, **paths, **fit_paths, **fit_fp32_paths, **s3dg_paths,
              **clip_k2_paths,
              **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths, **cli_paths,
-             **serving_paths}
+             **serving_paths, **train_cli_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:

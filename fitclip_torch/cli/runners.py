@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from fitclip_torch.data.data_module import VideoClassificationDataModule
-from fitclip_torch.data.data_module_group import EvalDataModuleGroup
+from fitclip_torch.data.data_module_group import EvalDataModuleGroup, TrainAndEvalDataModules
 from fitclip_torch.evaluation.classification import (ClassificationEvaluator,
                                                      encode_label_bank, tokenize_label_bank)
 from fitclip_torch.evaluation.retrieval import RetrievalEvaluator
@@ -55,7 +55,11 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _members(data_module, split: str) -> List[Tuple[Optional[str], Any, Any]]:
     """(name, data module, loader) of each member of a group, in order, or
-    [(None, data_module, its loader)]. split: "val", "test" or "predict"."""
+    [(None, data_module, its loader)]. split: "val", "test" or "predict". A
+    train-and-eval module evaluates its eval module, a group's members under
+    their own names."""
+    if isinstance(data_module, TrainAndEvalDataModules):
+        return _members(data_module.eval_data_module, split)
     loaders = getattr(data_module, f"{split}_dataloader")()
     if isinstance(data_module, EvalDataModuleGroup):
         return list(zip(data_module.names, data_module.data_modules, loaders))
@@ -98,8 +102,11 @@ def _calibration_batches(quant_cfg) -> int:
 
 
 def _video_text(batch, device):
-    """A batch's video and text on the device, and its video ids."""
-    return (to_device(batch["video"], device), to_device(batch["text"], device),
+    """A batch's video and text on the device, and its video ids. A
+    dual-preprocessed (teacher-student) batch gives its student view, on which
+    training validates (teacher_student.py:142-173 of the reference)."""
+    return (to_device(batch.get("video", batch.get("video_student")), device),
+            to_device(batch.get("text", batch.get("text_student")), device),
             batch.get("video_id", []))
 
 

@@ -10,6 +10,7 @@ files are the port's own format."""
 
 import json
 import os
+import pickle
 from typing import Any, Dict, Optional
 
 import torch
@@ -74,7 +75,7 @@ def is_full_train_state(path: str) -> bool:
     try:
         saved = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True,
                            mmap=True)
-    except (OSError, RuntimeError, ValueError):
+    except (OSError, RuntimeError, ValueError, pickle.UnpicklingError):
         return False
     return isinstance(saved, dict) and {"step", "params", "opt_state"} <= set(saved)
 

@@ -5,8 +5,12 @@ Wires config -> optimizer, state, step, trainer. The encoder slot decides the
 mode: one ``LoadedEncoder`` trains contrastively; a {"student", "teacher"} map
 runs the FitCLIP distillation over mixed batches. Batches are numpy trees from
 the data module's loaders, moved to the student's device (pinned, without
-blocking). Distribution (DDP, FSDP, several hosts) is not ported yet
-(ROADMAP.md §1, Distribution).
+blocking). Validation is the runners' retrieval eval (``cli/runners.py:run_eval``)
+of the student over each val loader, a group's metrics suffixed with each
+member's name. The callbacks' ``param_freeze_patterns`` freeze parameters by
+their JAX paths (``trainer.callbacks=clip_freeze_text``: ``^encoder/text/``).
+Distribution (DDP, FSDP, several hosts) is not ported yet: ``trainer.fsdp``
+only logs a warning, as the JAX package does on one device.
 """
 
 import logging
@@ -15,7 +19,9 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from fitclip_torch.evaluation.retrieval import RetrievalEvaluator
+from fitclip_torch.cli.runners import run_eval
+from fitclip_torch.config_engine import instantiate
+from fitclip_torch.data.data_module_group import DataModuleStructuredGroup
 from fitclip_torch.models.frozen_in_time.encoder import FrozenInTimeVideoTextEncoder
 from fitclip_torch.training.checkpointing import load_trainer_state, restore_checkpoint
 from fitclip_torch.training.state import init_train_state, make_optimizer
@@ -24,6 +30,7 @@ from fitclip_torch.training.steps import (make_contrastive_train_step,
 from fitclip_torch.training.trainer import (CheckpointConfig, EarlyStoppingConfig, Trainer,
                                             TrainerConfig)
 from fitclip_torch.utils.logging import MetricsLogger
+from fitclip_torch.utils.precision import training_convolutions
 
 LOGGER = logging.getLogger(__name__)
 
@@ -60,35 +67,6 @@ def make_batch_preparer(device: torch.device):
         return put(node)
 
     return prepare
-
-
-def _loaders_with_names(data_module, split: str = "val"):
-    loaders = data_module.test_dataloader() if split == "test" else data_module.val_dataloader()
-    if isinstance(loaders, list):
-        names = getattr(data_module, "names", [str(i) for i in range(len(loaders))])
-        return list(zip(names, loaders))
-    return [(None, loaders)]
-
-
-def run_retrieval_eval(loaded, data_module, split: str = "val") -> Dict[str, float]:
-    """Zero-shot text->video retrieval on the encoder's device: R@1/5/10 and
-    the median rank per loader, suffixed with the dataset name for grouped
-    eval. Teacher-student batches are evaluated on the student view."""
-    encoder = loaded.encoder
-    prepare = make_batch_preparer(next(encoder.parameters()).device)
-    results: Dict[str, float] = {}
-    for name, loader in _loaders_with_names(data_module, split):
-        evaluator = RetrievalEvaluator()
-        for batch in loader:
-            view = {"video": batch.get("video", batch.get("video_student")),
-                    "text": batch.get("text", batch.get("text_student"))}
-            device_batch = prepare(view)
-            with torch.no_grad():
-                evaluator.update(encoder.encode_video(device_batch["video"]),
-                                 encoder.encode_text(device_batch["text"]))
-        suffix = f"_{name}" if name else ""
-        results.update({f"{key}{suffix}": value for key, value in evaluator.compute().items()})
-    return results
 
 
 def _has_val(data_module) -> bool:
@@ -188,12 +166,36 @@ def run_train(encoder_slot, data_module, model_cfg: Mapping[str, Any],
     else:
         step = make_contrastive_train_step(encoder, optimizer)
 
+    if bool(trainer_cfg.get("fsdp", False)):
+        LOGGER.warning("++trainer.fsdp=true has no effect on one device; the TrainState "
+                       "is not sharded.")
+    train_loader = _train_loader(data_module)
+    # An experiment-tracker sink (trainer.logger={_target_: ...}) receives every
+    # logged dict beside the JSONL stream.
+    sinks = [instantiate(trainer_cfg["logger"])] if trainer_cfg.get("logger") else []
     trainer = Trainer(_trainer_config(trainer_cfg, callbacks_cfg),
-                      logger=MetricsLogger(log_dir=log_dir),
+                      logger=MetricsLogger(log_dir=log_dir, sinks=sinks),
                       prepare_batch=make_batch_preparer(device))
-    final_state = trainer.fit(state, step, data_module.train_dataloader(),
-                              validate=((lambda _: run_retrieval_eval(student, data_module))
-                                        if _has_val(data_module) else None),
-                              resume_trainer_state=resume_trainer_state)
-    trainer.logger.close()
+    try:
+        with training_convolutions():
+            final_state = trainer.fit(state, step, train_loader,
+                                      validate=((lambda _: run_eval(student, data_module))
+                                                if _has_val(data_module) else None),
+                                      resume_trainer_state=resume_trainer_state)
+    finally:
+        trainer.logger.close()
     return {"state": final_state, "metrics": trainer.last_val_metrics}
+
+
+def _train_loader(data_module):
+    """The data module's train loader. A structured group, whose train loader
+    is a mapping of each member's, is refused before any loader is built: the
+    train loop takes one loader of batches."""
+    source = getattr(data_module, "train_data_module", data_module)
+    if isinstance(source, DataModuleStructuredGroup):
+        raise ValueError(
+            f"command=train over {type(source).__name__}: its train_dataloader() is a "
+            f"mapping of loaders, one per member ({', '.join(source.names)}), which the train "
+            "loop cannot iterate; train over a MixedBatchDataModule (data=mixed_batch_*) or "
+            "one data module instead")
+    return data_module.train_dataloader()

@@ -33,7 +33,6 @@ from fitclip_tpu.models.clip import model as jax_clip_model
 from fitclip_tpu.models.clip.tokenizer import write_tiny_test_vocab
 from fitclip_torch.cli import main as cli
 from fitclip_torch.cli import runners
-from fitclip_torch.config_engine.instantiate import NotPortedError
 from fitclip_torch.convert.from_jax import params_from_jax
 from fitclip_torch.data import video_reader
 from fitclip_torch.evaluation.retrieval import RetrievalEvaluator
@@ -263,16 +262,18 @@ def test_command_test_takes_the_kinetics_test_split(vocab, monkeypatch, capsys, 
 
 
 def test_commands_that_are_not_ported_raise(vocab, msrvtt_root, monkeypatch):
+    """An unknown command and a missing data module exit; command=train over a
+    structured group (a mapping of train loaders, which the train loop cannot
+    iterate) raises before any loader is built, naming the combinator."""
     monkeypatch.setenv("MSRVTT_PATH", msrvtt_root)
-    for command in ("train", "tune"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cli.main(_port_argv(vocab, f"command={command}", "data=msrvtt"))
     with pytest.raises(SystemExit, match="Unknown command"):
         cli.main(_port_argv(vocab, "command=fit", "data=msrvtt"))
     with pytest.raises(SystemExit, match="No dataset"):
         cli.main([a for a in _port_argv(vocab, "command=evaluate") if "data." not in a])
-    with pytest.raises(NotPortedError, match="data_module_group"):
-        cli.main(_port_argv(vocab, "command=evaluate", "data=mixed_batch_msrvtt_msrvtt"))
+    with pytest.raises(ValueError, match="DataModuleStructuredGroup"):
+        cli.main([a for a in _port_argv(vocab, "command=train",
+                                        "data=structured_group_msrvtt_webvid")
+                  if not a.startswith("+data.")])
 
 
 # --- int8: calibration on the head batches, teacher-forced ------------------------

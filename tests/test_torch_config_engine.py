@@ -97,8 +97,8 @@ def test_targets_map_to_the_port():
     made = instantiate({"a": [{"_target_": "collections.OrderedDict", "_args_": [[["k", 1]]]}],
                         "b": 2})
     assert made["a"][0] == {"k": 1} and made["b"] == 2
-    with pytest.raises(NotPortedError, match="fitclip_tpu.data.data_module_group"):
-        instantiate({"_target_": "fitclip_tpu.data.data_module_group.MixedBatchDataModule"})
+    with pytest.raises(NotPortedError, match="fitclip_tpu.models.clip.load.wise_encoder"):
+        instantiate({"_target_": "fitclip_tpu.models.clip.load.wise_encoder"})
     with pytest.raises(NotPortedError, match="no_such_factory"):
         resolve_target("fitclip_tpu.models.clip.load.no_such_factory")
     with pytest.raises(ImportError):
@@ -107,8 +107,8 @@ def test_targets_map_to_the_port():
 
 def test_every_config_target_resolves_in_the_port_or_raises():
     """Each _target_ named under config/ resolves to a fitclip_torch object or
-    raises NotPortedError: every family's factory, every dataset and the eval
-    group resolve; exactly the train-side combinators and WiSE-FT do not."""
+    raises NotPortedError: every family's factory, every dataset and every
+    combinator of data modules resolve; exactly WiSE-FT does not."""
     import yaml
 
     targets = set()
@@ -146,9 +146,8 @@ def test_every_config_target_resolves_in_the_port_or_raises():
             "fitclip_tpu.models.slip.load_slip_encoder",
             "fitclip_tpu.models.mil_nce.load_mil_nce_encoder",
             "fitclip_tpu.models.videoclip.load_videoclip_encoder",
-            "fitclip_tpu.data.data_module_group.EvalDataModuleGroup",
+            *(f"fitclip_tpu.data.data_module_group.{c}" for c in (
+                "EvalDataModuleGroup", "MixedBatchDataModule", "DataModuleStructuredGroup",
+                "TrainAndEvalDataModules")),
             *(f"fitclip_tpu.data.datasets.{d}" for d in datasets)} <= resolved
-    assert unresolved == {"fitclip_tpu.data.data_module_group.MixedBatchDataModule",
-                          "fitclip_tpu.data.data_module_group.DataModuleStructuredGroup",
-                          "fitclip_tpu.data.data_module_group.TrainAndEvalDataModules",
-                          "fitclip_tpu.models.clip.load.wise_encoder"}
+    assert unresolved == {"fitclip_tpu.models.clip.load.wise_encoder"}

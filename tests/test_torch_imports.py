@@ -53,6 +53,11 @@ def test_every_module_imports_without_jax():
     assert bench <= set(names) and "fitclip_torch.utils.benchmarking" in names
     assert {f"fitclip_torch.serving.{m}" for m in ("batcher", "graphs", "embed_service")} <= \
         set(names)
+    # The train-side CLI slice: the train command's data combinators, tune and sweep.
+    assert {"fitclip_torch.cli.tune", "fitclip_torch.cli.sweep",
+            "fitclip_torch.data.multi_source_sampler", "fitclip_torch.data.structured_batch",
+            "fitclip_torch.data.data_module_group", "fitclip_torch.training.train_runner",
+            "fitclip_torch.utils.logging"} <= set(names)
 
 
 def _last_line_is_ok(stdout: str) -> bool:

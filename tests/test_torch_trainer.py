@@ -4,8 +4,8 @@
   straight steps bit for bit (params, moments, count, step), in both modes;
 - early stopping, the best-by-monitor and every-N-epochs checkpoints, the
   sidecar, max_steps;
-- the refusals: an int8 or fused_block student, and a prompts file (the
-  tokenizer is not ported yet).
+- the refusals: an int8 or fused_block student, and a prompts file without
+  a BPE merges file for the tokenizer.
 """
 
 import json
