@@ -9,6 +9,7 @@
     python3 chip_smoke.py --bench-arms [DIR]      # S2's s8 arms and slice-requant
     python3 chip_smoke.py --stem-cls [DIR]        # the S3D-G stem, K4's CLS row, their encodes
     python3 chip_smoke.py --train-cli             # phase 13 alone, on phase 11's trees
+    python3 chip_smoke.py --resnet-wise           # phase 14 alone, on phase 11's and 13's trees
 
 Drives these paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -20,7 +21,8 @@ fitclip_torch.bench``: the ablation arms S1-S3 and the encode bench), and the
 eval CLI (``python -m fitclip_torch command=evaluate|predict``, one data module
 and the drift_eval group), the embed service over HTTP, and the train-side CLI
 (``command=train`` contrastive, teacher-student and with a sweep, resume,
-``command=tune``). It fails (non-zero exit) if any phase fails:
+``command=tune``), and the CLIP ResNet (RN50 encodes, evaluate and training
+through the CLI) and WiSE-FT slice. It fails (non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
@@ -262,6 +264,28 @@ and the drift_eval group), the embed service over HTTP, and the train-side CLI
     suggestion is the last size that ran, the allocated memory after the
     search within 1% of before it, the LR in [1e-8, 1]. ``--train-cli`` runs
     this phase alone (on trees it writes as phase 11 does).
+14. the CLIP ResNet and WiSE-FT, after phase 13 on its trees: (a) RN50 at full
+    width from seed 0 (32 clips x 4 frames of 224^2, 77-token texts) in fp32
+    and bf16: per encode of both towers 12 launches of the text tower's K3f
+    (and of the fp32 attention kernel in fp32) and nothing else, the text
+    tower against K3f's plain version on the card and bf16 against fp32 at
+    cosine > 0.999, clips/s, texts/s, peak memory, profiles (the convolution
+    kernels' share of the video encode; the text encode's attention body
+    required); (b) ``command=evaluate encoder=clip_rn50 data=msrvtt`` in bf16:
+    finite recalls and K3f's launches, ``++encoder.dtype=int8`` refused; (c)
+    ``command=train encoder=clip_rn50 data=webvid`` in fp32, 3 steps of the
+    config's batch of 28 under PyTorch's default cuDNN flags: per step 12
+    launches each of K3f and K3b (fp32), every running statistic moved and
+    equal to the last step's EMA write, with no optimizer moment, and 2 steps
+    then a resume through the CLI to 3 bit-identical to the straight run;
+    (d) phase 13 (a)'s student exported by ``python -m
+    fitclip_torch.convert.checkpoint_to_state_dict``, then ``command=evaluate``
+    and ``command=predict encoder=wise`` (model1 the seeded clip_vit_b_16,
+    model2 the export, weight_for_2 0.4, bf16): finite metrics, 24 K3f
+    launches a batch, and the predicted embeddings bit-equal to those of a
+    clip_vit_b_16 loaded from the merged state dict written directly.
+    ``--resnet-wise`` runs this phase alone (on trees it writes, with a
+    student trained one step).
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 Each timed phase prints the card's SM and memory clocks beside its readings.
@@ -4127,6 +4151,330 @@ def _train_cli_phase(torch, wrappers, work: Path, tree, fp32_step):
     return paths
 
 
+# Phase 14: the CLIP ResNet and WiSE-FT slice.
+RN50 = dict(clips=32, frames=4, size=224, text_rows=256, gate_rows=32)
+RN50_TEXT_LAYERS = 12
+RN50_TRAIN_STEPS = 3
+WISE_WEIGHT = 0.4  # config/encoder/wise.yaml's released recipe
+CONV_KERNELS = ("conv", "xmma", "cudnn", "implicit", "fprop", "dgrad", "wgrad", "winograd")
+
+
+def rn50_encode_phase(torch, wrappers):
+    """Phase 14 (a): RN50 at full width from seed 0, 32 clips x 4 frames of
+    224^2 and 77-token texts, fp32 and bf16: the launches per encode (the text
+    tower's K3f, one per layer, and nothing else), K3f against its plain
+    version in the text tower (tower cosine), bf16 against fp32, clips/s,
+    texts/s, peak memory and profiles (the cuDNN convs' share of the video
+    encode, K3f's of the text encode). Returns ({path: launches}, timings)."""
+    from fitclip_torch.models.clip import model as model_module
+    from fitclip_torch.models.clip.load import load_clip_encoder
+
+    print(f"clocks (phase 14 (a)): {clocks()}")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    video = torch.randint(0, 256, (RN50["clips"], RN50["frames"], RN50["size"], RN50["size"], 3),
+                          generator=gen, device="cuda", dtype=torch.uint8)
+    rng = np.random.default_rng(14)
+    text = torch.from_numpy(token_ids(RN50["text_rows"], rng)).cuda()
+    gate_text = text[:RN50["gate_rows"]]
+    paths, timed, embeddings = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        enc = load_clip_encoder("RN50", dtype=dtype, device="cuda", seed=0).encoder
+        for fn in wrappers.values():
+            fn.launches = 0
+        video_emb, text_emb = enc.encode_video(video), enc.encode_text(gate_text)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        expected = {name: 0 for name in wrappers}
+        expected["fused_attention_qkv"] = RN50_TEXT_LAYERS
+        if dtype == "float32":
+            expected["attention_f32"] = RN50_TEXT_LAYERS
+        print(f"rn50 {dtype}: launches per encode of both towers "
+              f"{ {k: n for k, n in launches.items() if n} }")
+        require(launches == expected, f"rn50 {dtype} launches {launches}, expected {expected}")
+        paths[f"rn50_encode_{dtype}"] = launches
+        shapes = (tuple(video_emb.shape), tuple(text_emb.shape))
+        require(shapes == ((RN50["clips"], 1024), (RN50["gate_rows"], 1024)),
+                f"rn50 {dtype}: embeddings {shapes}")
+        require(bool(torch.isfinite(video_emb.float()).all())
+                and bool(torch.isfinite(text_emb.float()).all()), f"rn50 {dtype}: non-finite")
+        with swapped(model_module, fused_attention_qkv=plain_attention_function(torch)):
+            plain_text = enc.encode_text(gate_text)
+        cos = min_cosine(text_emb, plain_text)
+        print(f"rn50 {dtype} gate: text tower on K3f vs its plain version on the card, min "
+              f"cosine {cos:.6f}")
+        require(cos > GATE_COSINE, f"rn50 {dtype}: K3f vs plain text cosine {cos}")
+        embeddings[dtype] = (video_emb, text_emb)
+        torch.cuda.reset_peak_memory_stats()
+        video_ms = cuda_ms(lambda: enc.encode_video(video), iters=10)
+        text_ms = cuda_ms(lambda: enc.encode_text(text), iters=10)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        timed[dtype] = {"video_ms": video_ms, "clips_per_s": RN50["clips"] * 1e3 / video_ms,
+                        "text_ms": text_ms, "texts_per_s": RN50["text_rows"] * 1e3 / text_ms,
+                        "peak_gib": peak}
+        print(f"rn50 {dtype} encode: encode_video {RN50['clips']} clips x {RN50['frames']} "
+              f"frames {video_ms:.3f} ms, {timed[dtype]['clips_per_s']:.1f} clips/s; "
+              f"encode_text {RN50['text_rows']} x 77 {text_ms:.3f} ms, "
+              f"{timed[dtype]['texts_per_s']:.1f} texts/s; peak {peak:.2f} GiB "
+              f"({clocks()}; {nvidia_smi()})")
+        per_kernel, busy = profile_ms(torch, lambda: enc.encode_video(video))
+        total = sum(per_kernel.values())
+        conv = sum(ms for k, ms in per_kernel.items() if any(c in k.lower() for c in CONV_KERNELS))
+        timed[dtype].update(video_device_ms=total, conv_share=conv / total, video_busy=busy)
+        print(f"rn50 {dtype} encode_video profile: device {total:.3f} ms per call, busy share "
+              f"{busy:.3f}; convolution kernels {conv:.3f} ms ({conv / total:.2%}); top kernels:")
+        for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {ms:9.3f} {ms / total:7.2%}  {key[:100]}")
+        print_profile(torch, f"rn50 {dtype} encode_text", lambda: enc.encode_text(text), top=6,
+                      **({"kernels": (F32_FORWARD,)} if dtype == "float32"
+                         else {"mma": ("attention_mma_kernel",)}))
+        del enc
+        torch.cuda.empty_cache()
+    for tower, index in (("vision", 0), ("text", 1)):
+        cos = min_cosine(embeddings["bfloat16"][index], embeddings["float32"][index])
+        print(f"rn50 gate: bf16 vs fp32 {tower}, min cosine {cos:.6f}")
+        require(cos >= GATE_COSINE, f"rn50 bf16 vs fp32 {tower} cosine {cos}")
+    return paths, timed
+
+
+def resnet_train_phase(torch, wrappers, work: Path, tree):
+    """Phase 14 (c): ``command=train encoder=clip_rn50 data=webvid`` in fp32 on
+    phase 13's WebVid train tree, RN50_TRAIN_STEPS steps of the config's batch
+    under PyTorch's default cuDNN flags: per step the text tower's K3f and K3b
+    (fp32: fused_attention_qkv, attention_f32 and their backward, one per
+    layer), every running statistic moved and equal to the last step's EMA
+    write (frozen to the optimizer: no moment), and 2 steps then a resume
+    through the CLI to RN50_TRAIN_STEPS equal to the straight run bit for bit,
+    running statistics included. Returns ({path: launches}, timings)."""
+    from fitclip_torch.models.clip import resnet, resnet_clip
+    from fitclip_torch.training import train_runner
+    from fitclip_torch.training.checkpointing import load_checkpoint
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, False
+    captured = {"encoder": None, "updates": None}
+    make_step = train_runner.make_contrastive_train_step
+
+    def capturing(encoder, *args, **kwargs):
+        captured["encoder"] = encoder
+        return make_step(encoder, *args, **kwargs)
+
+    def recording(updates):
+        captured["updates"] = [(bn, mean.clone(), var.clone()) for bn, mean, var in updates]
+        resnet.apply_bn_updates(updates)
+
+    train = ["command=train", "encoder=clip_rn50", f"+encoder.bpe_path={tree['merges']}",
+             "data=webvid", "trainer.log_every_n_steps=1"]
+
+    def dirs(name):
+        return [f"+log_dir={work / name / 'logs'}",
+                f"trainer.callbacks.checkpoint.dirpath={work / name / 'ckpt'}"]
+
+    try:
+        with swapped(train_runner, make_contrastive_train_step=capturing), \
+                swapped(resnet_clip, apply_bn_updates=recording):
+            out, seconds, launches, steps, entries = train_cli_run(
+                torch, wrappers, [*train, *dirs("rn_a"), f"+trainer.max_steps={RN50_TRAIN_STEPS}"],
+                work / "rn_a" / "logs")
+        paths = {"rn50_train_cli": launches}
+        losses = [e["loss/train"] for e in entries if "loss/train" in e]
+        expected = {name: 0 for name in wrappers}
+        expected.update({name: RN50_TEXT_LAYERS for name in (
+            "fused_attention_qkv", "fused_attention_qkv_backward", "attention_f32",
+            "attention_bwd_f32")})
+        clips_s = len(steps) * TRAIN_BATCH / (steps[-1]["end"] - steps[0]["start"])
+        print(f"rn50 train cli (c): {seconds:.2f} s wall; losses {losses}; launches per step "
+              f"{[{k: n for k, n in s['launches'].items() if n} for s in steps]}")
+        print(f"rn50 train cli (c) rate: {clips_s:.2f} clips/s from the first batch to the last "
+              f"step, decode included ({len(steps)} steps of {TRAIN_BATCH} clips x 4 frames, "
+              f"fp32); per step ms: {step_line(steps)} ({clocks()}; {nvidia_smi()})")
+        require(len(losses) == RN50_TRAIN_STEPS and all(np.isfinite(losses)),
+                f"rn50 (c) losses {losses}")
+        require(len(steps) == RN50_TRAIN_STEPS and all(s["launches"] == expected for s in steps),
+                f"rn50 (c) launches per step {[s['launches'] for s in steps]}, expected {expected}")
+        last = work / "rn_a" / "ckpt" / "last"
+        saved_state = load_checkpoint(str(last))
+        names = {id(m): n for n, m in captured["encoder"].model.named_modules()}
+        stats = [n for n in saved_state["params"] if n.endswith(("running_mean", "running_var"))]
+        moved, ema = 0, 0
+        for bn, mean, var in captured["updates"]:
+            name = f"encoder.{names[id(bn)]}"
+            for leaf, value, init in (("running_mean", mean, 0.0), ("running_var", var, 1.0)):
+                stored = saved_state["params"][f"{name}.{leaf}"]
+                ema += torch.equal(stored, value.cpu()) and torch.equal(getattr(bn, leaf), value)
+                moved += not bool((stored == init).all())
+                require(saved_state["opt_state"]["mu"][f"{name}.{leaf}"].dim() == 0,
+                        f"rn50 (c): {name}.{leaf} has an optimizer moment")
+        print(f"rn50 train cli (c): {len(stats)} running statistics in the checkpoint; {moved} "
+              f"moved from the seeded init; {ema} equal to the last step's EMA write")
+        require(len(stats) == 2 * len(captured["updates"]) == moved == ema,
+                f"rn50 (c): {len(stats)} statistics, {moved} moved, {ema} the EMA's")
+        _, _, first, _, _ = train_cli_run(torch, wrappers,
+                                          [*train, *dirs("rn_b"), "+trainer.max_steps=2"],
+                                          work / "rn_b" / "logs")
+        last_b = work / "rn_b" / "ckpt" / "last"
+        _, _, second, resumed, _ = train_cli_run(
+            torch, wrappers, [*train, *dirs("rn_b"), f"+checkpoint_path={last_b}",
+                              f"+trainer.max_steps={RN50_TRAIN_STEPS}"], work / "rn_b" / "logs")
+        paths["rn50_train_cli_resume"] = {k: first[k] + second[k] for k in first}
+        bitwise = checkpoints_equal(torch, last_b, last)
+        print(f"rn50 train cli (c): 2 steps, then {len(resumed)} resumed to step "
+              f"{RN50_TRAIN_STEPS}: bit-identical to the straight run, running statistics "
+              f"included: {bitwise}")
+        require(len(resumed) == RN50_TRAIN_STEPS - 2 and bitwise,
+                "rn50 (c): the resumed last differs from the straight run's")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
+    step_ms = sorted(s["step_ms"] for s in steps)
+    return paths, {"clips_per_s": clips_s, "step_ms_median": step_ms[len(step_ms) // 2]}
+
+
+def wise_phase(torch, wrappers, work: Path, tree, student_ckpt: Path):
+    """Phase 14 (d): export the trained ViT-B/16 student with ``python -m
+    fitclip_torch.convert.checkpoint_to_state_dict``, then ``command=evaluate``
+    and ``command=predict encoder=wise`` (model1 the seeded clip_vit_b_16,
+    model2 the export, weight_for_2 WISE_WEIGHT, bf16): finite metrics, K3f's
+    launches, and predict's embeddings bit-equal to those of a clip_vit_b_16
+    loaded from the merged state dict written directly (wise_params on the
+    CPU, openai_state_dict, torch.save). Returns {path: launches}."""
+    import os
+
+    from fitclip_torch.convert.openai_state_dict import openai_state_dict
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.models.wise import wise_params
+
+    export, merged = work / "student_openai.pt", work / "wise_merged.pt"
+    start = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-m", "fitclip_torch.convert.checkpoint_to_state_dict",
+                           str(student_ckpt), "--output", str(export)], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=300)
+    print(f"wise (d): python -m fitclip_torch.convert.checkpoint_to_state_dict "
+          f"{student_ckpt.relative_to(work)} --output {export.name}: rc {proc.returncode} in "
+          f"{time.perf_counter() - start:.1f} s")
+    require(proc.returncode == 0, f"export failed: {proc.stderr[-2000:]}")
+    members = ["+encoder@encoder.model1=clip_vit_b_16", "+encoder@encoder.model2=clip_vit_b_16",
+               f"+encoder.model2.checkpoint_path={export}",
+               f"++encoder.weight_for_2={WISE_WEIGHT}"]
+    for slot in ("model1", "model2"):
+        members += [f"++encoder.{slot}.dtype=bfloat16",
+                    f"+encoder.{slot}.bpe_path={tree['merges']}"]
+    out, _, eval_s, eval_launches = cli_run(torch, wrappers, ["command=evaluate", "encoder=wise",
+                                                              *members, "data=msrvtt"])
+    metrics = json.loads(out[out.index("{"):])
+    batches = -(-len(tree["ids"]) // EVAL_BATCH)
+    expected = {name: 0 for name in wrappers}
+    expected["fused_attention_qkv"] = 2 * LAYERS * batches
+    print(f"wise (d) evaluate: {eval_s:.2f} s wall; printed {metrics}; launches "
+          f"{ {k: n for k, n in eval_launches.items() if n} }")
+    require(all(np.isfinite(v) for v in metrics.values()) and "r1" in metrics,
+            f"wise (d) metrics {metrics}")
+    require(eval_launches == expected, f"wise (d) launches {eval_launches}, expected {expected}")
+    wise_dump, direct_dump = work / "wise_predictions.pt", work / "direct_predictions.pt"
+    _, _, _, predict_launches = cli_run(torch, wrappers, [
+        "command=predict", "encoder=wise", *members, "data=msrvtt", f"+output_path={wise_dump}"])
+    seeded = load_clip_encoder("ViT-B/16", device="cpu", seed=0).encoder.model.state_dict()
+    trained = load_clip_encoder(checkpoint_path=str(export), device="cpu").encoder.model
+    torch.save(openai_state_dict(wise_params(seeded, trained.state_dict(), WISE_WEIGHT)), merged)
+    _, _, _, direct_launches = cli_run(torch, wrappers, [
+        "command=predict", "encoder=clip_vit_b_16", f"+encoder.checkpoint_path={merged}",
+        "++encoder.dtype=bfloat16", f"+encoder.bpe_path={tree['merges']}", "data=msrvtt",
+        f"+output_path={direct_dump}"])
+    got, want = (torch.load(path, weights_only=False) for path in (wise_dump, direct_dump))
+    same = all(torch.equal(got[k], want[k]) for k in ("encoded_videos", "encoded_texts"))
+    moved = max(float((a - seeded[k]).abs().max()) for k, a in trained.state_dict().items())
+    print(f"wise (d) predict: embeddings {tuple(got['encoded_videos'].shape)} bit-equal to a "
+          f"clip_vit_b_16 loaded from the merged state dict: {same}; the student's weights lie "
+          f"up to {moved:.3e} from the seeded ones")
+    require(moved > 0, "wise (d): the exported student equals the seeded encoder")
+    require(same and got["video_ids"] == want["video_ids"],
+            "wise (d): the CLI's WiSE embeddings differ from the merged checkpoint's")
+    require(predict_launches == direct_launches == expected,
+            f"wise (d) predict launches {predict_launches}, direct {direct_launches}")
+    return {"wise_evaluate_cli": eval_launches, "wise_predict_cli": predict_launches}
+
+
+def resnet_wise_phase(torch, wrappers, work: Path, tree, student_ckpt: Path):
+    """Phase 14, after phase 13 on phase 11's and 13's trees: (a) RN50 encodes,
+    (b) ``command=evaluate encoder=clip_rn50 data=msrvtt`` in bf16 and int8
+    refused, (c) RN50 training through the CLI with resume, (d) WiSE-FT of the
+    seeded ViT-B/16 and phase 13's trained student. Returns ({path: launches},
+    timings)."""
+    phase_start = time.perf_counter()
+    torch.set_grad_enabled(False)
+    paths, timed = rn50_encode_phase(torch, wrappers)
+    torch.cuda.empty_cache()
+
+    # (b) The eval CLI over the ResNet in bf16; int8 refused.
+    common = ["encoder=clip_rn50", f"+encoder.bpe_path={tree['merges']}", "data=msrvtt"]
+    out, _, eval_s, launches = cli_run(torch, wrappers, ["command=evaluate", *common,
+                                                         "++encoder.dtype=bfloat16"])
+    metrics = json.loads(out[out.index("{"):])
+    batches = -(-len(tree["ids"]) // EVAL_BATCH)
+    expected = {name: 0 for name in wrappers}
+    expected["fused_attention_qkv"] = RN50_TEXT_LAYERS * batches
+    print(f"rn50 eval cli (b): {eval_s:.2f} s wall; printed {metrics}; launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    require({"r1", "r5", "r10", "mr"} <= set(metrics)
+            and all(np.isfinite(v) for v in metrics.values()), f"rn50 (b) metrics {metrics}")
+    require(launches == expected, f"rn50 (b) launches {launches}, expected {expected}")
+    paths["rn50_eval_cli"] = launches
+    refused = None
+    try:
+        cli_run(torch, wrappers, ["command=evaluate", *common, "++encoder.dtype=int8"])
+    except ValueError as e:
+        refused = str(e)
+    print(f"rn50 eval cli (b) ++encoder.dtype=int8: refused: {refused}")
+    require(refused is not None and "transformer-only" in refused,
+            "rn50 (b): int8 was not refused")
+    torch.cuda.empty_cache()
+
+    torch.set_grad_enabled(True)
+    train_paths, timed["train"] = resnet_train_phase(torch, wrappers, work, tree)
+    paths.update(train_paths)
+    torch.cuda.empty_cache()
+    torch.set_grad_enabled(False)
+    paths.update(wise_phase(torch, wrappers, work, tree, student_ckpt))
+    torch.cuda.empty_cache()
+    print(f"resnet and wise: phase 14 took {time.perf_counter() - phase_start:.1f} s "
+          f"({nvidia_smi()})")
+    print(json.dumps({"resnet_wise": timed, "card": nvidia_smi()}))
+    return paths, timed
+
+
+def resnet_wise_only(torch) -> int:
+    """Phase 14 alone (``--resnet-wise``): the build, phase 11's MSR-VTT tree and
+    BPE vocabulary, phase 13's WebVid trees and a ViT-B/16 student trained one
+    step through the CLI (phase 13's is trained four), then phase 14."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    from fitclip_torch import _build
+    from fitclip_torch.models.clip.tokenizer import write_tiny_test_vocab
+
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s; {nvidia_smi()}")
+    wrappers = kernel_wrappers()
+    work = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        ids, captions = write_msrvtt_tree(work / "msrvtt")
+        merges, _ = write_tiny_test_vocab(str(work), [w for c in captions for w in c.split()])
+        os.environ.update(write_drift_trees(work), MSRVTT_PATH=str(work / "msrvtt"))
+        os.environ.update(write_webvid_train_tree(work))
+        tree = {"root": work / "msrvtt", "ids": ids, "merges": merges}
+        cli_run(torch, wrappers, ["command=train", "encoder=clip_vit_b_16",
+                                  f"+encoder.bpe_path={merges}", "data=webvid",
+                                  "+trainer.max_steps=1", f"+log_dir={work / 'a' / 'logs'}",
+                                  f"trainer.callbacks.checkpoint.dirpath={work / 'a' / 'ckpt'}"])
+        paths, _ = resnet_wise_phase(torch, wrappers, work, tree, work / "a" / "ckpt" / "last")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"resnet_wise": {path: {k: n for k, n in c.items() if n}
+                                      for path, c in paths.items()}, "card": nvidia_smi()}))
+    return 0
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the main paths by name; each counts its launches."""
     from fitclip_torch.ops import attention as A
@@ -4187,10 +4535,10 @@ def main() -> int:
     alone = {"--train-steps": train_steps_only, "--row-passes": row_passes_only,
              "--fp32-attention": fp32_attention_only, "--fit-attention": fit_attention_only,
              "--bench-arms": bench_arms_only, "--stem-cls": stem_cls_only}
-    if sys.argv[1:2] == ["--train-cli"]:
+    if sys.argv[1:2] in (["--train-cli"], ["--resnet-wise"]):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        return train_cli_only(torch)
+        return (train_cli_only if sys.argv[1] == "--train-cli" else resnet_wise_only)(torch)
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4358,12 +4706,18 @@ def main() -> int:
         torch.set_grad_enabled(True)
         train_cli_paths = train_cli_phase(torch, wrappers, work, eval_tree,
                                           fp32_train_times.get("contrastive"))
+        # Phase 14: the CLIP ResNet and WiSE-FT, on phase 11's and 13's trees and
+        # phase 13 (a)'s trained student.
+        torch.cuda.empty_cache()
+        print(f"clocks (phase 14): {clocks()}")
+        resnet_wise_paths, _ = resnet_wise_phase(torch, wrappers, work, eval_tree,
+                                                 work / "a" / "ckpt" / "last")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"encode": launches, **paths, **fit_paths, **fit_fp32_paths, **s3dg_paths,
              **clip_k2_paths,
              **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths, **cli_paths,
-             **serving_paths, **train_cli_paths}
+             **serving_paths, **train_cli_paths, **resnet_wise_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:

@@ -145,6 +145,7 @@ def load_checkpoint(loaded, checkpoint_path: str):
     package, needs JAX and is refused."""
     from fitclip_torch.convert.from_jax import params_to_jax
     from fitclip_torch.convert.torch_state_dict import clip_tree_from_torch, load_torch_state_dict
+    from fitclip_torch.models.clip.model import CLIPConfig
     from fitclip_torch.training.checkpointing import is_full_train_state
     from fitclip_torch.training.checkpointing import load_checkpoint as load_train_state
 
@@ -162,6 +163,12 @@ def load_checkpoint(loaded, checkpoint_path: str):
             encoder.model.load_state_dict(state)
             return loaded
         return _load_encoder_tree(loaded, params_to_jax(state, encoder.config))
+    if not isinstance(encoder.config, CLIPConfig):
+        # The JAX CLI reads a bare-params file as a ViT CLIP's too, and refuses
+        # a CLIP ResNet's (config_from_openai_state_dict).
+        raise ValueError(f"checkpoint_path={checkpoint_path} is a bare-params file, read as a "
+                         f"ViT CLIP's, and the encoder is a {type(encoder).__name__}: give its "
+                         "weights as encoder.checkpoint_path")
     return _load_encoder_tree(loaded, clip_tree_from_torch(load_torch_state_dict(checkpoint_path),
                                                            encoder.config))
 

@@ -29,11 +29,19 @@ MIL-NCE text modules keep the JAX names and layouts, so their float leaves only
 rename; an ``int8`` subtree (``quantize_s3dg_fast``) maps as the int8 denses do.
 The VideoCLIP BERT towers take (out, in) dense weights, as DistilBERT's.
 
+``resnet_clip_params_from_jax`` and ``resnet_clip_params_to_jax`` do the
+same for a ResNet-CLIP tree (``fitclip_tpu/models/clip/resnet_clip.py``):
+conv kernels HWIO in the tree and OIHW in the port, blocks ``layer1_0`` there
+and ``layer1.0`` here, the shortcut's ``downsample_conv`` / ``downsample_bn``
+here ``downsample.0`` / ``.1``; BatchNorm leaves (running statistics
+included) keep their names.
+
 ``load_train_state_from_jax`` and ``train_state_to_jax`` carry a whole
 training state across: the encoder params, the logit scales, the clamp, the
 step and the fused AdamW state (``count``, ``mu``, ``nu``), whose moment trees
 have the params' layout, with a 0-dim placeholder at each frozen leaf. The JAX
-side is a dict of the TrainState's fields with numpy leaves.
+side is a dict of the TrainState's fields with numpy leaves. A ``CLIPConfig``
+selects the ViT tree, any other config (a ``ResNetCLIPConfig``) the ResNet one.
 """
 
 from typing import Any, Dict, Mapping
@@ -262,6 +270,97 @@ def slip_params_to_jax(state: Dict[str, torch.Tensor], config):
     return tree
 
 
+_BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def resnet_clip_params_from_jax(tree, config) -> Dict[str, torch.Tensor]:
+    """JAX ResNet-CLIP tree (numpy leaves) -> ResNetCLIPModel state dict;
+    ``config`` is a ``models/clip/resnet_clip.ResNetCLIPConfig``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(node, name):
+        out[f"{name}.weight"] = _t(np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1))
+
+    def bn(node, name):
+        for leaf in _BN_LEAVES:
+            out[f"{name}.{leaf}"] = _t(np.asarray(node[leaf], np.float32))
+
+    v = tree["visual"]
+    for i in (1, 2, 3):
+        conv(v[f"conv{i}"], f"visual.conv{i}")
+        bn(v[f"bn{i}"], f"visual.bn{i}")
+    for stage, count in enumerate(config.vision.layers, start=1):
+        for block in range(count):
+            node, prefix = v[f"layer{stage}_{block}"], f"visual.layer{stage}.{block}"
+            for j in (1, 2, 3):
+                conv(node[f"conv{j}"], f"{prefix}.conv{j}")
+                bn(node[f"bn{j}"], f"{prefix}.bn{j}")
+            if "downsample_conv" in node:
+                conv(node["downsample_conv"], f"{prefix}.downsample.0")
+                bn(node["downsample_bn"], f"{prefix}.downsample.1")
+    pool = v["attnpool"]
+    out["visual.attnpool.positional_embedding"] = _t(
+        np.asarray(pool["positional_embedding"], np.float32))
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _dense_from_jax(pool[name], f"visual.attnpool.{name}", out)
+    t = tree["text"]
+    for name in ("token_embedding", "positional_embedding", "text_projection"):
+        out[f"text.{name}"] = _t(np.asarray(t[name], np.float32))
+    _ln_from_jax(t["ln_final"], "text.ln_final", out)
+    _blocks_from_jax(t["transformer"]["blocks"], "text.transformer.blocks",
+                     config.text.layers, out)
+    return out
+
+
+def resnet_clip_params_to_jax(state: Dict[str, torch.Tensor], config):
+    """ResNetCLIPModel state dict -> JAX ResNet-CLIP tree with numpy leaves."""
+    def conv(name):
+        return {"kernel": _np(state, f"{name}.weight").transpose(2, 3, 1, 0)}
+
+    def bn(name):
+        return {leaf: _np(state, f"{name}.{leaf}") for leaf in _BN_LEAVES}
+
+    visual = {}
+    for i in (1, 2, 3):
+        visual[f"conv{i}"], visual[f"bn{i}"] = conv(f"visual.conv{i}"), bn(f"visual.bn{i}")
+    for stage, count in enumerate(config.vision.layers, start=1):
+        for block in range(count):
+            prefix = f"visual.layer{stage}.{block}"
+            node = {f"conv{j}": conv(f"{prefix}.conv{j}") for j in (1, 2, 3)}
+            node.update({f"bn{j}": bn(f"{prefix}.bn{j}") for j in (1, 2, 3)})
+            if f"{prefix}.downsample.0.weight" in state:
+                node["downsample_conv"] = conv(f"{prefix}.downsample.0")
+                node["downsample_bn"] = bn(f"{prefix}.downsample.1")
+            visual[f"layer{stage}_{block}"] = node
+    pool = "visual.attnpool"
+    visual["attnpool"] = {"positional_embedding": _np(state, f"{pool}.positional_embedding"),
+                          **{name: {"kernel": _np(state, f"{pool}.{name}.weight").T,
+                                    "bias": _np(state, f"{pool}.{name}.bias")}
+                             for name in ("q_proj", "k_proj", "v_proj", "c_proj")}}
+    text = {
+        "token_embedding": _np(state, "text.token_embedding"),
+        "positional_embedding": _np(state, "text.positional_embedding"),
+        "text_projection": _np(state, "text.text_projection"),
+        "ln_final": {"ln": {"scale": _np(state, "text.ln_final.weight"),
+                            "bias": _np(state, "text.ln_final.bias")}},
+        "transformer": {"blocks": _blocks_to_jax(state, "text.transformer.blocks",
+                                                 config.text.layers)},
+    }
+    return {"visual": visual, "text": text}
+
+
+def _encoder_from_jax(tree, config) -> Dict[str, torch.Tensor]:
+    if isinstance(config, CLIPConfig):
+        return params_from_jax(tree, config)
+    return resnet_clip_params_from_jax(tree, config)
+
+
+def _encoder_to_jax(state, config):
+    if isinstance(config, CLIPConfig):
+        return params_to_jax(state, config)
+    return resnet_clip_params_to_jax(state, config)
+
+
 def _fill_placeholders(moments, params):
     """The moment tree with each 0-dim placeholder (a frozen leaf) replaced by
     zeros of its parameter's shape."""
@@ -271,14 +370,14 @@ def _fill_placeholders(moments, params):
     return np.zeros(param.shape, np.float32) if moment.ndim == 0 and param.ndim else moment
 
 
-def _named_from_jax(tree, config: CLIPConfig) -> Dict[str, torch.Tensor]:
-    named = {f"encoder.{k}": v for k, v in params_from_jax(tree["encoder"], config).items()}
+def _named_from_jax(tree, config) -> Dict[str, torch.Tensor]:
+    named = {f"encoder.{k}": v for k, v in _encoder_from_jax(tree["encoder"], config).items()}
     named.update((k, _t(np.asarray(v, np.float32))) for k, v in tree.items() if k != "encoder")
     return named
 
 
 def load_train_state_from_jax(state: TrainState, jax_state: Mapping[str, Any],
-                              config: CLIPConfig) -> TrainState:
+                              config) -> TrainState:
     """Copy a JAX TrainState ({"step", "params", "opt_state": {"count", "mu",
     "nu"}, "max_logit_scale"}, numpy leaves, fused AdamW layout) into ``state``,
     a port state of the same configuration, in place. Frozen parameters keep
@@ -306,14 +405,14 @@ def _set_placeholders(tree, frozen, prefix=""):
     return np.zeros((), np.float32) if prefix.rstrip("/") in frozen else tree
 
 
-def _tree_from_named(named: Mapping[str, torch.Tensor], config: CLIPConfig):
+def _tree_from_named(named: Mapping[str, torch.Tensor], config):
     encoder = {k[len("encoder."):]: v for k, v in named.items() if k.startswith("encoder.")}
-    tree = {"encoder": params_to_jax(encoder, config)}
+    tree = {"encoder": _encoder_to_jax(encoder, config)}
     tree.update((k, _np(named, k)) for k in named if not k.startswith("encoder."))
     return tree
 
 
-def train_state_to_jax(state: TrainState, config: CLIPConfig) -> Dict[str, Any]:
+def train_state_to_jax(state: TrainState, config) -> Dict[str, Any]:
     """The inverse of ``load_train_state_from_jax``: a dict of the JAX
     TrainState's fields with numpy leaves. numpy has no bfloat16, so bf16
     moments come back as fp32 arrays holding the same values."""

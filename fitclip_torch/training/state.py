@@ -32,6 +32,10 @@ LOGGER = logging.getLogger(__name__)
 Schedule = Union[float, Callable[[int], float]]
 _LAYER_NORMS = frozenset(("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final"))
 TEMPERATURE_PATTERN = r"^(ts_)?logit_scale$"
+# A CLIP ResNet's block (``layer1.0.``: ``layer1_0`` in JAX) and BatchNorms,
+# whose JAX leaves keep the names weight, bias, running_mean, running_var.
+_RESNET_BLOCK = re.compile(r"\b(layer\d+)\.(\d+)\.")
+_BATCH_NORM = re.compile(r"^(bn\d|downsample_bn)$")
 
 
 def named_parameters(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -44,12 +48,19 @@ def named_parameters(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def jax_param_path(name: str) -> str:
     """The JAX package's slash-joined path of a port parameter name:
     ``encoder.text.transformer.blocks.0.ln_1.weight`` ->
-    ``encoder/text/transformer/blocks/ln_1/ln/scale``."""
+    ``encoder/text/transformer/blocks/ln_1/ln/scale``; of a CLIP ResNet's,
+    ``encoder.visual.layer2.0.downsample.1.weight`` ->
+    ``encoder/visual/layer2_0/downsample_bn/weight``."""
+    name = _RESNET_BLOCK.sub(r"\1_\2.", name)
+    name = name.replace(".downsample.0.", ".downsample_conv.").replace(
+        ".downsample.1.", ".downsample_bn.")
     parts = [p for i, p in enumerate(name.split("."))
              if not (p.isdigit() and i and name.split(".")[i - 1] == "blocks")]
     leaf = parts.pop()
     if parts and parts[-1] in _LAYER_NORMS:
         parts += ["ln", "scale" if leaf == "weight" else "bias"]
+    elif parts and _BATCH_NORM.match(parts[-1]):
+        parts.append(leaf)
     else:
         parts.append("kernel" if leaf == "weight" else leaf)
     return "/".join(parts)

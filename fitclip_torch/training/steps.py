@@ -6,7 +6,9 @@ One function per task module of the reference:
 - eval step         <- the validation paths (embeddings only)
 
 A train step runs the forward, ``torch.autograd.grad`` over the trainable
-parameters, and ``apply_updates_with_clamp``; it updates the state in place and
+parameters, and ``apply_updates_with_clamp``, then, for an encoder with
+batch-statistics BatchNorm (a CLIP ResNet, ``encode_video_train``), writes
+the running statistics' EMA updates; it updates the state in place and
 returns it with a metrics dict whose keys are the JAX steps'. Metric values
 stay 0-dim tensors on the device: reading them waits for the step.
 """
@@ -28,11 +30,30 @@ def _scores(video_emb: torch.Tensor, text_emb: torch.Tensor,
 
 
 def _update(state: TrainState, loss: torch.Tensor, optimizer: AdamW) -> TrainState:
+    """One optimizer step on the trainable parameters. A parameter that takes
+    no gradient (a BatchNorm's running statistics) gets a zero one, as JAX's
+    gradient of a value used only under stop_gradient is."""
     named = {n: p for n, p in state.named_parameters().items() if optimizer.trainable(n)}
-    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-    grads = {n: g if g is not None else torch.zeros_like(p)
-             for (n, p), g in zip(named.items(), grads)}
+    wanted = [n for n, p in named.items() if p.requires_grad]
+    found = dict(zip(wanted, torch.autograd.grad(loss, [named[n] for n in wanted],
+                                                 allow_unused=True)))
+    grads = {n: found[n] if found.get(n) is not None else torch.zeros_like(p)
+             for n, p in named.items()}
     return apply_updates_with_clamp(state, grads, optimizer)
+
+
+def _encode_video_train(encoder, video: torch.Tensor):
+    """The train-form video encode: (embeddings, BatchNorm EMA updates) for an
+    encoder with normalization state (a CLIP ResNet), else (embeddings, None)."""
+    if hasattr(encoder, "encode_video_train"):
+        return encoder.encode_video_train(video)
+    return encoder.encode_video(video), None
+
+
+def _apply_bn_updates(encoder, updates) -> None:
+    """After the optimizer step: the running statistics take their EMA."""
+    if updates is not None:
+        encoder.apply_bn_updates(updates)
 
 
 def make_contrastive_train_step(encoder, optimizer: AdamW):
@@ -40,10 +61,11 @@ def make_contrastive_train_step(encoder, optimizer: AdamW):
     module that ``state.params["encoder"]`` holds."""
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        video_emb = encoder.encode_video(batch["video"])
+        video_emb, bn_updates = _encode_video_train(encoder, batch["video"])
         text_emb = encoder.encode_text(batch["text"])
         loss = nce_loss(_scores(video_emb, text_emb, state.params["logit_scale"]))
         state = _update(state, loss, optimizer)
+        _apply_bn_updates(encoder, bn_updates)
         with torch.no_grad():
             metrics = {"loss/train": loss.detach(),
                        "temperature": 1.0 / torch.exp(state.params["logit_scale"][0])}
@@ -61,7 +83,8 @@ def make_teacher_student_train_step(student, teacher, optimizer: AdamW,
     Prompt ids, if given, replace the unlabeled text of both towers. The student
     runs once over the concatenated labeled and unlabeled batch; the teacher is
     frozen and runs under ``torch.no_grad()``, so it may be an int8 encoder on
-    the fused layer kernels."""
+    the fused layer kernels. A BatchNorm student normalizes with the combined
+    batch's statistics and takes one EMA update a step."""
     unlabeled_loss_share = 1.0 - labeled_loss_share
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -73,8 +96,8 @@ def make_teacher_student_train_step(student, teacher, optimizer: AdamW,
                         else unlabeled["text_teacher"])
 
         n_video, n_text = labeled["video_student"].shape[0], labeled["text_student"].shape[0]
-        all_video_emb = student.encode_video(
-            torch.cat([labeled["video_student"], unlabeled["video_student"]]))
+        all_video_emb, bn_updates = _encode_video_train(
+            student, torch.cat([labeled["video_student"], unlabeled["video_student"]]))
         all_text_emb = student.encode_text(torch.cat([labeled["text_student"], student_text]))
         video_emb, u_video = all_video_emb[:n_video], all_video_emb[n_video:]
         text_emb, u_text = all_text_emb[:n_text], all_text_emb[n_text:]
@@ -91,6 +114,7 @@ def make_teacher_student_train_step(student, teacher, optimizer: AdamW,
         total = labeled_loss_share * labeled_loss + unlabeled_loss_share * unlabeled_loss
 
         state = _update(state, total, optimizer)
+        _apply_bn_updates(student, bn_updates)
         with torch.no_grad():
             metrics = {"loss/train_labeled": labeled_loss.detach(),
                        "loss/train_unlabeled": unlabeled_loss.detach(),

@@ -8,7 +8,9 @@ the data module's loaders, moved to the student's device (pinned, without
 blocking). Validation is the runners' retrieval eval (``cli/runners.py:run_eval``)
 of the student over each val loader, a group's metrics suffixed with each
 member's name. The callbacks' ``param_freeze_patterns`` freeze parameters by
-their JAX paths (``trainer.callbacks=clip_freeze_text``: ``^encoder/text/``).
+their JAX paths (``trainer.callbacks=clip_freeze_text``: ``^encoder/text/``),
+and a CLIP ResNet student's ``bn_freeze_patterns`` its running statistics,
+which the step moves by their EMA.
 Distribution (DDP, FSDP, several hosts) is not ported yet: ``trainer.fsdp``
 only logs a warning, as the JAX package does on one device.
 """
@@ -134,7 +136,10 @@ def run_train(encoder_slot, data_module, model_cfg: Mapping[str, Any],
         weight_decay=float(optimizer_cfg.get("weight_decay", 0.01)),
         eps=float(optimizer_cfg.get("eps", 1e-8)),
         betas=tuple(optimizer_cfg.get("betas", (0.9, 0.999))),
-        freeze_patterns=list((callbacks_cfg or {}).get("param_freeze_patterns") or []) or None,
+        # A BatchNorm student's running statistics move by EMA in the step, not
+        # by the optimizer.
+        freeze_patterns=(list((callbacks_cfg or {}).get("param_freeze_patterns") or [])
+                         + list(getattr(encoder, "bn_freeze_patterns", ()))) or None,
         fit_temperature=bool(model_cfg.get("fit_temperature", True)),
         gradient_clip_val=trainer_cfg.get("gradient_clip_val"),
         params_example=params_template,

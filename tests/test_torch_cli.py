@@ -158,6 +158,36 @@ def test_predict_msrvtt_matches_jax(vocab, msrvtt_root, jax_msrvtt, monkeypatch,
         np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), atol=2e-4, rtol=2e-4)
 
 
+def test_evaluate_wise_matches_jax(vocab, msrvtt_root, monkeypatch, capsys):
+    """``command=evaluate encoder=wise`` with two tiny seeded members
+    (tests/test_cli_teacher_student.py::test_wise_encoder_cli's shape) at the
+    released weight_for_2 0.4: JAX's metrics."""
+    merges, vocab_json = vocab
+    monkeypatch.setenv("MSRVTT_PATH", msrvtt_root)
+    common = ["command=evaluate", "data=msrvtt", "data.eval_batch_size=2",
+              "+data.num_threads=2"]
+    members = []
+    for i, slot in enumerate(("encoder.model1", "encoder.model2")):
+        members += [f"+encoder@{slot}=clip_vit_b_16",
+                    f"{slot}._target_=fitclip_tpu.models.clip.load.load_tiny_test_encoder",
+                    f"~{slot}.name", f"+{slot}.bpe_path={merges}",
+                    f"+{slot}.vocab_path={vocab_json}", f"+{slot}.seed={i}",
+                    f"++{slot}.device=cpu"]
+    cli.main(["encoder=wise", *members, *common])
+    got = _printed_metrics(capsys)
+    cfg = jax_compose(DEFAULT_CONFIG_DIR, "trainer", ["encoder=wise", *common,
+                                                      "++encoder.model1={}",
+                                                      "++encoder.model2={}"])
+    # JAX's members carry the port's seeded weights (no JAX init to compile).
+    for i, slot in enumerate(("model1", "model2")):
+        cfg["encoder"][slot] = {"_target_": "tests.test_torch_train_cli.jax_tiny_encoder",
+                                "bpe_path": merges, "vocab_path": vocab_json, "seed": i}
+    assert cfg["encoder"]["weight_for_2"] == 0.4
+    jax_run(cfg)
+    assert got == _printed_metrics(capsys)
+    assert set(got) == {"r1", "r5", "r10", "mr"}
+
+
 def test_retrieval_evaluator_drops_padding_rows():
     """A padded last batch (7 videos in batches of 4, the last padded to 4)
     with its valid count gives the unpadded metrics, as JAX's evaluator does."""

@@ -97,8 +97,11 @@ def test_targets_map_to_the_port():
     made = instantiate({"a": [{"_target_": "collections.OrderedDict", "_args_": [[["k", 1]]]}],
                         "b": 2})
     assert made["a"][0] == {"k": 1} and made["b"] == 2
-    with pytest.raises(NotPortedError, match="fitclip_tpu.models.clip.load.wise_encoder"):
-        instantiate({"_target_": "fitclip_tpu.models.clip.load.wise_encoder"})
+    from fitclip_torch.models.clip.load import wise_encoder
+
+    assert resolve_target("fitclip_tpu.models.clip.load.wise_encoder") is wise_encoder
+    with pytest.raises(NotPortedError, match="fitclip_tpu.models.clip.load.no_such_factory"):
+        instantiate({"_target_": "fitclip_tpu.models.clip.load.no_such_factory"})
     with pytest.raises(NotPortedError, match="no_such_factory"):
         resolve_target("fitclip_tpu.models.clip.load.no_such_factory")
     with pytest.raises(ImportError):
@@ -106,9 +109,9 @@ def test_targets_map_to_the_port():
 
 
 def test_every_config_target_resolves_in_the_port_or_raises():
-    """Each _target_ named under config/ resolves to a fitclip_torch object or
-    raises NotPortedError: every family's factory, every dataset and every
-    combinator of data modules resolve; exactly WiSE-FT does not."""
+    """Each _target_ named under config/ resolves to a fitclip_torch object:
+    every family's factory, WiSE-FT, every dataset and every combinator of
+    data modules; none raises NotPortedError."""
     import yaml
 
     targets = set()
@@ -142,6 +145,7 @@ def test_every_config_target_resolves_in_the_port_or_raises():
                 "conceptual_captions.ConceptualCaptionsDataModule"}
     assert {"fitclip_tpu.models.clip.load.load_clip_encoder",
             "fitclip_tpu.models.clip.load.load_clip_from_scratch",
+            "fitclip_tpu.models.clip.load.wise_encoder",
             "fitclip_tpu.models.frozen_in_time.encoder.load_frozen_in_time_encoder",
             "fitclip_tpu.models.slip.load_slip_encoder",
             "fitclip_tpu.models.mil_nce.load_mil_nce_encoder",
@@ -150,4 +154,4 @@ def test_every_config_target_resolves_in_the_port_or_raises():
                 "EvalDataModuleGroup", "MixedBatchDataModule", "DataModuleStructuredGroup",
                 "TrainAndEvalDataModules")),
             *(f"fitclip_tpu.data.datasets.{d}" for d in datasets)} <= resolved
-    assert unresolved == {"fitclip_tpu.models.clip.load.wise_encoder"}
+    assert unresolved == set()

@@ -58,6 +58,10 @@ def test_every_module_imports_without_jax():
             "fitclip_torch.data.multi_source_sampler", "fitclip_torch.data.structured_batch",
             "fitclip_torch.data.data_module_group", "fitclip_torch.training.train_runner",
             "fitclip_torch.utils.logging"} <= set(names)
+    # The CLIP ResNet and WiSE-FT slice, and the OpenAI-schema exporter.
+    assert {"fitclip_torch.models.clip.resnet", "fitclip_torch.models.clip.resnet_clip",
+            "fitclip_torch.models.wise", "fitclip_torch.convert.openai_state_dict",
+            "fitclip_torch.convert.checkpoint_to_state_dict"} <= set(names)
 
 
 def _last_line_is_ok(stdout: str) -> bool:

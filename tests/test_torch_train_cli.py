@@ -365,6 +365,9 @@ def test_drift_eval_train_matches_jax_by_member_position(vocab, jax_drift, tmp_p
 def _resume_argv(vocab, mode, workdir, *extra):
     if mode == "contrastive":
         argv = [*CONTRASTIVE, *_port_encoder(vocab)]
+    elif mode == "resnet_contrastive":
+        argv = [*CONTRASTIVE, *_port_encoder(vocab),
+                "encoder._target_=fitclip_tpu.models.clip.load.load_tiny_rn_test_encoder"]
     else:
         argv = ["--config-name", "teacher_student_trainer", *TEACHER_STUDENT,
                 *_port_encoder(vocab, "encoder.student", seed=0),
@@ -373,11 +376,13 @@ def _resume_argv(vocab, mode, workdir, *extra):
             "trainer.val_check_interval=1.0", *extra]
 
 
-@pytest.mark.parametrize("mode", ["contrastive", "teacher_student"])
+@pytest.mark.parametrize("mode", ["contrastive", "teacher_student", "resnet_contrastive"])
 def test_resume_through_the_cli_is_bit_identical(vocab, mode, tmp_path):
     """8 steps straight (2 epochs of 4) against 3 steps, then
     ``+checkpoint_path=<last> +trainer.max_steps=8``: the resumed run re-reads
-    the partly trained epoch and drops the 3 batches it has seen."""
+    the partly trained epoch and drops the 3 batches it has seen. A tiny CLIP
+    ResNet's running statistics, moved by their EMA, are in the checkpoint and
+    resume with the rest, frozen to the optimizer (no moment)."""
     cli.main(_resume_argv(vocab, mode, tmp_path / "straight"))
     straight = load_checkpoint(str(tmp_path / "straight" / "ckpt" / "last"))
     assert straight["step"] == 8
@@ -395,6 +400,17 @@ def test_resume_through_the_cli_is_bit_identical(vocab, mode, tmp_path):
             assert torch.equal(resumed["opt_state"][key][name],
                                straight["opt_state"][key][name]), (key, name)
     assert torch.equal(resumed["max_logit_scale"], straight["max_logit_scale"])
+    if mode == "resnet_contrastive":
+        from fitclip_torch.models.clip.load import load_tiny_rn_test_encoder
+
+        merges, vocab_json = vocab
+        seeded = load_tiny_rn_test_encoder(seed=0, bpe_path=merges, vocab_path=vocab_json,
+                                           device="cpu").encoder.model.state_dict()
+        stats = [n for n in straight["params"] if n.endswith(("running_mean", "running_var"))]
+        assert len(stats) == 2 * 19
+        for name in stats:
+            assert not torch.equal(straight["params"][name], seeded[name[len("encoder."):]])
+            assert straight["opt_state"]["mu"][name].dim() == 0, name
 
 
 def _printed_metrics(out):
