@@ -10,6 +10,8 @@
     python3 chip_smoke.py --stem-cls [DIR]        # the S3D-G stem, K4's CLS row, their encodes
     python3 chip_smoke.py --train-cli             # phase 13 alone, on phase 11's trees
     python3 chip_smoke.py --resnet-wise           # phase 14 alone, on phase 11's and 13's trees
+    python3 chip_smoke.py --export                # phase 15 alone
+    python3 chip_smoke.py --op-dispatch [DIR]     # phase 15 (d) alone, for DIR's package
 
 Drives these paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -22,7 +24,9 @@ eval CLI (``python -m fitclip_torch command=evaluate|predict``, one data module
 and the drift_eval group), the embed service over HTTP, and the train-side CLI
 (``command=train`` contrastive, teacher-student and with a sweep, resume,
 ``command=tune``), and the CLIP ResNet (RN50 encodes, evaluate and training
-through the CLI) and WiSE-FT slice. It fails (non-zero exit) if any phase fails:
+through the CLI) and WiSE-FT slice, and the export slice (each tower a
+``torch.export`` program on the ``fitclip::`` operators, served from
+EMBED_EXPORT_DIR). It fails (non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
@@ -286,6 +290,30 @@ through the CLI) and WiSE-FT slice. It fails (non-zero exit) if any phase fails:
     clip_vit_b_16 loaded from the merged state dict written directly.
     ``--resnet-wise`` runs this phase alone (on trees it writes, with a
     student trained one step).
+15. export, after phase 14 on phase 11's BPE vocabulary: (a) the seeded int8
+    CLIP ViT-B/16 composed from config/ (``encoder=clip_vit_b_16
+    ++encoder.dtype=int8``), calibrated on 8 clips and 32 token rows, its
+    scales persisted; ``python -m fitclip_torch.serving.export_serving`` (a
+    process of its own) exports text at buckets 1, 8, 32 and video at 1, 8 and
+    prints their map; a fresh process (``--load-exported``) loads both programs
+    with no ``fitclip_torch.models`` module and runs each bucket once. Gates:
+    each bucket's rows against the eager encoder, min-row cosine >= 0.9999
+    (and whether they are bit-equal), against the plain versions > 0.999; K1's
+    84 launches in one call of each loaded program. Prints the artifacts'
+    sizes, export s and load s. (b) The service with EMBED_EXPORT_DIR: the
+    buckets are the artifacts', every bucket captured with K1's 84 launches,
+    16 serial texts and 8 client threads x 8 requests of 1-4 texts over HTTP
+    with no launch; served rows against eager >= 0.9999; set-up s beside phase
+    12's. (c) One video bucket of 1 clip of each other family with a kernel,
+    exported and loaded in this process: CLIP bf16 ``fused_block`` (K2's 84
+    launches), FiT base int8 (K4: 12 a block), FiT bf16 (K5, K6: 12 each), SLIP
+    int8 on the module path (K8: 12, with 36 static-dense GEMMs), MIL-NCE bf16
+    (K7: 1); each against its eager tower >= 0.9999. (d) The op dispatch's
+    cost: phase 5's int8 encode of 32 clips (clips/s, the host's ms to issue a
+    call) and one ln_quant launch's host us through the wrapper (the Library
+    operator), its CUDA implementation called directly, and a custom_op twin.
+    ``--export`` runs this phase alone; ``--op-dispatch DIR`` runs (d) for the
+    package under DIR (the parent's, say).
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 Each timed phase prints the card's SM and memory clocks beside its readings.
@@ -3251,6 +3279,7 @@ def warm_eval_window(torch, root: Path, merges: str, scales: Path):
     from fitclip_torch.data.video_reader import VideoReader
     from fitclip_torch.models.clip.load import load_clip_encoder
     from fitclip_torch.ops.quant import load_act_scales
+    from fitclip_torch.utils.profiling import StageTimer
 
     start = time.perf_counter()
     fused = load_clip_encoder("ViT-B/16", dtype="int8", device="cuda", seed=0,
@@ -3312,15 +3341,15 @@ def warm_eval_window(torch, root: Path, merges: str, scales: Path):
     batches_iter = iter(steady)
 
     def window():
-        start, waited, issued = time.perf_counter(), 0.0, 0.0
+        timer, start = StageTimer(), time.perf_counter()
         for _ in range(WINDOW_BATCHES):
-            t0 = time.perf_counter()
-            batch = next(batches_iter)
-            t1 = time.perf_counter()
-            encode(batch)
-            waited, issued = waited + t1 - t0, issued + time.perf_counter() - t1
+            with timer.stage("wait"):
+                batch = next(batches_iter)
+            with timer.stage("issue"):
+                encode(batch)
         torch.cuda.synchronize()
-        records.append((time.perf_counter() - start, waited, issued))
+        records.append((time.perf_counter() - start, timer.totals["wait"],
+                        timer.totals["issue"]))
 
     encode(next(batches_iter))
     torch.cuda.synchronize()
@@ -3609,6 +3638,7 @@ def serving_phase(torch, wrappers, tree):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - start
     capture_launches = {name: fn.launches for name, fn in wrappers.items()}
+    READINGS["serve_setup_s"] = round(setup_s, 3)
     buckets = len(SERVE_TEXT_BUCKETS) + len(SERVE_VIDEO_BUCKETS)
     expected = {name: 0 for name in wrappers}
     expected.update({name: n * LAYERS * buckets for name, n in INT8_LAUNCHES_PER_LAYER.items()})
@@ -4475,6 +4505,473 @@ def resnet_wise_only(torch) -> int:
     return 0
 
 
+# Phase 15: export (each tower a torch.export program; the service from EMBED_EXPORT_DIR).
+EXPORT_TEXT_BUCKETS, EXPORT_VIDEO_BUCKETS = (1, 8, 32), (1, 8)
+EXPORT_SERIAL, EXPORT_CLIENTS, EXPORT_REQUESTS = 16, 8, 8  # phase 12's (a)-(b), smaller
+EXPORT_FAMILY_CLIPS = 1  # the one video bucket of (c): a static batch, traced fastest
+EXPORT_EAGER_COSINE = 0.9999
+READINGS = {}  # readings one phase keeps for another's print (phase 12's set-up s)
+
+
+def composed_encoder(torch, name: str, overrides):
+    """config/encoder/<name>.yaml with the overrides, on the card: the encoder
+    export_serving and the service compose."""
+    from fitclip_torch.cli.main import DEFAULT_CONFIG_DIR
+    from fitclip_torch.config_engine import compose, instantiate
+
+    cfg = compose(DEFAULT_CONFIG_DIR, "trainer",
+                  ["command=evaluate", f"encoder={name}", "data=msrvtt", *overrides])
+    return instantiate(cfg["encoder"], device="cuda").encoder
+
+
+def k1_launches(towers: int = 1) -> dict:
+    """K1's seven launches per layer of a ViT-B/16 tower."""
+    return {name: n * LAYERS * towers for name, n in INT8_LAUNCHES_PER_LAYER.items()}
+
+
+def load_exported_child(directory: str, inputs: str, out: str) -> int:
+    """``--load-exported DIR INPUTS OUT``: phase 15 (a)'s fresh process. Loads
+    both towers' programs from DIR with no model module, runs each bucket once
+    on INPUTS' rows (counting K1's launches of that one call), saves the rows
+    to OUT and prints one JSON line: load s, the fitclip_torch.models modules
+    loaded (none), launches and ms per bucket call."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    start = time.perf_counter()
+    from fitclip_torch.ops import attention as A
+    from fitclip_torch.ops import block as K
+    from fitclip_torch.serving.export import load_exported
+
+    towers = {name: load_exported(directory, name) for name in ("text", "video")}
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - start
+    counted = (K.ln_quant, K.int8_gemm_bias, K.int8_gemm_residual, K.int8_gemm_gelu,
+               A.attention_int8)
+    batches = torch.load(inputs)
+    rows, launches, call_ms = {}, {}, {}
+    for tower, (encode, per_bucket) in towers.items():
+        for size in sorted(per_bucket):
+            batch = batches[tower][:size].cuda()
+            encode(batch)  # the program's first call
+            for fn in counted:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out_rows = per_bucket[size](batch)
+            torch.cuda.synchronize()
+            key = f"{tower}_{size}"
+            call_ms[key] = 1e3 * (time.perf_counter() - start)
+            launches[key] = {fn.__name__: fn.launches for fn in counted}
+            rows[key] = out_rows.float().cpu()
+    torch.save(rows, out)
+    models = sorted(m for m in sys.modules if m.startswith("fitclip_torch.models"))
+    print(json.dumps({"load_s": load_s, "models": models, "launches": launches,
+                      "call_ms": call_ms}))
+    return 0
+
+
+def dispatch_readings(torch, enc, video32) -> dict:
+    """Phase 15 (d): CLIP int8 encode_video of 32 clips (the median, min and max
+    of 5 CUDA-event readings of 10 calls; the host's ms to issue one call on an
+    idle card, least of 3, before each reading) and, where the tree binds its
+    kernels as operators, one K1 launch's host us by route at the encode's
+    ln_quant shape: the wrapper (the Library operator), the operator's CUDA
+    implementation called directly (no dispatch), and the same implementation
+    as a torch.library.custom_op."""
+    from fitclip_torch.ops import block as K
+
+    def host_ms(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - start) * 1e3)
+        torch.cuda.synchronize()
+        return min(times)
+
+    def encode():
+        return enc.encode_video(video32)
+
+    runs, hosts = [], []
+    for _ in range(5):
+        hosts.append(host_ms(encode))
+        runs.append(cuda_ms(encode, iters=10))
+    ms = sorted(runs)[2]
+    out = {"encode_ms": ms, "clips_per_s": 32e3 / ms, "encode_ms_min": min(runs),
+           "encode_ms_max": max(runs), "runs": runs, "host_ms": sorted(hosts)[2],
+           "host_ms_runs": hosts}
+    print(f"export (d) CLIP int8 encode_video, 32 clips x 4 frames: {ms:.3f} ms "
+          f"({min(runs):.3f}-{max(runs):.3f}), {32e3 / ms:.1f} clips/s; host issue "
+          f"{out['host_ms']:.3f} ms a call (runs {', '.join(f'{h:.3f}' for h in hosts)})")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(32 * 4 * 197, 768, generator=gen, device="cuda").to(torch.bfloat16)
+    weight, bias = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    routes = {"wrapper": lambda: K.ln_quant(x, weight, bias, 20.0)}
+    if hasattr(K, "_ln_quant_cuda"):
+        @torch.library.custom_op("fitclip_ab::ln_quant", mutates_args=(), device_types="cuda")
+        def ln_quant_custom_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                               inv: float, eps: float) -> torch.Tensor:
+            return K._ln_quant_cuda(x, weight, bias, inv, eps)
+
+        ln_quant_custom_op.register_fake(
+            lambda x, weight, bias, inv, eps: x.new_empty(x.shape, dtype=torch.int8))
+        routes["no dispatch"] = lambda: K._ln_quant_cuda(x, weight, bias, 20.0, 1e-5)
+        routes["custom_op"] = lambda: ln_quant_custom_op(x, weight, bias, 20.0, 1e-5)
+    calls, us = 2000, {}
+    for route, fn in routes.items():
+        readings = []
+        for _ in range(3):
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            readings.append((time.perf_counter() - start) / calls * 1e6)
+        us[route] = min(readings)
+    out["ln_quant_us_per_call"] = us
+    print("export (d) one ln_quant launch at 25,216 x 768, host us a call (least of 3 x "
+          f"{calls}): " + ", ".join(f"{route} {v:.2f}" for route, v in us.items()))
+    return out
+
+
+def op_dispatch_only(torch, package: Path) -> int:
+    """``--op-dispatch [DIR]``: phase 15 (d) alone for the fitclip_torch package
+    under DIR (the parent's, say): the seeded int8 CLIP ViT-B/16 with its pixel
+    normalization folded, calibrated on 8 clips and 32 token rows, then
+    ``dispatch_readings``. Prints one JSON line with the card and its clocks."""
+    sys.path.insert(0, str(package))
+    from fitclip_torch import _build
+    from fitclip_torch.models.clip.load import load_clip_encoder
+
+    print(f"op dispatch of {package}; device: {torch.cuda.get_device_name(0)}; "
+          f"nvidia-smi: {nvidia_smi()}; clocks {clocks()}")
+    _build.library()
+    torch.set_grad_enabled(False)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    enc = load_clip_encoder("ViT-B/16", dtype="int8", device="cuda", seed=0).encoder
+    enc.fold_pixel_normalization()
+    video = torch.randint(0, 256, (32, 4, 224, 224, 3), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    enc.calibrate(video[:8], torch.from_numpy(token_ids(32, np.random.default_rng(0))).cuda())
+    readings = dispatch_readings(torch, enc, video)
+    print(json.dumps({"op_dispatch": readings, "package": str(package), "card": nvidia_smi(),
+                      "clocks": clocks()}))
+    return 0
+
+
+def export_clip_int8(torch, wrappers, work: Path, merges: str):
+    """Phase 15 (a). Returns (the calibrated eager encoder, its overrides, the
+    scales file, the export directory, {path: launches}, readings)."""
+    from fitclip_torch.models.clip.encoder import l2_normalize
+    from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_fast
+    from fitclip_torch.ops import block as K
+    from fitclip_torch.ops.quant import save_act_scales
+
+    overrides = ["++encoder.dtype=int8", f"+encoder.bpe_path={merges}"]
+    enc = composed_encoder(torch, "clip_vit_b_16", overrides)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rng = np.random.default_rng(15)
+    inputs = {"video": torch.randint(0, 256, (EXPORT_VIDEO_BUCKETS[-1], 4, 224, 224, 3),
+                                     generator=gen, device="cuda", dtype=torch.uint8),
+              "text": torch.from_numpy(token_ids(EXPORT_TEXT_BUCKETS[-1], rng)).cuda()}
+    enc.calibrate(inputs["video"], inputs["text"])
+    scales, export_dir = work / "export_scales.npz", work / "export"
+    save_act_scales(str(scales), enc.model)
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fitclip_torch.serving.export_serving", "clip_vit_b_16",
+         str(export_dir), "--buckets", ",".join(map(str, EXPORT_TEXT_BUCKETS)),
+         "--video-buckets", ",".join(map(str, EXPORT_VIDEO_BUCKETS)), "--scales", str(scales),
+         "--overrides", *overrides], cwd=ROOT, capture_output=True, text=True, timeout=900)
+    export_s = time.perf_counter() - start
+    require(proc.returncode == 0, f"export_serving exited {proc.returncode}:\n"
+                                  f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    written = json.loads(proc.stdout[proc.stdout.index("{"):])
+    want = {tower: {str(b): str(export_dir / f"{tower}.pt2") for b in buckets}
+            for tower, buckets in (("text", EXPORT_TEXT_BUCKETS), ("video", EXPORT_VIDEO_BUCKETS))}
+    require(written == want, f"export_serving printed {written}, expected {want}")
+    sizes = {name: (export_dir / name).stat().st_size
+             for name in ("text.pt2", "text.json", "video.pt2", "video.json")}
+    torch.save({k: v.cpu() for k, v in inputs.items()}, work / "export_inputs.pt")
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--load-exported",
+                           str(export_dir), str(work / "export_inputs.pt"),
+                           str(work / "export_rows.pt")], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    child_s = time.perf_counter() - start
+    require(proc.returncode == 0, f"the loading process exited {proc.returncode}:\n"
+                                  f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"export (a) int8 CLIP ViT-B/16: export_serving {export_s:.1f} s (its process), "
+          f"artifacts {sizes} bytes; a fresh process loaded both programs in "
+          f"{child['load_s']:.2f} s ({child_s:.1f} s with its start), "
+          f"fitclip_torch.models modules there: {child['models'] or 'none'}")
+    require(child["models"] == [], f"loading imported {child['models']}")
+    loaded = torch.load(work / "export_rows.pt")
+    want_launches = {fn: n for fn, n in k1_launches().items()}
+    gates = {}
+    with torch.no_grad():
+        for key, rows in loaded.items():
+            tower, size = key.split("_")
+            batch = inputs[tower][:int(size)]
+            if tower == "text":
+                eager = enc.encode_text(batch)
+                plain = l2_normalize(encode_text_fast(enc.model, batch,
+                                                      layer_fn=K.fused_int8_layer_plain))
+            else:
+                eager = enc.encode_video(batch)
+                b, t = batch.shape[:2]
+                plain = l2_normalize(encode_frames_fast(
+                    enc.model, enc._prepare_frames(batch), layer_fn=K.fused_int8_layer_plain)
+                ).reshape(b, t, -1).mean(dim=1)
+            eager, plain = eager.float().cpu(), plain.float().cpu()
+            gates[key] = {"eager": min_cosine(rows, eager), "bit_equal": torch.equal(rows, eager),
+                          "plain": min_cosine(rows, plain), "launches": child["launches"][key],
+                          "call_ms": child["call_ms"][key]}
+            print(f"export (a) {tower} bucket {size}: loaded vs eager min cosine "
+                  f"{gates[key]['eager']:.6f} (bit-equal {gates[key]['bit_equal']}), vs the "
+                  f"plain versions {gates[key]['plain']:.6f}; K1 launches of one call "
+                  f"{child['launches'][key]}; {child['call_ms'][key]:.2f} ms")
+            require(gates[key]["eager"] >= EXPORT_EAGER_COSINE,
+                    f"export {key}: loaded vs eager cosine {gates[key]['eager']}")
+            require(gates[key]["plain"] > GATE_COSINE,
+                    f"export {key}: loaded vs plain cosine {gates[key]['plain']}")
+            require(child["launches"][key] == want_launches,
+                    f"export {key}: launches {child['launches'][key]}, expected {want_launches}")
+    readings = {"export_s": export_s, "load_s": child["load_s"], "child_s": child_s,
+                "sizes": sizes, "gates": gates}
+    paths = {f"export_load_{key}": {name: gates[key]["launches"].get(name, 0) for name in wrappers}
+             for key in gates}
+    return enc, overrides, scales, export_dir, paths, readings
+
+
+def export_service(torch, wrappers, enc, overrides, scales: Path, export_dir: Path):
+    """Phase 15 (b): the embed service with EMBED_EXPORT_DIR on the card."""
+    import os
+    import threading
+
+    from fitclip_torch.serving import embed_service as es
+
+    globals_ = ("_SERVICE", "_VIDEO_SERVICE", "_INDEX", "_LOADED", "_GRAPHS")
+    for name in globals_:
+        setattr(es, name, None)
+    os.environ.update({"EMBED_ENCODER": "clip_vit_b_16", "EMBED_OVERRIDES": " ".join(overrides),
+                       "EMBED_SCALES": str(scales), "EMBED_EXPORT_DIR": str(export_dir),
+                       "EMBED_MAX_WAIT_MS": "2"})
+    server = None
+    try:
+        start = time.perf_counter()
+        es._ensure_loaded()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+        start = time.perf_counter()
+        graphs = es.warm_graphs()
+        for fn in wrappers.values():
+            fn.launches = 0
+        es._ensure_service()
+        es._ensure_video_service()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - start
+        capture = {name: fn.launches for name, fn in wrappers.items()}
+        buckets = {t: g.bucket_sizes for t, g in graphs.items()}
+        captured = {t: sorted(g.capture_ms) for t, g in graphs.items()}
+        print(f"export (b) the service from EMBED_EXPORT_DIR: buckets {buckets}, captured "
+              f"{captured}; the encoder (tokenizer, preprocessing) loaded in {load_s:.2f} s, "
+              f"then set-up to both services ready {setup_s:.3f} s with the programs' load "
+              f"(phase 12's in-process towers: {READINGS.get('serve_setup_s', 'not run')} s); "
+              "capture ms " + "; ".join(
+                  f"{t} " + ", ".join(f"{b}: {ms:.1f}" for b, ms in g.capture_ms.items())
+                  for t, g in graphs.items()))
+        require(buckets == {"text": EXPORT_TEXT_BUCKETS, "video": EXPORT_VIDEO_BUCKETS}
+                and captured == {t: list(b) for t, b in buckets.items()},
+                f"buckets {buckets}, captured {captured}")
+        n_buckets = len(EXPORT_TEXT_BUCKETS) + len(EXPORT_VIDEO_BUCKETS)
+        want = {name: 0 for name in wrappers}
+        want.update(k1_launches(n_buckets))
+        print(f"export (b) launches recorded by the {n_buckets} captures "
+              f"{({k: n for k, n in capture.items() if n})} (84 a bucket)")
+        require(capture == want, f"capture launches {capture}, expected {want}")
+        server = es.EmbedHTTPServer(("127.0.0.1", 0), es.Handler)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        for fn in wrappers.values():
+            fn.launches = 0
+        texts, rows, serial = [], [], []
+        for text in serve_texts(np.random.default_rng(21), EXPORT_SERIAL):
+            status, reply, seconds, _ = http(url + "/embed_text",
+                                             json.dumps({"texts": [text]}).encode())
+            require(status == 200, f"/embed_text {status}: {reply}")
+            texts.append(text)
+            rows.extend(reply["embeddings"])
+            serial.append(seconds)
+        plans = [[serve_texts(np.random.default_rng(400 + c), int(k))
+                  for k in np.random.default_rng(500 + c).integers(1, 5, EXPORT_REQUESTS)]
+                 for c in range(EXPORT_CLIENTS)]
+        concurrent, _, replies, burst_s = burst(url, plans)
+        require(all(len(c) == EXPORT_REQUESTS for c in concurrent), "a client's request failed")
+        for batch_texts, batch_rows in replies:
+            texts.extend(batch_texts)
+            rows.extend(batch_rows)
+        torch.cuda.synchronize()
+        traffic = {name: fn.launches for name, fn in wrappers.items()}
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        for service in (es._SERVICE, es._VIDEO_SERVICE):
+            if service is not None:
+                service.stop()
+        for name in globals_:
+            setattr(es, name, None)
+        os.environ.pop("EMBED_EXPORT_DIR", None)
+    burst_texts = sum(len(t) for plan in plans for t in plan)
+    print(f"export (b) (a) {EXPORT_SERIAL} serial /embed_text: {percentiles(serial)}; (b) "
+          f"{EXPORT_CLIENTS} client threads x {EXPORT_REQUESTS} requests of 1-4 texts: "
+          f"{percentiles([s for c in concurrent for s in c])}, {burst_texts / burst_s:.1f} "
+          f"texts/s; launches under traffic {({k: n for k, n in traffic.items() if n}) or 'none'}")
+    require(not any(traffic.values()), f"traffic launched eagerly: {traffic}")
+    tokenizer = enc.get_tokenizer()
+    eager = []
+    with torch.no_grad():
+        for i in range(0, len(texts), 32):
+            ids = torch.from_numpy(tokenizer(texts[i:i + 32])).long().cuda()
+            eager.append(enc.encode_text(ids).float().cpu())
+    cos = min_cosine(torch.tensor(rows, dtype=torch.float32), torch.cat(eager))
+    print(f"export (b) served rows ({len(rows)}) vs eager encode_text, min cosine {cos:.6f}")
+    require(len(rows) == len(texts) and cos >= EXPORT_EAGER_COSINE, f"served cosine {cos}")
+    return ({"export_serve_capture": capture, "export_serve_traffic": traffic},
+            {"load_s": load_s, "setup_s": setup_s, "served_cosine": cos,
+             "texts_per_s": burst_texts / burst_s})
+
+
+def export_families(torch, wrappers, work: Path):
+    """Phase 15 (c): one video bucket of every other family that carries a
+    kernel, exported in this process and held against its eager tower."""
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.models.frozen_in_time.load import load_frozen_in_time_encoder
+    from fitclip_torch.models.mil_nce import load_mil_nce_encoder
+    from fitclip_torch.models.slip import load_slip_encoder
+    from fitclip_torch.serving.export import export_encode_fn, load_exported
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    n = EXPORT_FAMILY_CLIPS
+
+    def uint8(frames):
+        return torch.randint(0, 256, (n, frames, 224, 224, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    def clip_bf16():
+        enc = load_clip_encoder("ViT-B/16", dtype="bfloat16", device="cuda", seed=0,
+                                fused_block=True).encoder
+        return enc.fold_pixel_normalization(), uint8(4)
+
+    def fit(dtype):
+        def build():
+            enc = load_frozen_in_time_encoder(dtype=dtype, device="cuda", seed=0).encoder
+            if dtype == "int8":
+                enc.calibrate(fit_video(torch, 8))
+            return enc, fit_video(torch, n)
+        return build
+
+    def slip_int8():
+        enc = load_slip_encoder(dtype="int8", device="cuda", seed=0, fused_block=False).encoder
+        video = uint8(4)
+        enc.calibrate(video, torch.from_numpy(token_ids(8, np.random.default_rng(17))).cuda())
+        return enc, video
+
+    def mil_nce():
+        return load_mil_nce_encoder(dtype="bfloat16", device="cuda", seed=0).encoder, uint8(16)
+
+    families = (
+        ("clip_bf16_fused", clip_bf16, k2_launches(LAYERS, towers=1)),
+        ("fit_int8", fit("int8"), {k: n_ * FIT_LAYERS for k, n_ in FIT_INT8_LAUNCHES_PER_LAYER.items()}),
+        ("fit_bf16", fit("bfloat16"), {k: n_ * FIT_LAYERS for k, n_ in FIT_BF16_LAUNCHES_PER_LAYER.items()}),
+        ("slip_int8_module", slip_int8, {"fused_int8_qkv_attention": LAYERS,
+                                         "int8_gemm_bias": 3 * LAYERS}),
+        ("mil_nce_bf16", mil_nce, {"s3dg_stem": 1}))
+    paths, readings = {}, {}
+    for name, build, counts in families:
+        start = time.perf_counter()
+        enc, video = build()
+        built_s = time.perf_counter() - start
+        start = time.perf_counter()
+        export_encode_fn(enc.encode_video, video[0], (n,), str(work / "export_families"), name)
+        export_s = time.perf_counter() - start
+        encode, _ = load_exported(str(work / "export_families"), name)
+        for fn in wrappers.values():
+            fn.launches = 0
+        rows = encode(video)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        with torch.no_grad():
+            eager = enc.encode_video(video)
+        cos = min_cosine(rows, eager)
+        want = {k: counts.get(k, 0) for k in wrappers}
+        print(f"export (c) {name}: built {built_s:.1f} s, exported at bucket {n} in "
+              f"{export_s:.1f} s; loaded vs eager min cosine {cos:.6f} (bit-equal "
+              f"{torch.equal(rows, eager)}); launches of one call "
+              f"{({k: c for k, c in launches.items() if c})}")
+        require(cos >= EXPORT_EAGER_COSINE, f"export {name}: loaded vs eager cosine {cos}")
+        require(launches == want, f"export {name}: launches {launches}, expected {want}")
+        paths[f"export_{name}"] = launches
+        readings[name] = {"cosine": cos, "export_s": export_s}
+        del enc, video, encode, rows, eager
+        torch.cuda.empty_cache()
+    return paths, readings
+
+
+def export_phase(torch, wrappers, work: Path, merges: str):
+    """Phase 15: (a) int8 CLIP ViT-B/16 exported by export_serving and loaded in
+    a fresh process, (b) the service from its artifacts, (c) one video bucket
+    of every other family with a kernel, (d) the op dispatch's cost. Returns
+    {path: launches}."""
+    start = time.perf_counter()
+    torch.set_grad_enabled(False)
+    enc, overrides, scales, export_dir, paths, readings = export_clip_int8(
+        torch, wrappers, work, merges)
+    serve_paths, readings["service"] = export_service(torch, wrappers, enc, overrides, scales,
+                                                      export_dir)
+    paths.update(serve_paths)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    video32 = torch.randint(0, 256, (32, 4, 224, 224, 3), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+    readings["dispatch"] = dispatch_readings(torch, enc, video32)
+    del enc, video32
+    torch.cuda.empty_cache()
+    family_paths, readings["families"] = export_families(torch, wrappers, work)
+    paths.update(family_paths)
+    readings["phase_s"] = time.perf_counter() - start
+    print(f"export: phase 15 in {readings['phase_s']:.1f} s")
+    print(json.dumps({"export": readings, "card": nvidia_smi(), "clocks": clocks()}))
+    return paths
+
+
+def export_only(torch) -> int:
+    """Phase 15 alone (``--export``): the build and a BPE vocabulary, then phase 15."""
+    sys.path.insert(0, str(ROOT))
+    from fitclip_torch import _build
+    from fitclip_torch.models.clip.tokenizer import write_tiny_test_vocab
+
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s; {nvidia_smi()}")
+    work = ROOT / "build" / "chip_smoke_export"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        merges, _ = write_tiny_test_vocab(str(work), list(CAPTION_WORDS))
+        paths = export_phase(torch, kernel_wrappers(), work, merges)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"export_launches": {path: {k: n for k, n in c.items() if n}
+                                          for path, c in paths.items()}}))
+    return 0
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the main paths by name; each counts its launches."""
     from fitclip_torch.ops import attention as A
@@ -4535,10 +5032,14 @@ def main() -> int:
     alone = {"--train-steps": train_steps_only, "--row-passes": row_passes_only,
              "--fp32-attention": fp32_attention_only, "--fit-attention": fit_attention_only,
              "--bench-arms": bench_arms_only, "--stem-cls": stem_cls_only}
-    if sys.argv[1:2] in (["--train-cli"], ["--resnet-wise"]):
+    if sys.argv[1:2] == ["--load-exported"]:
+        return load_exported_child(*sys.argv[2:5])
+    alone["--op-dispatch"] = op_dispatch_only
+    if sys.argv[1:2] in (["--train-cli"], ["--resnet-wise"], ["--export"]):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        return (train_cli_only if sys.argv[1] == "--train-cli" else resnet_wise_only)(torch)
+        return {"--train-cli": train_cli_only, "--resnet-wise": resnet_wise_only,
+                "--export": export_only}[sys.argv[1]](torch)
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4712,12 +5213,16 @@ def main() -> int:
         print(f"clocks (phase 14): {clocks()}")
         resnet_wise_paths, _ = resnet_wise_phase(torch, wrappers, work, eval_tree,
                                                  work / "a" / "ckpt" / "last")
+        # Phase 15: export, on phase 11's BPE vocabulary.
+        torch.cuda.empty_cache()
+        print(f"clocks (phase 15): {clocks()}")
+        export_paths = export_phase(torch, wrappers, work, eval_tree["merges"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"encode": launches, **paths, **fit_paths, **fit_fp32_paths, **s3dg_paths,
              **clip_k2_paths,
              **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths, **cli_paths,
-             **serving_paths, **train_cli_paths, **resnet_wise_paths}
+             **serving_paths, **train_cli_paths, **resnet_wise_paths, **export_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:

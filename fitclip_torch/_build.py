@@ -11,6 +11,15 @@ raises with the compiler's output: nothing falls back to the plain versions.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch, and
 ``call`` raises if that is not 0.
+
+Every kernel entry on an inference path is also an operator of the
+``fitclip`` namespace (``define_op``): its CUDA implementation launches the
+kernel through ``call``, its CPU implementation is the kernel's plain PyTorch
+version, and its fake implementation gives shapes and dtypes only, so that
+``torch.export`` traces it without building or loading the library. The ops
+are registered with ``torch.library.Library`` and ``impl``: at one dispatch
+per launch, that costs the host less than ``torch.library.custom_op``'s
+Python wrapper and autograd kernel.
 """
 
 import concurrent.futures
@@ -156,6 +165,25 @@ def call(name: str, *args) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} "
                            f"({lib.fitclip_error_string(code).decode()})")
+
+
+# The fitclip operator namespace; custom_op's own fragment (fused_attention_qkv)
+# lives beside it.
+LIBRARY = torch.library.Library("fitclip", "FRAGMENT")
+
+
+def define_op(schema: str, cuda, cpu, fake):
+    """Register ``fitclip::<schema>`` with a CUDA implementation (the kernel's
+    launch), a CPU one (its plain version, made contiguous as the kernels'
+    outputs and the fake ones are) and a fake one (shapes and dtypes only);
+    return its overload. No implementation may return a view of an input: the
+    schema declares no alias."""
+    name = schema.split("(", 1)[0]
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, cuda, "CUDA")
+    LIBRARY.impl(name, lambda *args: cpu(*args).contiguous(), "CPU")
+    torch.library.register_fake(f"fitclip::{name}", fake, lib=LIBRARY)
+    return getattr(torch.ops.fitclip, name).default
 
 
 def dtype_code(dtype: torch.dtype) -> int:

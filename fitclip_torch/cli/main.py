@@ -193,6 +193,11 @@ def _resolve_checkpoint(command: str, encoder_slot, checkpoint_path: Optional[st
 def run(cfg: Dict[str, Any]) -> Optional[float]:
     from fitclip_torch.cli.runners import run_eval, run_predict
 
+    # ++compilation_cache_dir sets XLA's persistent cache in the JAX package;
+    # the port's kernels build once by their sources' hash instead.
+    if cfg.get("compilation_cache_dir"):
+        LOGGER.info("compilation_cache_dir is ignored: the port's kernels build once into "
+                    "build/fitclip_torch/<hash>/ and later processes load them")
     seed_everything(int(cfg.get("seed", 42)))
     command = cfg["command"]
     if command not in COMMANDS:

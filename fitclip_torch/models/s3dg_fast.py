@@ -71,7 +71,7 @@ def fold_fast_operands(model: S3DG, dtype: torch.dtype) -> dict:
                      "gate": _gate_operands([getattr(block, f"gating_b{i}") for i in range(4)])}
     for path, site in _sites(model):
         ops[f"int8/{path}"] = dense_operands(site)
-    ops["stem_packed"] = stem_operands(*ops["stem"])  # the stem kernel's operands
+    ops["stem_packed"] = stem_operands(*ops["stem"], dtype)  # the stem operator's operands
     return ops
 
 

@@ -82,16 +82,24 @@ head_dim is 32 or 64 (ViT-S/16's and every other preset's); the FiT kernels
 take 64, FiT base's.
 
 K5 and K6 are forward only, as in the reference ("Forward only (inference
-paths)"): on CUDA they raise when autograd would need their gradient.
+paths)"): their operators have no gradient, and the wrappers raise when
+autograd would need one.
 
-Each wrapper takes its plain version (``attention_core_plain``,
-``attention_backward_plain``) for a tensor on the CPU only; for a CUDA tensor it
-launches the kernel or raises. The plain versions run on any device (the card
-compares the kernels against them).
+The inference wrappers (``attention_int8``, ``attention_block``,
+``fused_int8_qkv_attention``, ``fused_attention_qkv_gkv``,
+``fused_time_attention``) call their ``fitclip::`` operators
+(``_build.define_op``): the kernel's launch for a CUDA tensor, which raises
+rather than fall back, the plain version (``attention_core_plain``, ...) for a
+CPU tensor, shapes only for a fake one. The plain versions run on any device
+(the card compares the kernels against them). K4's int8 cores are one
+operator of ``ops/fit_block.py``; the ``out=`` helpers here
+(``fit_cls_attention_int8``, ...) launch into a caller's buffer and are no
+operators.
 
-The forward is also the custom op ``fitclip::fused_attention_qkv``, so that a
+K3's forward is the custom op ``fitclip::fused_attention_qkv``, so that a
 selective activation-checkpoint policy (``models/clip/model.py``, remat "dots")
-can see and keep its output.
+can see and keep its output; the backward, which runs only in autograd's
+backward, takes its plain version for a CPU tensor.
 """
 
 from typing import Optional
@@ -402,22 +410,35 @@ def fused_attention_qkv(qkv: torch.Tensor, heads: int, scale: float,
 fused_attention_qkv.launches = 0
 
 
+def _rows_out(qkv, dtype):
+    """The (B, L, W) output of an attention over (B, L, 3W) qkv, real or fake."""
+    batch, seq, triple = qkv.shape
+    return qkv.new_empty(batch, seq, triple // 3, dtype=dtype)
+
+
 def attention_int8(qkv: torch.Tensor, heads: int, scale: float, causal: bool,
                    out_mul: float, seq_valid: Optional[int] = None) -> torch.Tensor:
     """(B, L, 3*H*D) -> int8 (B, L, H*D): the attention core of
     ``fitclip_tpu/ops/block.py:_layer_kernel`` with the out-projection's
     requant multiplier out_mul folded into the normalizer. seq_valid masks
     the keys at and past it."""
-    if qkv.device.type == "cpu":
-        return attention_int8_plain(qkv, heads, scale, causal, out_mul, seq_valid)
-    batch, seq, triple = qkv.shape
-    out = torch.empty(batch, seq, triple // 3, dtype=torch.int8, device=qkv.device)
+    return _ATTENTION_INT8(qkv, int(heads), float(scale), bool(causal), float(out_mul),
+                           None if seq_valid is None else int(seq_valid))
+
+
+def _attention_int8_cuda(qkv, heads, scale, causal, out_mul, seq_valid):
+    out = _rows_out(qkv, torch.int8)
     _launch(qkv, heads, scale, causal, seq_valid, out, _INT8, out_mul)
     attention_int8.launches += 1
     return out
 
 
 attention_int8.launches = 0
+_ATTENTION_INT8 = _build.define_op(
+    "attention_int8(Tensor qkv, int heads, float scale, bool causal, float out_mul, "
+    "int? seq_valid) -> Tensor",
+    _attention_int8_cuda, attention_int8_plain,
+    lambda qkv, heads, scale, causal, out_mul, seq_valid: _rows_out(qkv, torch.int8))
 
 
 def attention_block_plain(qkv, heads, scale, causal, seq_valid=None):
@@ -429,16 +450,22 @@ def attention_block(qkv: torch.Tensor, heads: int, scale: float, causal: bool,
     """(B, L, 3*H*D) -> (B, L, H*D) in qkv's dtype: the attention core of
     ``fitclip_tpu/ops/block.py:_bf16_layer_kernel`` (K2), weights
     exps * (1 / denom). seq_valid masks the keys at and past it."""
-    if qkv.device.type == "cpu":
-        return attention_block_plain(qkv, heads, scale, causal, seq_valid)
-    batch, seq, triple = qkv.shape
-    out = torch.empty(batch, seq, triple // 3, dtype=qkv.dtype, device=qkv.device)
+    return _ATTENTION_BLOCK(qkv, int(heads), float(scale), bool(causal),
+                            None if seq_valid is None else int(seq_valid))
+
+
+def _attention_block_cuda(qkv, heads, scale, causal, seq_valid):
+    out = _rows_out(qkv, qkv.dtype)
     _launch(qkv, heads, scale, causal, seq_valid, out, _BLOCK, 1.0)
     attention_block.launches += 1
     return out
 
 
 attention_block.launches = 0
+_ATTENTION_BLOCK = _build.define_op(
+    "attention_block(Tensor qkv, int heads, float scale, bool causal, int? seq_valid) -> Tensor",
+    _attention_block_cuda, attention_block_plain,
+    lambda qkv, heads, scale, causal, seq_valid: _rows_out(qkv, qkv.dtype))
 
 
 def fused_int8_qkv_attention_plain(x_q, weight_q, out_scale, bias, heads, scale, causal=False,
@@ -459,9 +486,12 @@ def fused_int8_qkv_attention(x_q: torch.Tensor, weight_q: torch.Tensor, out_scal
     + bias) cast to out_dtype, then the qkv-mode softmax (weights exps / denom).
     Replaces ``fitclip_tpu/ops/attention.py:fused_int8_qkv_attention``
     (``_int8_qkv_attention_kernel``); one launch count per call."""
-    if x_q.device.type == "cpu":
-        return fused_int8_qkv_attention_plain(x_q, weight_q, out_scale, bias, heads, scale,
-                                              causal, out_dtype)
+    return _FUSED_INT8_QKV_ATTENTION(x_q, weight_q, out_scale, bias, int(heads), float(scale),
+                                     bool(causal), out_dtype)
+
+
+def _fused_int8_qkv_attention_cuda(x_q, weight_q, out_scale, bias, heads, scale, causal,
+                                   out_dtype):
     from fitclip_torch.ops import block  # block.py imports this module
 
     _build.check_cuda_operand("x_q", x_q, torch.int8, 3)
@@ -477,6 +507,12 @@ def fused_int8_qkv_attention(x_q: torch.Tensor, weight_q: torch.Tensor, out_scal
 
 
 fused_int8_qkv_attention.launches = 0
+_FUSED_INT8_QKV_ATTENTION = _build.define_op(
+    "fused_int8_qkv_attention(Tensor x_q, Tensor weight_q, Tensor out_scale, Tensor bias, "
+    "int heads, float scale, bool causal, ScalarType out_dtype) -> Tensor",
+    _fused_int8_qkv_attention_cuda, fused_int8_qkv_attention_plain,
+    lambda x_q, weight_q, out_scale, bias, heads, scale, causal, out_dtype:
+        x_q.new_empty(x_q.shape, dtype=out_dtype))
 
 
 # --- Frozen-in-Time: divided attention with a global row (csrc/fit_attention.cu) ---
@@ -606,14 +642,16 @@ def fused_attention_qkv_gkv(qkv: torch.Tensor, gkv: torch.Tensor, heads: int,
     (G, L, H*D) in qkv's dtype; softmax over [global | group]. Replaces
     ``fitclip_tpu/ops/attention.py:fused_attention_qkv_gkv``
     (``_packed_gkv_kernel``). Forward only."""
-    if qkv.device.type == "cpu":
-        return attention_gkv_plain(qkv, gkv, heads, scale)
     _refuse_gradient("fused_attention_qkv_gkv (K5)", qkv, gkv)
+    return _FUSED_ATTENTION_QKV_GKV(qkv, gkv, int(heads), float(scale))
+
+
+def _fused_attention_qkv_gkv_cuda(qkv, gkv, heads, scale):
     _fit_check(qkv, heads)
     _check_gkv(gkv, qkv)
     groups, seq, triple = qkv.shape
     _check_space_smem(qkv, seq)
-    out = torch.empty(groups, seq, triple // 3, dtype=qkv.dtype, device=qkv.device)
+    out = _rows_out(qkv, qkv.dtype)
     _fit_launch("fitclip_fit_space_attention", qkv, 0, gkv.data_ptr(), triple, out, 0, False,
                 groups, 1, seq, heads, scale, 1.0)
     fused_attention_qkv_gkv.launches += 1
@@ -621,6 +659,10 @@ def fused_attention_qkv_gkv(qkv: torch.Tensor, gkv: torch.Tensor, heads: int,
 
 
 fused_attention_qkv_gkv.launches = 0
+_FUSED_ATTENTION_QKV_GKV = _build.define_op(
+    "fused_attention_qkv_gkv(Tensor qkv, Tensor gkv, int heads, float scale) -> Tensor",
+    _fused_attention_qkv_gkv_cuda, attention_gkv_plain,
+    lambda qkv, gkv, heads, scale: _rows_out(qkv, qkv.dtype))
 
 
 def fused_time_attention(qkv: torch.Tensor, gkv: torch.Tensor, heads: int, frames: int,
@@ -629,15 +671,17 @@ def fused_time_attention(qkv: torch.Tensor, gkv: torch.Tensor, heads: int, frame
     (B, 3*H*D) row per clip -> (B, F*P, H*D) in qkv's dtype. Replaces
     ``fitclip_tpu/ops/attention.py:fused_time_attention``
     (``_time_attention_kernel``). Forward only."""
-    if qkv.device.type == "cpu":
-        return time_attention_plain(qkv, gkv, heads, frames, scale)
     _refuse_gradient("fused_time_attention (K6)", qkv, gkv)
+    return _FUSED_TIME_ATTENTION(qkv, gkv, int(heads), int(frames), float(scale))
+
+
+def _fused_time_attention_cuda(qkv, gkv, heads, frames, scale):
     _fit_check(qkv, heads, frames)
     _check_gkv(gkv, qkv)
     batch, n, triple = qkv.shape
     if n % frames:
         raise ValueError(f"qkv rows {n} are not {frames} frames x P")
-    out = torch.empty(batch, n, triple // 3, dtype=qkv.dtype, device=qkv.device)
+    out = _rows_out(qkv, qkv.dtype)
     _fit_launch("fitclip_fit_time_attention", qkv, 0, gkv.data_ptr(), triple, out, 0, False,
                 batch, frames, n // frames, heads, scale, 1.0)
     fused_time_attention.launches += 1
@@ -645,6 +689,10 @@ def fused_time_attention(qkv: torch.Tensor, gkv: torch.Tensor, heads: int, frame
 
 
 fused_time_attention.launches = 0
+_FUSED_TIME_ATTENTION = _build.define_op(
+    "fused_time_attention(Tensor qkv, Tensor gkv, int heads, int frames, float scale) -> Tensor",
+    _fused_time_attention_cuda, time_attention_plain,
+    lambda qkv, gkv, heads, frames, scale: _rows_out(qkv, qkv.dtype))
 
 
 def _joint_out(qkv, out):

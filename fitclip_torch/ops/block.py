@@ -33,9 +33,12 @@ the same seven launches per layer, in bf16 on the card:
 3. ``attention_block`` (``ops/attention.py``): the per-head core with weights
    exps * (1 / denom), output in qkv's dtype.
 
-Each wrapper takes its plain PyTorch version for a tensor on the CPU only;
-for a CUDA tensor it launches its kernel or raises. ``fused_int8_layer_plain``
-runs the same composition through the plain versions on any device.
+Each wrapper calls its operator (``fitclip::ln_quant``, ... ;
+``_build.define_op``): for a CUDA tensor the kernel's launch, which raises
+rather than fall back, for a CPU tensor the plain PyTorch version, and for a
+fake tensor shapes only, so that an exported tower holds the operators.
+``fused_int8_layer_plain`` runs the same composition through the plain
+versions on any device.
 """
 
 import dataclasses
@@ -73,8 +76,10 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, inv: flo
              eps: float = LN_EPS) -> torch.Tensor:
     """(rows, W) bf16/fp32 -> int8 (rows, W): clip(rint(LN(x) * inv)).
     Replaces the _ln + _quant prologues of block.py:_layer_kernel."""
-    if x.device.type == "cpu":
-        return ln_quant_plain(x, weight, bias, inv, eps)
+    return _LN_QUANT(x, weight, bias, float(inv), float(eps))
+
+
+def _ln_quant_cuda(x, weight, bias, inv, eps):
     out = ln_quant_launch(x, weight, bias, inv, eps, 0)
     ln_quant.launches += 1
     return out
@@ -108,6 +113,10 @@ def ln_quant_launch(x, weight, bias, inv, eps, mode: int) -> torch.Tensor:
 
 
 ln_quant.launches = 0
+_LN_QUANT = _build.define_op(
+    "ln_quant(Tensor x, Tensor weight, Tensor bias, float inv, float eps) -> Tensor",
+    _ln_quant_cuda, ln_quant_plain,
+    lambda x, weight, bias, inv, eps: x.new_empty(x.shape, dtype=torch.int8))
 
 
 # --- int8 GEMM ------------------------------------------------------------
@@ -161,47 +170,72 @@ def _gemm(a, w, scale, bias, epilogue, out, residual=None, kv=0.0, act=0):
                 out_code, float(kv), int(act))
 
 
+def _gemm_out(a, w, dtype):
+    """The (M, N) output of a GEMM of a (M, K) by w (N, K), real or fake."""
+    return a.new_empty(a.shape[0], w.shape[0], dtype=dtype)
+
+
 def int8_gemm_bias(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """int8 a (M, K) x int8 w (N, K)^T -> acc * scale + bias in out_dtype."""
-    if a.device.type == "cpu":
-        return int8_gemm_bias_plain(a, w, scale, bias, out_dtype)
-    out = torch.empty(a.shape[0], w.shape[0], dtype=out_dtype, device=a.device)
+    return _INT8_GEMM_BIAS(a, w, scale, bias, out_dtype)
+
+
+def _int8_gemm_bias_cuda(a, w, scale, bias, out_dtype):
+    out = _gemm_out(a, w, out_dtype)
     _gemm(a, w, scale, bias, _BIAS, out)
     int8_gemm_bias.launches += 1
     return out
 
 
 int8_gemm_bias.launches = 0
+_INT8_GEMM_BIAS = _build.define_op(
+    "int8_gemm_bias(Tensor a, Tensor w, Tensor scale, Tensor bias, ScalarType out_dtype) -> Tensor",
+    _int8_gemm_bias_cuda, int8_gemm_bias_plain,
+    lambda a, w, scale, bias, out_dtype: _gemm_out(a, w, out_dtype))
 
 
 def int8_gemm_residual(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, residual: torch.Tensor,
                        out_dtype: torch.dtype) -> torch.Tensor:
     """residual + (acc * scale + bias), added in fp32, in out_dtype."""
-    if a.device.type == "cpu":
-        return int8_gemm_residual_plain(a, w, scale, bias, residual, out_dtype)
-    out = torch.empty(a.shape[0], w.shape[0], dtype=out_dtype, device=a.device)
+    return _INT8_GEMM_RESIDUAL(a, w, scale, bias, residual, out_dtype)
+
+
+def _int8_gemm_residual_cuda(a, w, scale, bias, residual, out_dtype):
+    out = _gemm_out(a, w, out_dtype)
     _gemm(a, w, scale, bias, _RESIDUAL, out, residual=residual)
     int8_gemm_residual.launches += 1
     return out
 
 
 int8_gemm_residual.launches = 0
+_INT8_GEMM_RESIDUAL = _build.define_op(
+    "int8_gemm_residual(Tensor a, Tensor w, Tensor scale, Tensor bias, Tensor residual, "
+    "ScalarType out_dtype) -> Tensor",
+    _int8_gemm_residual_cuda, int8_gemm_residual_plain,
+    lambda a, w, scale, bias, residual, out_dtype: _gemm_out(a, w, out_dtype))
 
 
 def int8_gemm_gelu(a: torch.Tensor, w: torch.Tensor, fs2: torch.Tensor,
                    fb2: torch.Tensor, kv: float, quick_gelu: bool) -> torch.Tensor:
     """The folded fc epilogue: t = acc * fs2 + fb2, GELU, rint/clip -> int8."""
-    if a.device.type == "cpu":
-        return int8_gemm_gelu_plain(a, w, fs2, fb2, kv, quick_gelu)
-    out = torch.empty(a.shape[0], w.shape[0], dtype=torch.int8, device=a.device)
+    return _INT8_GEMM_GELU(a, w, fs2, fb2, float(kv), bool(quick_gelu))
+
+
+def _int8_gemm_gelu_cuda(a, w, fs2, fb2, kv, quick_gelu):
+    out = _gemm_out(a, w, torch.int8)
     _gemm(a, w, fs2, fb2, _GELU, out, kv=kv, act=int(quick_gelu))
     int8_gemm_gelu.launches += 1
     return out
 
 
 int8_gemm_gelu.launches = 0
+_INT8_GEMM_GELU = _build.define_op(
+    "int8_gemm_gelu(Tensor a, Tensor w, Tensor fs2, Tensor fb2, float kv, bool quick_gelu) "
+    "-> Tensor",
+    _int8_gemm_gelu_cuda, int8_gemm_gelu_plain,
+    lambda a, w, fs2, fb2, kv, quick_gelu: _gemm_out(a, w, torch.int8))
 
 
 # --- the layer ------------------------------------------------------------
@@ -308,7 +342,7 @@ def fused_int8_layer(x: torch.Tensor, ops: Int8LayerOperands, heads: int,
                      causal: bool = False, ln_eps: float = LN_EPS,
                      seq_valid: Optional[int] = None) -> torch.Tensor:
     """x (B, L, W) + one layer's operands -> (B, L, W) in x's dtype, through
-    the Hopper kernels (their plain versions for CPU tensors). Replaces
+    the kernels' operators (their plain versions for CPU tensors). Replaces
     fitclip_tpu/ops/block.py:fused_int8_layer (_layer_kernel)."""
     return _layer(x.contiguous(), ops, heads, causal, ln_eps, seq_valid, _KERNELS)
 
@@ -330,8 +364,10 @@ def ln_cast(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, out_dtype
             eps: float = LN_EPS) -> torch.Tensor:
     """(rows, W) bf16/fp32 -> (rows, W) in out_dtype: fp32 LN(x) rounded once.
     Replaces the _ln prologues of block.py:_bf16_layer_kernel."""
-    if x.device.type == "cpu":
-        return ln_cast_plain(x, weight, bias, out_dtype, eps)
+    return _LN_CAST(x, weight, bias, out_dtype, float(eps))
+
+
+def _ln_cast_cuda(x, weight, bias, out_dtype, eps):
     if out_dtype != torch.bfloat16:
         raise TypeError(f"ln_cast writes bfloat16 on the card (K2's compute dtype), not {out_dtype}")
     rows, width = x.shape
@@ -344,6 +380,10 @@ def ln_cast(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, out_dtype
 
 
 ln_cast.launches = 0
+_LN_CAST = _build.define_op(
+    "ln_cast(Tensor x, Tensor weight, Tensor bias, ScalarType out_dtype, float eps) -> Tensor",
+    _ln_cast_cuda, ln_cast_plain,
+    lambda x, weight, bias, out_dtype, eps: x.new_empty(x.shape, dtype=out_dtype))
 
 
 def _dense_plain(a, w, bias):
@@ -400,43 +440,61 @@ def _bf16_gemm(a, w, bias, epilogue, out, residual=None, quick_gelu=False):
 
 def bf16_gemm_bias(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """a (M, K) x w (N, K)^T -> acc + bias, fp32 accumulate, in a's dtype."""
-    if a.device.type == "cpu":
-        return bf16_gemm_bias_plain(a, w, bias)
-    out = torch.empty(a.shape[0], w.shape[0], dtype=a.dtype, device=a.device)
+    return _BF16_GEMM_BIAS(a, w, bias)
+
+
+def _bf16_gemm_bias_cuda(a, w, bias):
+    out = _gemm_out(a, w, a.dtype)
     _bf16_gemm(a, w, bias, _BIAS, out)
     bf16_gemm_bias.launches += 1
     return out
 
 
 bf16_gemm_bias.launches = 0
+_BF16_GEMM_BIAS = _build.define_op(
+    "bf16_gemm_bias(Tensor a, Tensor w, Tensor bias) -> Tensor",
+    _bf16_gemm_bias_cuda, bf16_gemm_bias_plain, lambda a, w, bias: _gemm_out(a, w, a.dtype))
 
 
 def bf16_gemm_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        residual: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """residual + (acc + bias), added in fp32, in out_dtype."""
-    if a.device.type == "cpu":
-        return bf16_gemm_residual_plain(a, w, bias, residual, out_dtype)
-    out = torch.empty(a.shape[0], w.shape[0], dtype=out_dtype, device=a.device)
+    return _BF16_GEMM_RESIDUAL(a, w, bias, residual, out_dtype)
+
+
+def _bf16_gemm_residual_cuda(a, w, bias, residual, out_dtype):
+    out = _gemm_out(a, w, out_dtype)
     _bf16_gemm(a, w, bias, _RESIDUAL, out, residual=residual)
     bf16_gemm_residual.launches += 1
     return out
 
 
 bf16_gemm_residual.launches = 0
+_BF16_GEMM_RESIDUAL = _build.define_op(
+    "bf16_gemm_residual(Tensor a, Tensor w, Tensor bias, Tensor residual, ScalarType out_dtype) "
+    "-> Tensor",
+    _bf16_gemm_residual_cuda, bf16_gemm_residual_plain,
+    lambda a, w, bias, residual, out_dtype: _gemm_out(a, w, out_dtype))
 
 
 def bf16_gemm_gelu(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                    quick_gelu: bool) -> torch.Tensor:
     """GELU(acc + bias) in fp32 (QuickGELU, or the exact GELU's A&S erf), in a's dtype."""
-    if a.device.type == "cpu":
-        return bf16_gemm_gelu_plain(a, w, bias, quick_gelu)
-    out = torch.empty(a.shape[0], w.shape[0], dtype=a.dtype, device=a.device)
+    return _BF16_GEMM_GELU(a, w, bias, bool(quick_gelu))
+
+
+def _bf16_gemm_gelu_cuda(a, w, bias, quick_gelu):
+    out = _gemm_out(a, w, a.dtype)
     _bf16_gemm(a, w, bias, _GELU, out, quick_gelu=quick_gelu)
     bf16_gemm_gelu.launches += 1
     return out
 
 
 bf16_gemm_gelu.launches = 0
+_BF16_GEMM_GELU = _build.define_op(
+    "bf16_gemm_gelu(Tensor a, Tensor w, Tensor bias, bool quick_gelu) -> Tensor",
+    _bf16_gemm_gelu_cuda, bf16_gemm_gelu_plain,
+    lambda a, w, bias, quick_gelu: _gemm_out(a, w, a.dtype))
 
 
 @dataclasses.dataclass(frozen=True)

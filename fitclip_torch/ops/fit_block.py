@@ -25,6 +25,11 @@ and split layouts and its variant strings are TPU formulations of the same
 function. Divides are exact, as in the TPU kernel's CPU interpret reference.
 ``fused_fit_int8_layer_plain`` runs the same composition through the plain
 versions on any device.
+
+An attention half's core is one functional operator,
+``fitclip::fit_attention_int8`` (``_build.define_op``): its CUDA
+implementation allocates the joint int8 buffer and makes the CLS launch and
+the rows launch into it; its CPU implementation is the plain version.
 """
 
 import dataclasses
@@ -32,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from fitclip_torch import _build
 from fitclip_torch.ops.attention import (cls_attention_plain, fit_cls_attention_int8,
                                          fit_rows_attention_int8_plain,
                                          fit_space_attention_int8, fit_time_attention_int8)
@@ -108,8 +114,18 @@ def fit_attention_int8(qkv: torch.Tensor, heads: int, frames: int, mode: str,
     """One attention half's core on the joint (B, N, 3W) qkv -> int8 (B, N, W):
     the CLS row's global attention and the time or space attention of the
     patch rows, two launches into one buffer."""
+    if mode not in ("time", "space"):
+        raise ValueError(f"mode is 'time' or 'space', not {mode!r}")
+    return _FIT_ATTENTION_INT8(qkv, int(heads), int(frames), mode, float(out_mul))
+
+
+def _joint_out(qkv):
     batch, n, triple = qkv.shape
-    out = torch.empty(batch, n, triple // 3, dtype=torch.int8, device=qkv.device)
+    return qkv.new_empty(batch, n, triple // 3, dtype=torch.int8)
+
+
+def _fit_attention_int8_cuda(qkv, heads, frames, mode, out_mul):
+    out = _joint_out(qkv)
     fit_cls_attention_int8(qkv, heads, out_mul, out)
     rows = fit_time_attention_int8 if mode == "time" else fit_space_attention_int8
     return rows(qkv, heads, frames, out_mul, out)
@@ -121,6 +137,12 @@ def fit_attention_int8_plain(qkv: torch.Tensor, heads: int, frames: int, mode: s
     return quantize_rint(torch.cat([cls_attention_plain(qkv, heads, scale, out_mul),
                                     fit_rows_attention_int8_plain(qkv, heads, frames, mode,
                                                                   out_mul)], dim=1))
+
+
+_FIT_ATTENTION_INT8 = _build.define_op(
+    "fit_attention_int8(Tensor qkv, int heads, int frames, str mode, float out_mul) -> Tensor",
+    _fit_attention_int8_cuda, fit_attention_int8_plain,
+    lambda qkv, heads, frames, mode, out_mul: _joint_out(qkv))
 
 
 class _Steps(NamedTuple):
@@ -167,7 +189,7 @@ def _layer(x, ops: FitLayerOperands, heads: int, frames: int, steps: _Steps):
 def fused_fit_int8_layer(x: torch.Tensor, ops: FitLayerOperands, heads: int,
                          frames: int) -> torch.Tensor:
     """x (B, 1 + F*P, W) + one block's operands -> (B, 1 + F*P, W) in x's
-    dtype, through the Hopper kernels (their plain versions for CPU tensors).
+    dtype, through the kernels' operators (their plain versions for CPU tensors).
     Replaces fitclip_tpu/ops/fit_block.py:fused_fit_int8_layer_pad
     (_fit_layer_pad_kernel) and its joint and split twins."""
     return _layer(x.contiguous(), ops, heads, frames, _KERNELS)

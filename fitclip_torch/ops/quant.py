@@ -16,10 +16,10 @@ scales stack over the layers as (layers, 1): the JAX package's parameter path
 and shape, so an act-scale ``.npz`` written by either package loads into the
 other.
 
-These denses are XLA in the JAX package, not Pallas. On the card the static
-dense takes its product through the Hopper int8 GEMM of the fused layer
-(``ops/block.py:int8_gemm_bias``); the dynamic (calibration) dense stays plain
-PyTorch.
+These denses are XLA in the JAX package, not Pallas. The static dense takes
+its product through the operator of the fused layer's int8 GEMM
+(``ops/block.py:int8_gemm_bias``: the Hopper kernel on the card); the dynamic
+(calibration) dense stays plain PyTorch.
 """
 
 import contextlib
@@ -105,19 +105,17 @@ def int8_dense(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
 
 def int8_dense_static(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
-    """Static per-tensor activation quant: multiplies by 127 / act_scale. On
-    the card the product and its epilogue, acc * ((act / 127) * scale) + bias,
-    are K1's int8 GEMM (``ops/block.py:int8_gemm_bias``)."""
+    """Static per-tensor activation quant: multiplies by 127 / act_scale. The
+    product and its epilogue, acc * ((act / 127) * scale) + bias, are K1's int8
+    GEMM's operator (``ops/block.py:int8_gemm_bias``: the kernel on the card,
+    its plain version on the CPU)."""
+    from fitclip_torch.ops.block import int8_gemm_bias  # block.py imports this module
+
     inv = 127.0 / torch.clamp_min(act_scale.float(), QUANT_EPS)
     x_q = quantize_rint(x.float() * inv).reshape(-1, x.shape[-1])
     out_scale = (act_scale.float() / 127.0) * scale.float()
-    if x.device.type == "cuda":
-        from fitclip_torch.ops.block import int8_gemm_bias  # block.py imports this module
-
-        out = int8_gemm_bias(x_q, weight_q, out_scale, bias.float(), x.dtype)
-        return out.reshape(*x.shape[:-1], -1)
-    acc = int_matmul(x_q, weight_q).reshape(*x.shape[:-1], -1)
-    return (acc * out_scale + bias.float()).to(x.dtype)
+    out = int8_gemm_bias(x_q, weight_q, out_scale, bias.float(), x.dtype)
+    return out.reshape(*x.shape[:-1], -1)
 
 
 def act_scale_sites(model: nn.Module) -> Dict[str, List[nn.Module]]:

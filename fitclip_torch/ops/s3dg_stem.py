@@ -8,8 +8,10 @@ with the folded BatchNorm (taps t, t+1 and h-1..h+2, w-1..w+2: the reference's
 bf16 bias, ReLU, and the 3x3 / 2 TF-'SAME' max pool in (H, W), and returns the
 pooled (B, T/2, H/4, W/4, 64) NDHWC, rounded to bf16 once.
 
-``s3dg_stem`` launches ``csrc/s3dg_stem.cu`` (``s3dg_stem_wgmma_kernel``) for a
-CUDA tensor and takes the plain version ``s3dg_stem_plain`` for a CPU tensor. The plain version is an fp32
+``s3dg_stem`` calls the operator ``fitclip::s3dg_stem`` on the packed operands
+(``stem_operands``; ``_build.define_op``): it launches ``csrc/s3dg_stem.cu``
+(``s3dg_stem_wgmma_kernel``) for a CUDA tensor and takes the plain version
+``s3dg_stem_plain`` for a CPU tensor. The plain version is an fp32
 ``conv3d`` on the bf16-rounded operands, with cuDNN's TF32 off, then bias, ReLU,
 pool and one cast: the kernel's arithmetic, up to the order of its sums. (The
 XLA stem that the JAX tests compare with rounds twice, after the conv and after
@@ -75,40 +77,59 @@ def s3dg_stem_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
-def stem_operands(kernel: torch.Tensor, bias: torch.Tensor):
-    """The kernel's operands of a folded (2, 4, 4, 24, 64) kernel and (64,) bias:
-    the (64, 768) bf16 weights in its k order and the fp32 copy of the bf16
-    bias. The S3D-G fast forward keeps them per parameter version."""
-    return (pack_stem_weights(kernel.to(torch.bfloat16)),
-            bias.to(torch.bfloat16).float().contiguous())
+def unpack_stem_weights(weights: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_stem_weights``: (64, 768) -> (2, 4, 4, 24, 64) THWIO."""
+    k = weights.reshape(STEM_CHANNELS, 2, 2, 4, 2, 4, 2, 3)  # n dt t2 dh h2 dw w2 c
+    return k.permute(1, 3, 5, 2, 4, 6, 7, 0).reshape(2, 4, 4, 24, STEM_CHANNELS)
+
+
+def stem_operands(kernel: torch.Tensor, bias: torch.Tensor, dtype=torch.bfloat16):
+    """The operator's operands of a folded (2, 4, 4, 24, 64) kernel and (64,) bias:
+    the (64, 768) weights in the kernel's k order, rounded to ``dtype`` (the
+    video's: bf16 on the card), and the fp32 copy of the bias rounded to
+    ``dtype``. The S3D-G fast forward keeps them per parameter version."""
+    return (pack_stem_weights(kernel.to(dtype)), bias.to(dtype).float().contiguous())
 
 
 def s3dg_stem(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
               packed=None) -> torch.Tensor:
     """bf16 video (B, T, H, W, 3), the folded bf16 kernel (2, 4, 4, 24, 64) and bias
-    (64,) -> the pooled stem (B, T/2, H/4, W/4, 64) bf16, through the Hopper kernel
-    (the plain version for a CPU tensor). ``packed`` is ``stem_operands(kernel,
-    bias)`` where the caller keeps it; else they are packed here. Raises on shapes
-    the kernel does not take."""
-    if x.device.type == "cpu":
-        return s3dg_stem_plain(x, kernel, bias)
+    (64,) -> the pooled stem (B, T/2, H/4, W/4, 64) bf16, through the operator
+    (the Hopper kernel; the plain version for a CPU tensor). ``packed`` is
+    ``stem_operands(kernel, bias, x.dtype)`` where the caller keeps it; else they
+    are packed here. Raises on shapes the kernel does not take."""
     _check_video(x)
-    b, t, h, w, _ = x.shape
-    _build.check_cuda_operand("x", x, torch.bfloat16, 5)
     if tuple(kernel.shape) != (2, 4, 4, 24, STEM_CHANNELS) or bias.shape != (STEM_CHANNELS,):
         raise ValueError(f"the stem kernel is (2, 4, 4, 24, 64) with 64 biases, got "
                          f"{tuple(kernel.shape)} and {tuple(bias.shape)}")
+    weights, bias32 = packed if packed is not None else stem_operands(kernel, bias, x.dtype)
+    return _S3DG_STEM(x, weights, bias32)
+
+
+def _stem_out(x, dtype):
+    b, t, h, w, _ = x.shape
+    return x.new_empty(b, t // 2, h // 4, w // 4, STEM_CHANNELS, dtype=dtype)
+
+
+def _s3dg_stem_cuda(x, weights, bias32):
+    b, t, h, w, _ = x.shape
+    _build.check_cuda_operand("x", x, torch.bfloat16, 5)
     if _build.library().fitclip_s3dg_stem_smem_bytes(w) == 0:
         raise ValueError(f"the stem kernel takes frames up to 240 pixels wide, got W={w}")
-    weights, bias32 = packed if packed is not None else stem_operands(kernel, bias)
     _build.check_cuda_operand("kernel", weights, torch.bfloat16, 2)
     _build.check_cuda_operand("bias", bias32, torch.float32, 1)
-    out = torch.empty(b, t // 2, h // 4, w // 4, STEM_CHANNELS, dtype=torch.bfloat16,
-                      device=x.device)
+    out = _stem_out(x, torch.bfloat16)
     _build.call("fitclip_s3dg_stem", x.data_ptr(), weights.data_ptr(), bias32.data_ptr(),
                 out.data_ptr(), b, t, h, w)
     s3dg_stem.launches += 1
     return out
 
 
+def _s3dg_stem_cpu(x, weights, bias32):
+    return s3dg_stem_plain(x, unpack_stem_weights(weights), bias32)
+
+
 s3dg_stem.launches = 0
+_S3DG_STEM = _build.define_op("s3dg_stem(Tensor x, Tensor weights, Tensor bias32) -> Tensor",
+                              _s3dg_stem_cuda, _s3dg_stem_cpu,
+                              lambda x, weights, bias32: _stem_out(x, x.dtype))

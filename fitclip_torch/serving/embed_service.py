@@ -37,14 +37,19 @@ Env:
 - EMBED_MAX_VIDEO_MB     request-size cap for /embed_video (default 64)
 - EMBED_INDEX       predictions .pt/.npz from ``command=predict`` to serve
                     /search_videos from
-- EMBED_EXPORT_DIR  not ported yet (ROADMAP.md, queue 1, "Export"): raises
+- EMBED_EXPORT_DIR  serve the towers from ``torch.export`` artifacts
+                    (``python -m fitclip_torch.serving.export_serving``) in
+                    place of the encoder's own; the buckets are the ones the
+                    artifacts were exported at. The tokenizer and the video
+                    preprocessing still come from EMBED_ENCODER
 - EMBED_COMPILE_CACHE  no counterpart: the kernels build once into build/ by
                     their sources' hash; a line is logged if it is set
 
-On the card every bucket of both towers is captured at start-up, before any
-dispatcher runs (a capture may not overlap other CUDA work); the video
-tower's dispatcher starts on the first /embed_video, as the JAX service's
-does. On the CPU the towers are called directly.
+On the card every bucket of both towers (the encoder's, or the loaded
+programs') is captured at start-up, before any dispatcher runs (a capture may
+not overlap other CUDA work); the video tower's dispatcher starts on the
+first /embed_video, as the JAX service's does. On the CPU the towers are
+called directly.
 """
 
 import json
@@ -200,25 +205,35 @@ _SERVICE_LOCK = threading.Lock()
 
 def _load_encoder():
     """Instantiate (once) the encoder named by EMBED_ENCODER, on EMBED_DEVICE."""
-    from fitclip_torch.cli.main import DEFAULT_CONFIG_DIR, load_checkpoint
-    from fitclip_torch.config_engine import compose, instantiate
-
     if os.environ.get("EMBED_COMPILE_CACHE"):
         LOGGER.info("EMBED_COMPILE_CACHE is ignored: the port's kernels build once into "
                     "build/fitclip_torch/<hash>/ and later processes load them")
     name = os.environ.get("EMBED_ENCODER")
     if not name:
         raise SystemExit("Set EMBED_ENCODER to a config/encoder/ name")
+    return load_encoder(name, os.environ.get("EMBED_OVERRIDES", "").split(),
+                        os.environ.get("EMBED_DEVICE", "cuda"), os.environ.get("EMBED_CHECKPOINT"),
+                        os.environ.get("EMBED_SCALES"))
+
+
+def load_encoder(name: str, overrides: Sequence[str] = (), device: str = "cuda",
+                 checkpoint: Optional[str] = None, scales: Optional[str] = None):
+    """The encoder of config/encoder/<name>.yaml with config ``overrides``, on
+    ``device``, with a bare-params ``checkpoint`` and an int8 encoder's
+    persisted ``scales`` (required for int8) loaded."""
+    from fitclip_torch.cli.main import DEFAULT_CONFIG_DIR, load_checkpoint
+    from fitclip_torch.config_engine import compose, instantiate
+
     config_dir = os.environ.get("FITCLIP_CONFIG_DIR", DEFAULT_CONFIG_DIR)
     cfg = compose(config_dir, "trainer", ["command=evaluate", f"encoder={name}", "data=msrvtt",
-                                          *os.environ.get("EMBED_OVERRIDES", "").split()])
-    loaded = instantiate(cfg["encoder"], device=os.environ.get("EMBED_DEVICE", "cuda"))
+                                          *overrides])
+    loaded = instantiate(cfg["encoder"], device=device)
     if isinstance(loaded, dict):
         raise SystemExit(f"{name} is a {{student,teacher}} slot — serve one "
                          "tower's encoder config instead")
-    if os.environ.get("EMBED_CHECKPOINT"):
-        loaded = load_checkpoint(loaded, os.environ["EMBED_CHECKPOINT"])
-    prepare_quantized_params(loaded.encoder, os.environ.get("EMBED_SCALES"))
+    if checkpoint:
+        loaded = load_checkpoint(loaded, checkpoint)
+    prepare_quantized_params(loaded.encoder, scales)
     return loaded
 
 
@@ -251,14 +266,6 @@ def _ensure_loaded():
     return _LOADED
 
 
-def _refuse_export() -> None:
-    if os.environ.get("EMBED_EXPORT_DIR"):
-        raise NotImplementedError(
-            "EMBED_EXPORT_DIR: serving from exported artifacts is not ported to fitclip_torch "
-            "yet (ROADMAP.md, queue 1, \"Export\": torch.export of each bucket, which needs "
-            "every kernel entry registered as a torch.library custom op)")
-
-
 def _text_buckets() -> List[int]:
     max_batch = int(os.environ.get("EMBED_MAX_BATCH", "32"))
     return [b for b in (1, 2, 4, 8, 16, 32, 64, 128) if b <= max_batch]
@@ -269,20 +276,37 @@ def _video_buckets() -> List[int]:
     return [b for b in (1, 2, 4, 8, 16, 32) if b <= max_batch]
 
 
-def tower_graphs(encoder, text_buckets: Sequence[int], video_buckets: Sequence[int]):
-    """{"text": BucketGraphs, "video": BucketGraphs} of an encoder on the card,
-    neither warmed nor captured yet."""
+def _tower(name: str):
+    """(encode, buckets) of the "text" or "video" tower: EMBED_EXPORT_DIR's
+    program of it with the buckets it was exported at (``export.py``), else
+    the loaded encoder's own with EMBED_MAX_BATCH's or EMBED_MAX_VIDEO_BATCH's."""
+    export_dir = os.environ.get("EMBED_EXPORT_DIR")
+    if export_dir:
+        from fitclip_torch.serving.export import load_exported
+
+        encode, per_bucket = load_exported(export_dir, name)
+        return encode, sorted(per_bucket)
+    encoder = _ensure_loaded().encoder
+    if name == "text":
+        return encoder.encode_text, _text_buckets()
+    return encoder.encode_video, _video_buckets()
+
+
+def tower_graphs(encoder, towers: Dict[str, Tuple]):
+    """{"text": BucketGraphs, "video": BucketGraphs} on the card over each
+    tower's (encode, buckets), with the encoder's input shapes, neither warmed
+    nor captured yet."""
     from fitclip_torch.serving.graphs import BucketGraphs
 
     device = encoder_device(encoder)
     spec = encoder.preprocess
     context_len = encoder.get_tokenizer()(["warmup"]).shape[-1]
     frames = spec.pad_to_min_frames or spec.num_frames
-    return {"text": BucketGraphs(_tower_fn(encoder.encode_text, device), (context_len,),
-                                 torch.int64, text_buckets, device, name="encode_text"),
-            "video": BucketGraphs(_tower_fn(encoder.encode_video, device),
-                                  (frames, spec.image_size, spec.image_size, 3), torch.uint8,
-                                  video_buckets, device, name="encode_video")}
+    inputs = {"text": ((context_len,), torch.int64),
+              "video": ((frames, spec.image_size, spec.image_size, 3), torch.uint8)}
+    return {name: BucketGraphs(_tower_fn(encode, device), *inputs[name], buckets, device,
+                               name=f"encode_{name}")
+            for name, (encode, buckets) in towers.items()}
 
 
 def warm_graphs() -> Optional[Dict[str, object]]:
@@ -293,7 +317,7 @@ def warm_graphs() -> Optional[Dict[str, object]]:
     if encoder_device(loaded.encoder).type != "cuda":
         return None
     if _GRAPHS is None:
-        _GRAPHS = tower_graphs(loaded.encoder, _text_buckets(), _video_buckets())
+        _GRAPHS = tower_graphs(loaded.encoder, {name: _tower(name) for name in ("text", "video")})
         for graphs in _GRAPHS.values():
             graphs.warm()
     return _GRAPHS
@@ -309,24 +333,28 @@ def _captured_graphs() -> Optional[Dict[str, object]]:
     return graphs
 
 
-def build_service() -> TextEmbedService:
-    _refuse_export()
+def _tower_service(name: str, service_cls):
+    """The tower's service over its captured graphs on the card, or over its
+    encode called directly on the CPU."""
     loaded = _ensure_loaded()
     graphs = _captured_graphs()
-    service = TextEmbedService(loaded.encoder, bucket_sizes=_text_buckets(),
-                               max_wait_ms=float(os.environ.get("EMBED_MAX_WAIT_MS", "2")),
-                               encode_fn=graphs and graphs["text"])
+    if graphs is not None:
+        encode_fn, buckets = graphs[name], graphs[name].bucket_sizes
+    else:
+        encode, buckets = _tower(name)
+        encode_fn = _tower_fn(encode, encoder_device(loaded.encoder))
+    service = service_cls(loaded.encoder, bucket_sizes=buckets,
+                          max_wait_ms=float(os.environ.get("EMBED_MAX_WAIT_MS", "2")),
+                          encode_fn=encode_fn)
     return service.start()
+
+
+def build_service() -> TextEmbedService:
+    return _tower_service("text", TextEmbedService)
 
 
 def build_video_service() -> VideoEmbedService:
-    _refuse_export()
-    loaded = _ensure_loaded()
-    graphs = _captured_graphs()
-    service = VideoEmbedService(loaded.encoder, bucket_sizes=_video_buckets(),
-                                max_wait_ms=float(os.environ.get("EMBED_MAX_WAIT_MS", "2")),
-                                encode_fn=graphs and graphs["video"])
-    return service.start()
+    return _tower_service("video", VideoEmbedService)
 
 
 def _ensure_service() -> TextEmbedService:

@@ -14,6 +14,7 @@ package's (``fitclip_tpu.cli.main.run``) on tiny fixtures, on the CPU
 
 Both packages decode with OpenCV (``opencv_only``)."""
 
+import dataclasses
 import json
 
 import jax
@@ -306,6 +307,17 @@ def test_commands_that_are_not_ported_raise(vocab, msrvtt_root, monkeypatch):
                   if not a.startswith("+data.")])
 
 
+def test_compilation_cache_dir_is_logged_as_ignored(tmp_path, caplog):
+    """++compilation_cache_dir, which the JAX CLI applies before it checks the
+    command (fitclip_tpu/cli/main.py:146-154), is logged as ignored: the
+    port's kernels build once by their sources' hash."""
+    caplog.set_level("INFO", logger=cli.LOGGER.name)
+    with pytest.raises(SystemExit, match="Unknown command"):
+        cli.run({"command": "bogus", "compilation_cache_dir": str(tmp_path / "cache")})
+    assert "compilation_cache_dir is ignored" in caplog.text
+    assert not (tmp_path / "cache").exists()
+
+
 # --- int8: calibration on the head batches, teacher-forced ------------------------
 
 INT8_CONFIG = CLIPConfig(embed_dim=32,
@@ -461,7 +473,9 @@ BERT_WORDS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *dict.fromkeys(WORDS
 
 def _family_encoder(family, tmp_path, vocab):
     """(config overrides, env, the factory called directly) of one family at the
-    config's widths, seeded, with a vocabulary the test writes."""
+    config's widths (FiT's and SLIP's at their tiny_test configs' widths: the
+    test holds the factory's wiring, which no width changes), seeded, with a
+    vocabulary the test writes."""
     from fitclip_torch.models import mil_nce, slip, videoclip
     from fitclip_torch.models.frozen_in_time import load as fit_load
 
@@ -496,6 +510,22 @@ def test_predict_builds_each_family_from_its_config(vocab, family, tmp_path_fact
 
     root = tmp_path_factory.mktemp(family)
     msrvtt_root = _msrvtt_tree(root / "msrvtt", 2)
+    if family == "frozen_in_time":
+        from fitclip_torch.models.frozen_in_time import encoder as fit_encoder
+        from fitclip_torch.models.frozen_in_time import load as fit_load
+
+        tiny = fit_encoder.FrozenInTimeConfig.tiny_test()
+        tiny = dataclasses.replace(tiny, text=dataclasses.replace(tiny.text,
+                                                                  max_position_embeddings=512))
+        monkeypatch.setattr(fit_load, "FrozenInTimeConfig",
+                            lambda num_frames: dataclasses.replace(tiny, num_frames=num_frames))
+    if family == "slip":
+        from fitclip_torch.models import slip
+        from fitclip_torch.models.clip.tokenizer import ClipTokenizer
+
+        size = ClipTokenizer(bpe_path=vocab[0]).vocab_size
+        monkeypatch.setitem(slip.SLIP_MODEL_CONFIGS, "VITS16",
+                            lambda: slip.SlipConfig.tiny_test(vocab_size=size))
     overrides, env, direct = _family_encoder(family, root, vocab)
     for key, value in {"MSRVTT_PATH": msrvtt_root, **env}.items():
         monkeypatch.setenv(key, value)

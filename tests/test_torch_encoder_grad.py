@@ -100,6 +100,12 @@ def test_remat_is_off_without_grad_and_checked():
         _encoder(remat="everything")
 
 
-def test_load_clip_encoder_passes_remat():
+def test_load_clip_encoder_passes_remat(monkeypatch):
+    """The preset's widths do not matter to what the loader passes on: the
+    preset builds the tiny test config here."""
+    from fitclip_torch.models.clip import load
+    from fitclip_torch.models.clip.model import CLIPConfig
+
+    monkeypatch.setitem(load.PRESETS, "ViT-B/32", CLIPConfig.tiny_test)
     enc = load_clip_encoder("ViT-B/32", dtype="float32", device="cpu", remat="dots").encoder
     assert enc.model.visual.transformer.remat == enc.model.text.transformer.remat == "dots"

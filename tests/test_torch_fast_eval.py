@@ -135,7 +135,12 @@ def test_float_model_has_no_fast_path_yet():
                                    atol=2e-4, rtol=2e-4)
 
 
-def test_load_clip_encoder_cpu_defaults():
+def test_load_clip_encoder_cpu_defaults(monkeypatch):
+    """The defaults do not depend on the preset's widths: the preset builds
+    the tiny test config here."""
+    from fitclip_torch.models.clip import load
+
+    monkeypatch.setitem(load.PRESETS, "ViT-B/32", CLIPConfig.tiny_test)
     loaded = load_clip_encoder("ViT-B/32", dtype="int8", device="cpu", seed=0)
     enc = loaded.encoder
     assert enc.quantized and enc.dtype == torch.bfloat16

@@ -62,6 +62,9 @@ def test_every_module_imports_without_jax():
     assert {"fitclip_torch.models.clip.resnet", "fitclip_torch.models.clip.resnet_clip",
             "fitclip_torch.models.wise", "fitclip_torch.convert.openai_state_dict",
             "fitclip_torch.convert.checkpoint_to_state_dict"} <= set(names)
+    # The export slice and the last single-device utilities.
+    assert {"fitclip_torch.serving.export", "fitclip_torch.serving.export_serving",
+            "fitclip_torch.utils.profiling", "fitclip_torch.utils.viz"} <= set(names)
 
 
 def _last_line_is_ok(stdout: str) -> bool:

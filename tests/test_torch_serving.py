@@ -383,10 +383,15 @@ def test_int8_service_refuses_to_start_without_persisted_scales(tmp_path):
     np.testing.assert_array_equal(out, direct)
 
 
-def test_export_dir_raises(monkeypatch):
+def test_export_dir_raises(encoders, monkeypatch):
+    """EMBED_EXPORT_DIR serves the towers from its artifacts
+    (tests/test_torch_export.py); a directory without them raises, as the JAX
+    service's load_exported does."""
+    monkeypatch.setattr(es, "_LOADED", encoders[1])
+    monkeypatch.setattr(es, "_GRAPHS", None)
     monkeypatch.setenv("EMBED_EXPORT_DIR", "/nonexistent")
-    for build in (es.build_service, es.build_video_service):
-        with pytest.raises(NotImplementedError, match="Export"):
+    for build, tower in ((es.build_service, "text"), (es.build_video_service, "video")):
+        with pytest.raises(FileNotFoundError, match=f"{tower}.pt2"):
             build()
 
 
