@@ -12,6 +12,7 @@
     python3 chip_smoke.py --resnet-wise           # phase 14 alone, on phase 11's and 13's trees
     python3 chip_smoke.py --export                # phase 15 alone
     python3 chip_smoke.py --op-dispatch [DIR]     # phase 15 (d) alone, for DIR's package
+    python3 chip_smoke.py --distributed           # phase 16 alone
 
 Drives these paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -26,7 +27,9 @@ and the drift_eval group), the embed service over HTTP, and the train-side CLI
 ``command=tune``), and the CLIP ResNet (RN50 encodes, evaluate and training
 through the CLI) and WiSE-FT slice, and the export slice (each tower a
 ``torch.export`` program on the ``fitclip::`` operators, served from
-EMBED_EXPORT_DIR). It fails (non-zero exit) if any phase fails:
+EMBED_EXPORT_DIR), and the CLI under a process group (torchrun's variables;
+one rank on NCCL, two sharing the card over gloo). It fails (non-zero exit) if
+any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
@@ -314,6 +317,24 @@ EMBED_EXPORT_DIR). It fails (non-zero exit) if any phase fails:
     operator), its CUDA implementation called directly, and a custom_op twin.
     ``--export`` runs this phase alone; ``--op-dispatch DIR`` runs (d) for the
     package under DIR (the parent's, say).
+16. distribution, after phase 15 on phase 11's and 13's trees: each rank is a
+    child process of this script (``--distributed-child``) that sets
+    torchrun's variables and calls ``fitclip_torch.cli.main.run`` with the
+    kernels' launches counted. (a) ``command=train`` fp32 contrastive (3 steps
+    of 28 clips) and teacher-student (bf16 student, bf16 K2 teacher, 3 steps of
+    8 + 8) at world size 1 on NCCL: each ``last`` bit-equal to the same run in
+    a child with no process group, per step 24 + 24 fp32 attention launches
+    (K2's and 24 + 24 bf16 ones for teacher-student); (b) the int8
+    ``command=evaluate`` and ``predict`` on MSR-VTT at world size 1: metrics
+    and predictions equal to the no-group run's, K1's launches as phase 11's;
+    (c) two ranks on the one card over gloo: (a)'s contrastive run (losses
+    within rel 1e-5 of (a)'s, parameters at rtol 1e-3 / atol 3e-3), the same
+    under ``++trainer.fsdp=true`` (the same bounds against the replicated
+    two-rank run, each rank holding under 0.6 of the parameter and moment
+    bytes), and the int8 evaluate (metrics equal to (b)'s). The no-group and
+    NCCL processes of (a)-(b) run at once, then the two ranks of (c); prints
+    every step's ms beside the no-group run's. ``--distributed`` runs this
+    phase alone (on trees it writes).
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 Each timed phase prints the card's SM and memory clocks beside its readings.
@@ -3324,7 +3345,7 @@ def warm_eval_window(torch, root: Path, merges: str, scales: Path):
     records = []  # (wall, waiting on the loader, issuing copy and encodes) per window, s
 
     def encode(batch):
-        video, text, _ = _video_text(batch, torch.device("cuda"))
+        video, text, _, _ = _video_text(batch, torch.device("cuda"))
         fused.encode_video(video)
         fused.encode_text(text)
 
@@ -4972,6 +4993,381 @@ def export_only(torch) -> int:
     return 0
 
 
+DIST_STEPS = 3  # phase 16's training steps of each run
+DIST_TIMEOUT_S = 400  # each of phase 16's child processes
+
+
+def distributed_child(spec_path: str) -> int:
+    """``--distributed-child SPEC``: one process of phase 16. Sets the
+    environment the spec gives (torchrun's variables for a rank) and, where
+    the spec asks for gloo, makes the gloo group itself (two ranks share the
+    card, which NCCL refuses), which ``run`` then uses as it is. For each run
+    it composes the config from config/ and calls
+    ``fitclip_torch.cli.main.run(cfg)`` with the kernels' launches zeroed just
+    before and read just after, the train steps timed (``timed_steps``), the
+    FSDP state's bytes taken where the run shards it and the initial
+    parameters saved where the run names an ``init`` file. Prints one JSON
+    line: per run the launches, each step's ms, the printed output, the
+    metrics that ``run_eval`` returned on this rank and the state's bytes."""
+    import faulthandler
+    import io
+    import os
+
+    import torch
+
+    # A rank that hangs in a collective prints every thread's stack before the
+    # parent gives up on it.
+    faulthandler.dump_traceback_later(DIST_TIMEOUT_S - 60, exit=True)
+    sys.path.insert(0, str(ROOT))
+    spec = json.loads(Path(spec_path).read_text())
+    os.environ.update(spec["env"])
+    if spec.get("gloo"):
+        torch.distributed.init_process_group("gloo")  # env://, the rank's variables
+    from fitclip_torch.cli import runners
+    from fitclip_torch.cli.main import DEFAULT_CONFIG_DIR, run
+    from fitclip_torch.config_engine import compose
+    from fitclip_torch.training import train_runner
+
+    wrappers = kernel_wrappers()
+
+    def counters():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    results = []
+    for item in spec["runs"]:
+        readings = {"name": item["name"], "metrics": None, "bytes": None}
+        run_eval, shard, init = (runners.run_eval, train_runner.shard_train_state,
+                                 train_runner.init_train_state)
+
+        def evaluating(*args, **kwargs):
+            readings["metrics"] = run_eval(*args, **kwargs)
+            return readings["metrics"]
+
+        def held(state):
+            named = state.named_parameters()
+            return {"params": sum(p.numel() * p.element_size() for p in named.values()),
+                    "moments": sum(m.numel() * m.element_size() for key in ("mu", "nu")
+                                   for m in state.opt_state[key].values())}
+
+        def sharding(state, optimizer):
+            state = shard(state, optimizer)
+            readings["bytes"] = state.fsdp.held_bytes(state)
+            return state
+
+        def initializing(*args, **kwargs):
+            state = init(*args, **kwargs)
+            readings["bytes"] = held(state)
+            if item.get("init") and (not spec.get("gloo") or torch.distributed.get_rank() == 0):
+                torch.save({n: p.detach().cpu() for n, p in state.named_parameters().items()},
+                           item["init"])
+            return state
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = io.StringIO()
+        print(f"{item['name']}: {' '.join(item['overrides'])}", file=sys.stderr, flush=True)
+        start = time.perf_counter()
+        with swapped(runners, run_eval=evaluating), \
+                swapped(train_runner, shard_train_state=sharding,
+                        init_train_state=initializing), \
+                timed_steps(torch, counters) as steps, contextlib.redirect_stdout(out):
+            run(compose(DEFAULT_CONFIG_DIR, item["config"], item["overrides"]))
+        torch.cuda.synchronize()
+        readings.update(seconds=time.perf_counter() - start, launches=counters(),
+                        printed=out.getvalue(),
+                        steps=[{k: s[k] for k in ("launches", "wait_ms", "step_ms", "wall_ms")}
+                               for s in steps])
+        results.append(readings)
+    if spec.get("gloo"):
+        torch.distributed.destroy_process_group()
+    print(json.dumps({"env": spec["env"], "runs": results}))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_children(work: Path, specs) -> list:
+    """Starts one child per spec (together), waits for all, returns each one's
+    JSON line; fails if a child fails or outlasts DIST_TIMEOUT_S."""
+    procs = []
+    for i, spec in enumerate(specs):
+        path = work / f"spec{i}_{time.monotonic_ns()}.json"
+        path.write_text(json.dumps(spec))
+        procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                       "--distributed-child", str(path)], cwd=ROOT,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    outs = []
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            outs.append(proc.communicate())
+    for proc, (stdout, stderr) in zip(procs, outs):
+        require(proc.returncode == 0, f"phase 16 child exited {proc.returncode}:\n"
+                                      f"{stdout[-3000:]}\n{stderr[-6000:]}")
+    return [{run["name"]: run for run in json.loads(stdout.strip().splitlines()[-1])["runs"]}
+            for stdout, _ in outs]
+
+
+def _rank_env(rank: int, world: int, port: int) -> dict:
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _losses(log_dir: Path):
+    return [json.loads(line)["loss/train"] for line in
+            (log_dir / "metrics.jsonl").read_text().splitlines() if "loss/train" in line]
+
+
+UPDATE_SHARE = 1e-2  # tests/test_torch_parallel.py's bound on the update's L2 gap
+
+
+def _params_close(torch, a: Path, b: Path, init: Path, rtol: float, atol: float):
+    """(the largest |a - b| - rtol |b| over the parameters of two train-state
+    files, <= atol when they agree at the FSDP bound; the L2 norm of a - b
+    over that of b's update from ``init``). The key bias is left out of the
+    second: its gradient is zero in exact arithmetic, so AdamW steps its
+    rounding noise by about lr (tests/test_torch_parallel.py). Fails on
+    other names."""
+    from fitclip_torch.training.checkpointing import load_checkpoint
+
+    a, b = load_checkpoint(str(a))["params"], load_checkpoint(str(b))["params"]
+    init = torch.load(str(init), weights_only=True)
+    require(set(a) == set(b) == set(init), "phase 16: the checkpoints hold other parameters")
+
+    def no_key_bias(name, x):
+        x = x.double()
+        if name.endswith("in_proj.bias"):  # packed (q, k, v)
+            x = x.clone()
+            x[x.shape[0] // 3: 2 * x.shape[0] // 3] = 0
+        return torch.zeros_like(x) if name.endswith("k_proj.bias") else x
+
+    excess = max(float(((a[n] - b[n]).abs() - rtol * b[n].abs()).max()) for n in a)
+    gap = sum(float((no_key_bias(n, a[n]) - no_key_bias(n, b[n])).square().sum()) for n in a)
+    moved = sum(float((no_key_bias(n, b[n]) - no_key_bias(n, init[n])).square().sum())
+                for n in a)
+    require(moved > 0, "phase 16: the reference run did not move its parameters")
+    return excess, (gap / moved) ** 0.5
+
+
+def distributed_phase(torch, wrappers, work: Path, merges: str) -> dict:
+    """Phase 16, after phase 15 on phase 11's and 13's trees (or on trees
+    ``--distributed`` writes): the port's CLI under a process group, each rank
+    a child process of this script (``--distributed-child``). (a)
+    ``command=train`` in fp32 (contrastive, DIST_STEPS steps of webvid.yaml's
+    28 clips) and teacher-student (bf16 student, the bf16 K2 teacher, 8 + 8
+    clips) under torchrun's variables at world size 1 on NCCL, each last
+    checkpoint bit-equal to the same run with no process group, K3f/K3b (and
+    K2) launched as phase 13 counts them; (b) ``command=evaluate`` and
+    ``predict`` of the int8 CLIP on MSR-VTT at world size 1: metrics and
+    predictions equal to the no-group run's, K1's launches as phase 11's; (c)
+    two ranks sharing the card over a gloo group each child makes: (a)'s
+    contrastive run (losses within rel 1e-5 of (a)'s, parameters at rtol 1e-3
+    / atol 3e-3 and the update's L2 gap within UPDATE_SHARE of (a)'s update),
+    the same under ``++trainer.fsdp=true`` (the same bounds against the
+    replicated two-rank run; each rank's parameter and moment bytes), and the
+    int8 evaluate (metrics equal to (b)'s). The no-group and the NCCL process run at the
+    same time, then the two ranks. Prints each run's step ms beside the
+    no-group run's. Returns the launches per path."""
+    phase_start = time.perf_counter()
+    dist_dir = work / "distributed"
+    shutil.rmtree(dist_dir, ignore_errors=True)
+    dist_dir.mkdir(parents=True)
+    encoder = ["encoder=clip_vit_b_16", f"+encoder.bpe_path={merges}"]
+
+    def train(name, *extra, run="contrastive", keep_init=False):
+        d = dist_dir / name
+        d.mkdir(exist_ok=True)
+        return {"name": run, "config": "trainer",
+                "init": str(d / "init.pt") if keep_init else "",
+                "overrides": ["command=train", *encoder, "data=webvid",
+                              "trainer.log_every_n_steps=1", f"+trainer.max_steps={DIST_STEPS}",
+                              f"+log_dir={d / 'logs'}",
+                              f"trainer.callbacks.checkpoint.dirpath={d / 'ckpt'}", *extra]}
+
+    def teacher_student(name):
+        d = dist_dir / name
+        return {"name": "teacher_student", "config": "teacher_student_trainer",
+                "overrides": ["command=train", "+encoder@encoder.student=clip_vit_b_16",
+                              "+encoder@encoder.teacher=clip_vit_b_16",
+                              f"+encoder.student.bpe_path={merges}",
+                              f"+encoder.teacher.bpe_path={merges}",
+                              "++encoder.student.dtype=bfloat16",
+                              "++encoder.teacher.dtype=bfloat16",
+                              "++encoder.teacher.fused_block=true",
+                              "data=mixed_batch_msrvtt_webvid",
+                              "++model.labeled_dataset_loss_share=0.9999",
+                              f"+trainer.max_steps={DIST_STEPS}", "trainer.val_check_interval=1.0",
+                              "trainer.log_every_n_steps=1", f"+log_dir={d / 'logs'}",
+                              f"trainer.callbacks.checkpoint.dirpath={d / 'ckpt'}"]}
+
+    def int8(name, command):
+        d = dist_dir / name
+        d.mkdir(exist_ok=True)
+        common = ["encoder=clip_vit_b_16", "++encoder.dtype=int8", "data=msrvtt",
+                  f"+encoder.bpe_path={merges}", f"++quant.scales_path={d / 'scales.npz'}",
+                  "++quant.calibration_batches=1"]
+        tail = [f"+output_path={d / 'predictions.pt'}"] if command == "predict" else []
+        return {"name": command, "config": "trainer",
+                "overrides": [f"command={command}", *common, *tail]}
+
+    def one_card(tag, env):
+        return {"env": env, "runs": [train(f"{tag}_a", keep_init=tag == "nccl"),
+                                     teacher_student(f"{tag}_ts"),
+                                     int8(f"{tag}_b", "evaluate"), int8(f"{tag}_b", "predict")]}
+
+    # The no-group and the NCCL process share the card at the same time (the
+    # phase's time); their step ms are each other's contended twins.
+    plain, nccl = _run_children(dist_dir, [one_card("plain", {}),
+                                           one_card("nccl", _rank_env(0, 1, _free_port()))])
+    gloo_port = _free_port()
+    two = [{"env": _rank_env(rank, 2, gloo_port), "gloo": True,
+            "runs": [train("gloo_a", keep_init=True),
+                     train("gloo_fsdp", "++trainer.fsdp=true", run="fsdp"),
+                     int8("gloo_b", "evaluate")]}
+           for rank in (0, 1)]
+    gloo = _run_children(dist_dir, two)
+
+    def per_step(run):
+        return [{k: n for k, n in s["launches"].items() if n} for s in run["steps"]]
+
+    def step_ms(run):
+        return [round(s["step_ms"], 1) for s in run["steps"]]
+
+    # (a) training at world size 1 on NCCL against no group.
+    fp32 = {k: 0 for k in wrappers}
+    fp32.update({k: 2 * LAYERS for k in ("fused_attention_qkv", "fused_attention_qkv_backward",
+                                         "attention_f32", "attention_bwd_f32")})
+    bf16_ts = {k: 0 for k in wrappers}
+    bf16_ts.update({**k2_launches(LAYERS), "fused_attention_qkv": 2 * LAYERS,
+                    "fused_attention_qkv_backward": 2 * LAYERS})
+    for name, tag, expected in (("contrastive", "a", fp32), ("teacher_student", "ts", bf16_ts)):
+        same = checkpoints_equal(torch, dist_dir / f"plain_{tag}" / "ckpt" / "last",
+                                 dist_dir / f"nccl_{tag}" / "ckpt" / "last")
+        print(f"distributed (a) {name}: NCCL world size 1 last bit-equal to no group: {same}; "
+              f"step ms {step_ms(nccl[name])} (no group {step_ms(plain[name])}, both processes "
+              f"on the card at once); launches per step {per_step(nccl[name])}")
+        require(same, f"(a) {name}: the NCCL run's last differs from the no-group run's")
+        for run in (plain[name], nccl[name]):
+            require(len(run["steps"]) == DIST_STEPS
+                    and all(s["launches"] == expected for s in run["steps"]),
+                    f"(a) {name} launches per step {per_step(run)}, expected {expected}")
+
+    # (b) int8 evaluate and predict at world size 1.
+    batches = -(-len(list((work / "msrvtt" / "videos" / "all").iterdir())) // EVAL_BATCH)
+    k1 = {name: 0 for name in wrappers}
+    k1.update({name: n * 2 * LAYERS * batches for name, n in INT8_LAUNCHES_PER_LAYER.items()})
+    want = {"evaluate": {**k1, "fused_attention_qkv": 2 * LAYERS}, "predict": k1}
+    predictions = [torch.load(dist_dir / f"{tag}_b" / "predictions.pt", weights_only=False)
+                   for tag in ("plain", "nccl")]
+    equal = (predictions[0]["video_ids"] == predictions[1]["video_ids"] and all(
+        torch.equal(predictions[0][k], predictions[1][k])
+        for k in ("encoded_videos", "encoded_texts")))
+    print(f"distributed (b): NCCL world size 1 metrics {nccl['evaluate']['metrics']} (no group "
+          f"{plain['evaluate']['metrics']}); predictions bit-equal {equal}; evaluate "
+          f"{nccl['evaluate']['seconds']:.2f} s, predict {nccl['predict']['seconds']:.2f} s "
+          f"(no group {plain['evaluate']['seconds']:.2f}, {plain['predict']['seconds']:.2f})")
+    require(nccl["evaluate"]["metrics"] == plain["evaluate"]["metrics"] and equal,
+            "(b) the NCCL run's metrics or predictions differ from the no-group run's")
+    for run in (plain, nccl):
+        for command in ("evaluate", "predict"):
+            require(run[command]["launches"] == want[command],
+                    f"(b) {command} launches {run[command]['launches']}")
+
+    # (c) two ranks sharing the card over gloo.
+    nccl_losses = _losses(dist_dir / "nccl_a" / "logs")
+    rep_losses = _losses(dist_dir / "gloo_a" / "logs")
+    fsdp_losses = _losses(dist_dir / "gloo_fsdp" / "logs")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rep_losses, nccl_losses))
+    rel_fsdp = max(abs(a - b) / abs(b) for a, b in zip(fsdp_losses, rep_losses))
+    excess, gap = _params_close(torch, dist_dir / "gloo_a" / "ckpt" / "last",
+                                dist_dir / "nccl_a" / "ckpt" / "last",
+                                dist_dir / "nccl_a" / "init.pt", 1e-3, 3e-3)
+    excess_fsdp, gap_fsdp = _params_close(torch, dist_dir / "gloo_fsdp" / "ckpt" / "last",
+                                          dist_dir / "gloo_a" / "ckpt" / "last",
+                                          dist_dir / "gloo_a" / "init.pt", 1e-3, 3e-3)
+    rep_name, fsdp_name = "contrastive", "fsdp"
+    for rank, ranks in enumerate(gloo):
+        print(f"distributed (c) rank {rank}: replicated step ms {step_ms(ranks[rep_name])}, "
+              f"bytes {ranks[rep_name]['bytes']}; FSDP step ms {step_ms(ranks[fsdp_name])}, "
+              f"bytes {ranks[fsdp_name]['bytes']}; evaluate {ranks['evaluate']['metrics']} in "
+              f"{ranks['evaluate']['seconds']:.2f} s (NCCL world size 1 "
+              f"{nccl['evaluate']['seconds']:.2f} s; each rank decodes every clip)")
+        for name in (rep_name, fsdp_name):
+            require(len(ranks[name]["steps"]) == DIST_STEPS
+                    and all(s["launches"] == fp32 for s in ranks[name]["steps"]),
+                    f"(c) {name} rank {rank} launches per step {per_step(ranks[name])}")
+        full, part = ranks[rep_name]["bytes"], ranks[fsdp_name]["bytes"]
+        require(part["params"] < 0.6 * full["params"] and part["moments"] < 0.6 * full["moments"],
+                f"(c) rank {rank} holds {part} of {full} under FSDP")
+        require(ranks["evaluate"]["metrics"] == nccl["evaluate"]["metrics"],
+                f"(c) rank {rank} evaluate {ranks['evaluate']['metrics']} != (b)'s")
+        require(ranks["evaluate"]["launches"] == want["evaluate"],
+                f"(c) rank {rank} evaluate launches {ranks['evaluate']['launches']}")
+    print(f"distributed (c): losses {rep_losses} (NCCL world size 1 {nccl_losses}), largest "
+          f"relative difference {rel:.3g}; FSDP losses {fsdp_losses}, against the replicated "
+          f"{rel_fsdp:.3g}; params past rtol 1e-3 by at most {excess:.3g} (FSDP {excess_fsdp:.3g}"
+          f"), bound 3e-3; update L2 gap {gap:.3g} of the reference's update (FSDP "
+          f"{gap_fsdp:.3g}), bound {UPDATE_SHARE:g}")
+    require(len(rep_losses) == len(fsdp_losses) == DIST_STEPS and rel <= 1e-5
+            and rel_fsdp <= 1e-5, f"(c) losses {rep_losses} {fsdp_losses} {nccl_losses}")
+    require(excess <= 3e-3 and excess_fsdp <= 3e-3, f"(c) params {excess}, {excess_fsdp}")
+    require(gap <= UPDATE_SHARE and gap_fsdp <= UPDATE_SHARE, f"(c) update gap {gap}, {gap_fsdp}")
+    print(f"distributed: phase 16 took {time.perf_counter() - phase_start:.1f} s "
+          f"({nvidia_smi()})")
+
+    def summed(*runs):
+        return {k: sum(run["launches"][k] for run in runs) for k in wrappers}
+
+    return {"distributed_train": summed(*(run[n] for run in (plain, nccl)
+                                          for n in ("contrastive", "teacher_student")),
+                                        *(r[n] for r in gloo for n in (rep_name, fsdp_name))),
+            "distributed_eval": summed(*(run[n] for run in (plain, nccl)
+                                         for n in ("evaluate", "predict")),
+                                       *(r["evaluate"] for r in gloo))}
+
+
+def distributed_only(torch) -> int:
+    """Phase 16 alone (``--distributed``): the build, phase 11's MSR-VTT tree and
+    BPE vocabulary and phase 13's WebVid train tree and MSR-VTT train list,
+    then phase 16."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    from fitclip_torch import _build
+    from fitclip_torch.models.clip.tokenizer import write_tiny_test_vocab
+
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s; {nvidia_smi()}")
+    work = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        start = time.perf_counter()
+        ids, captions = write_msrvtt_tree(work / "msrvtt")
+        merges, _ = write_tiny_test_vocab(str(work), [w for c in captions for w in c.split()])
+        (work / "msrvtt" / "structured-symlinks" / "train_list_jsfusion.txt").write_text(
+            "\n".join(ids))
+        os.environ.update(write_drift_trees(work), **write_webvid_train_tree(work),
+                          MSRVTT_PATH=str(work / "msrvtt"))
+        print(f"distributed: wrote the trees in {time.perf_counter() - start:.1f} s")
+        paths = distributed_phase(torch, kernel_wrappers(), work, merges)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"distributed": {path: {k: n for k, n in c.items() if n}
+                                      for path, c in paths.items()}, "card": nvidia_smi()}))
+    return 0
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the main paths by name; each counts its launches."""
     from fitclip_torch.ops import attention as A
@@ -5034,12 +5430,14 @@ def main() -> int:
              "--bench-arms": bench_arms_only, "--stem-cls": stem_cls_only}
     if sys.argv[1:2] == ["--load-exported"]:
         return load_exported_child(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--distributed-child"]:
+        return distributed_child(sys.argv[2])
     alone["--op-dispatch"] = op_dispatch_only
-    if sys.argv[1:2] in (["--train-cli"], ["--resnet-wise"], ["--export"]):
+    if sys.argv[1:2] in (["--train-cli"], ["--resnet-wise"], ["--export"], ["--distributed"]):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return {"--train-cli": train_cli_only, "--resnet-wise": resnet_wise_only,
-                "--export": export_only}[sys.argv[1]](torch)
+                "--export": export_only, "--distributed": distributed_only}[sys.argv[1]](torch)
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -5217,12 +5615,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"clocks (phase 15): {clocks()}")
         export_paths = export_phase(torch, wrappers, work, eval_tree["merges"])
+        # Phase 16: the CLI under a process group, each rank a child process, on
+        # phase 11's and 13's trees.
+        torch.cuda.empty_cache()
+        print(f"clocks (phase 16): {clocks()}")
+        distributed_paths = distributed_phase(torch, wrappers, work, eval_tree["merges"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"encode": launches, **paths, **fit_paths, **fit_fp32_paths, **s3dg_paths,
              **clip_k2_paths,
              **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths, **cli_paths,
-             **serving_paths, **train_cli_paths, **resnet_wise_paths, **export_paths}
+             **serving_paths, **train_cli_paths, **resnet_wise_paths, **export_paths,
+             **distributed_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:

@@ -18,6 +18,15 @@ repository's ``config/`` tree: config groups, ``++``/``+``/``~`` overrides,
   calibrate and persist an int8 encoder's scales;
 - ``tune``: the batch-size and learning-rate searches (``tune.py``).
 
+Several processes, one per GPU: ``torchrun --nproc_per_node=N -m
+fitclip_torch command=...`` or ``++distributed={coordinator_address,
+num_processes, process_id}`` on each process. ``run`` brings up the process
+group before anything else (``parallel/multihost.py``) and destroys it when it
+returns; evaluate, validate, test and predict run data-parallel, train on the
+global batch (``batch_size`` is the global batch), ``++trainer.fsdp=true``
+shards the train state, tune runs on every rank as on one device, and only
+the main process prints, logs and writes.
+
 A config with ``hparam_search`` runs a sweep of trials (``sweep.py``) and
 returns the best value of ``optimized_metric_name``. ``checkpoint_path``:
 under ``train``, the port's full train-state file resumes everything; any
@@ -191,7 +200,25 @@ def _resolve_checkpoint(command: str, encoder_slot, checkpoint_path: Optional[st
 
 
 def run(cfg: Dict[str, Any]) -> Optional[float]:
+    from fitclip_torch.parallel.multihost import (maybe_initialize_distributed,
+                                                  shutdown_distributed)
+
+    import torch.distributed
+
+    # The process group comes up before any model or loader is built; a
+    # configured init that fails raises here. A group the caller made stays up.
+    created = not torch.distributed.is_initialized()
+    maybe_initialize_distributed(cfg)
+    try:
+        return _run(cfg)
+    finally:
+        if created:
+            shutdown_distributed()
+
+
+def _run(cfg: Dict[str, Any]) -> Optional[float]:
     from fitclip_torch.cli.runners import run_eval, run_predict
+    from fitclip_torch.parallel.multihost import is_main_process, local_only
 
     # ++compilation_cache_dir sets XLA's persistent cache in the JAX package;
     # the port's kernels build once by their sources' hash instead.
@@ -231,9 +258,13 @@ def run(cfg: Dict[str, Any]) -> Optional[float]:
 
         # The reference never tunes from a checkpoint (__main__.py:55-59).
         assert not checkpoint_path, "checkpoint_path can't be tuned from"
-        metrics = run_tune(encoder_slot, data_module, trainer_cfg=cfg.get("trainer", {}),
-                           tune_cfg=cfg.get("tune"))
-        print(json.dumps(metrics, indent=2))
+        # Every rank tunes as on one device (its own loader's batches, no
+        # collective); the main process prints.
+        with local_only():
+            metrics = run_tune(encoder_slot, data_module, trainer_cfg=cfg.get("trainer", {}),
+                               tune_cfg=cfg.get("tune"))
+        if is_main_process():
+            print(json.dumps(metrics, indent=2))
     else:
         if isinstance(encoder_slot, Mapping):
             raise ValueError(f"command={command} takes one encoder, not a "
@@ -241,7 +272,8 @@ def run(cfg: Dict[str, Any]) -> Optional[float]:
         if command in ("evaluate", "validate", "test"):
             split = "test" if command == "test" else "val"
             metrics = run_eval(encoder_slot, data_module, split=split, quant_cfg=quant_cfg)
-            print(json.dumps(metrics, indent=2))
+            if is_main_process():
+                print(json.dumps(metrics, indent=2))
         else:
             run_predict(encoder_slot, data_module,
                         output_path=cfg.get("output_path", "predictions.pt"),

@@ -17,6 +17,18 @@ running abs-max over them written once and saved to ``quant.scales_path`` if
 one is named; later loaders of a group keep those scales. The head batches are
 then encoded with the rest. ``predict`` takes the same route (the JAX
 package's predict does not calibrate).
+
+Under a process group the runners are data-parallel, as the JAX package's
+over its mesh: every rank decodes each whole batch (the eval loaders are not
+sliced), pads it to a multiple of the rank count
+(``parallel/mesh.py:pad_batch_to_divisible``), encodes its own row block
+(``multihost.process_local_rows``) on its device through the same kernels as
+one device, and gathers the embeddings in rank order (``multihost.host_array``),
+the pad rows dropped. Every rank computes the same metrics; only the main
+process writes ``predictions.pt`` and the scales file. An int8 calibration
+observes each rank's blocks, and each site's abs-max is reduced with MAX over
+the ranks before the scales are set, so every rank holds the global batch's
+scales.
 """
 
 import itertools
@@ -35,6 +47,8 @@ from fitclip_torch.evaluation.classification import (ClassificationEvaluator,
 from fitclip_torch.evaluation.retrieval import RetrievalEvaluator
 from fitclip_torch.ops.quant import (apply_act_scales, load_act_scales, merge_act_amax,
                                      save_act_scales)
+from fitclip_torch.parallel import multihost
+from fitclip_torch.parallel.mesh import pad_batch_to_divisible
 
 LOGGER = logging.getLogger(__name__)
 
@@ -84,11 +98,13 @@ def _calibrate_on_batches(encoder, observations, quant_cfg) -> None:
     amax = None
     for video, text in observations:
         amax = merge_act_amax(amax, encoder.collect_act_amax(video, text))
-    apply_act_scales(encoder.model, amax)
+    apply_act_scales(encoder.model, multihost.all_reduce_max(amax))
     scales_path = (quant_cfg or {}).get("scales_path")
     if scales_path:
-        save_act_scales(scales_path, encoder.model)
-        LOGGER.info("Persisted int8 activation scales to %s", scales_path)
+        if multihost.is_main_process():
+            save_act_scales(scales_path, encoder.model)
+            LOGGER.info("Persisted int8 activation scales to %s", scales_path)
+        multihost.barrier()
     LOGGER.info("Calibrated int8 activation scales on %d batch(es)", len(observations))
 
 
@@ -101,13 +117,30 @@ def _calibration_batches(quant_cfg) -> int:
     return max(1, int((quant_cfg or {}).get("calibration_batches", 4)))
 
 
+def _rank_rows(arrays: Dict[str, np.ndarray]) -> Tuple[Dict[str, np.ndarray], Optional[int]]:
+    """This rank's row block of a batch padded to the rank count, and the
+    batch's real rows (None and the batch itself without a group)."""
+    if not torch.distributed.is_initialized():
+        return arrays, None
+    padded, valid = pad_batch_to_divisible(arrays, multihost.process_count())
+    block = multihost.process_local_rows(len(next(iter(padded.values()))))
+    return {key: value[block] for key, value in padded.items()}, valid
+
+
+def _gathered(rows: torch.Tensor, valid: Optional[int]) -> torch.Tensor:
+    """Every rank's rows in rank order, the pad rows dropped; ``rows`` without a group."""
+    return rows if valid is None else multihost.host_array(rows)[:valid]
+
+
 def _video_text(batch, device):
-    """A batch's video and text on the device, and its video ids. A
-    dual-preprocessed (teacher-student) batch gives its student view, on which
-    training validates (teacher_student.py:142-173 of the reference)."""
-    return (to_device(batch.get("video", batch.get("video_student")), device),
-            to_device(batch.get("text", batch.get("text_student")), device),
-            batch.get("video_id", []))
+    """This rank's rows of a batch's video and text on the device, its video
+    ids and its real row count (None without a group). A dual-preprocessed
+    (teacher-student) batch gives its student view, on which training
+    validates (teacher_student.py:142-173 of the reference)."""
+    rows, valid = _rank_rows({"video": batch.get("video", batch.get("video_student")),
+                              "text": batch.get("text", batch.get("text_student"))})
+    return (to_device(rows["video"], device), to_device(rows["text"], device),
+            batch.get("video_id", []), valid)
 
 
 def _log_rate(what: str, clips: int, start: float, calibrated: bool) -> None:
@@ -130,8 +163,9 @@ def _retrieval_metrics(encoder, device, loader, quant_cfg, calibrate: bool) -> D
     start, clips = time.perf_counter(), 0
     batches = _calibrated_batches(encoder, (_video_text(b, device) for b in loader), quant_cfg,
                                   calibrate)
-    for video, text, _ in batches:
-        evaluator.update(encoder.encode_video(video), encoder.encode_text(text))
+    for video, text, _, valid in batches:
+        evaluator.update(_gathered(encoder.encode_video(video), valid),
+                         _gathered(encoder.encode_text(text), valid))
         clips += video.shape[0]
     metrics = evaluator.compute()  # waits for the device
     _log_rate("Evaluated", clips, start, calibrate)
@@ -154,7 +188,8 @@ def _classification_head(encoder, batches: Iterator, tokenized: np.ndarray, quan
     observations = []
     for i, batch in enumerate(head):
         rows = tokenized[i * LABEL_BANK_BATCH:(i + 1) * LABEL_BANK_BATCH]
-        observations.append((to_device(batch["video"], device),
+        observations.append((to_device(_rank_rows({"video": batch["video"]})[0]["video"],
+                                       device),
                              to_device(rows, device) if len(rows) else None))
     if observations:
         _calibrate_on_batches(encoder, observations, quant_cfg)
@@ -170,9 +205,14 @@ def _classification_metrics(encoder, device, loader, quant_cfg, calibrate: bool,
     label_bank = encode_label_bank(encoder, tokenized, len(labels), device)
     evaluator = ClassificationEvaluator(label_bank=label_bank)
     for batch in itertools.chain(head, batches):
-        evaluator.update(encoder.encode_video(to_device(batch["video"], device)),
-                         batch["label"])
+        evaluator.update(_encode_videos(encoder, batch, device), batch["label"])
     return evaluator.compute()
+
+
+def _encode_videos(encoder, batch, device) -> torch.Tensor:
+    """The batch's video embeddings, each rank encoding its block under a group."""
+    rows, valid = _rank_rows({"video": batch["video"]})
+    return _gathered(encoder.encode_video(to_device(rows["video"], device)), valid)
 
 
 @torch.no_grad()
@@ -222,9 +262,9 @@ def run_predict(loaded, data_module, output_path: str = "predictions.pt",
         batches = _calibrated_batches(encoder, (_video_text(b, device) for b in loader),
                                       quant_cfg, calibrate)
         calibrate = False
-        for video, text, ids in batches:
-            encoded_videos.append(encoder.encode_video(video).float())
-            encoded_texts.append(encoder.encode_text(text).float())
+        for video, text, ids, valid in batches:
+            encoded_videos.append(_gathered(encoder.encode_video(video).float(), valid))
+            encoded_texts.append(_gathered(encoder.encode_text(text).float(), valid))
             video_ids.extend(ids)
     predictions = {"encoded_videos": torch.cat(encoded_videos).cpu(),  # waits for the device
                    "encoded_texts": torch.cat(encoded_texts).cpu(),
@@ -242,8 +282,7 @@ def _run_predict_classification(encoder, device, members, output_path, quant_cfg
         calibrate = False
         label_bank = encode_label_bank(encoder, tokenized, len(labels), device)
         for batch in itertools.chain(head, batches):
-            scores = (encoder.encode_video(to_device(batch["video"], device)).float()
-                      @ label_bank.T)
+            scores = _encode_videos(encoder, batch, device).float() @ label_bank.T
             predicted.append(scores.argmax(dim=-1))
             label_list.append(torch.as_tensor(np.asarray(batch["label"])))
             video_ids.extend(batch.get("video_id", []))
@@ -253,7 +292,7 @@ def _run_predict_classification(encoder, device, members, output_path, quant_cfg
 
 
 def _save_predictions(predictions, output_path):
-    if output_path:
+    if output_path and multihost.is_main_process():
         torch.save(predictions, output_path)
         LOGGER.info("Saved predictions to %s", output_path)
     return predictions

@@ -18,6 +18,7 @@ import numpy as np
 from fitclip_torch.data.loader import DataLoader
 from fitclip_torch.data.transforms import eval_transform, pad_to_min_frames, train_transform
 from fitclip_torch.data.video_dataset import Collator, FramePipeline, VideoDataset
+from fitclip_torch.parallel import multihost
 
 # An encoder (anything with ``preprocess`` and ``get_tokenizer``, e.g. a
 # LoadedEncoder), or a {"student": ..., "teacher": ...} map of them.
@@ -99,6 +100,12 @@ class VideoDataModule(ABC):
         return Collator(tokenizers=None, pad_batch=self._pad_batch())
 
     def _create_dataloader(self, dataset: VideoDataset, train: bool, **kwargs) -> DataLoader:
+        # Several processes: a train loader feeds only this process's row block
+        # of each global batch. Eval loaders stay whole; the runners take each
+        # rank's block of a padded batch.
+        if train and "process_count" not in kwargs:
+            kwargs.update(process_index=multihost.process_index(),
+                          process_count=multihost.process_count())
         return DataLoader(dataset,
                           batch_size=self.batch_size if train else self.eval_batch_size,
                           shuffle=train, drop_last=train, collate=self._collator(),

@@ -6,8 +6,9 @@ As in the JAX package, the mixed labeled/unlabeled training batch is a
 structured batch {"labeled": sub, "unlabeled": sub} rather than one flat
 batch with a per-row "dataset" key: the sample stream is the reference's
 (per-source random order, round-robin max_size_cycle composition,
-drop_last), and the teacher-student step sees fixed shapes. The port runs one
-process, so a mixed loader decodes every row of the plan.
+drop_last), and the teacher-student step sees fixed shapes. Under several
+processes every process derives the same plan and decodes only its row block
+of each source's run.
 """
 
 import zlib
@@ -16,6 +17,7 @@ from typing import Dict, Iterator, List, Mapping, Union
 import numpy as np
 
 from fitclip_torch.data.loader import DataLoader, item_rng, prefetched_batches
+from fitclip_torch.parallel import multihost
 
 
 class EvalDataModuleGroup:
@@ -66,13 +68,17 @@ class MixedBatchLoader:
     source's loader, decoded on a thread pool with a bounded prefetch queue."""
 
     def __init__(self, loaders: Mapping[str, DataLoader], sequence_sizes: Mapping[str, int],
-                 seed: int = 42, num_threads: int = 8, prefetch_batches: int = 2) -> None:
+                 seed: int = 42, num_threads: int = 8, prefetch_batches: int = 2,
+                 process_index: int = 0, process_count: int = 1) -> None:
         self.loaders = dict(loaders)
         self.sequence_sizes = {k: int(sequence_sizes[k]) for k in self.loaders}
         self.seed = seed
         self.epoch = 0
         self.num_threads = max(1, num_threads)
         self.prefetch_batches = prefetch_batches
+        # sequence_sizes are global runs; a process loads its block of each.
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -108,8 +114,20 @@ class MixedBatchLoader:
         never held whole."""
         orders = self._orders()
         for _ in range(len(self)):
-            yield {name: [next(orders[name]) for _ in range(self.sequence_sizes[name])]
-                   for name in self.loaders}
+            spec = {name: [next(orders[name]) for _ in range(self.sequence_sizes[name])]
+                    for name in self.loaders}
+            if self.process_count > 1:
+                for name, indices in spec.items():
+                    if len(indices) % self.process_count:
+                        raise ValueError(
+                            f"source {name!r} run of {len(indices)} is not "
+                            f"divisible by {self.process_count} processes — "
+                            "make train_sequence_sizes multiples of the "
+                            "process count")
+                    per = len(indices) // self.process_count
+                    spec[name] = indices[self.process_index * per:
+                                         (self.process_index + 1) * per]
+            yield spec
 
     def _index_plan(self) -> List[Dict[str, List[int]]]:
         return list(self._iter_specs())
@@ -148,7 +166,9 @@ class MixedBatchDataModule(EvalDataModuleGroup):
 
     def train_dataloader(self) -> MixedBatchLoader:
         loaders = {name: dm.train_dataloader() for name, dm in zip(self.names, self.data_modules)}
-        return MixedBatchLoader(loaders, self.train_sequence_sizes, seed=self.seed)
+        return MixedBatchLoader(loaders, self.train_sequence_sizes, seed=self.seed,
+                                process_index=multihost.process_index(),
+                                process_count=multihost.process_count())
 
 
 class TrainAndEvalDataModules:

@@ -74,7 +74,9 @@ class DataLoader:
                  batch_sampler: Optional[Iterable[Sequence[int]]] = None,
                  num_threads: int = 8,
                  prefetch_batches: int = 2,
-                 seed: int = 42) -> None:
+                 seed: int = 42,
+                 process_index: int = 0,
+                 process_count: int = 1) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -85,6 +87,12 @@ class DataLoader:
         self.prefetch_batches = prefetch_batches
         self.seed = seed
         self.epoch = 0
+        # Several processes: batch_size is the global batch; every process
+        # derives the same global index order (seeded shuffle) and loads only
+        # its contiguous row block of each batch, so a batch is composed as on
+        # one process.
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
 
     def set_epoch(self, epoch: int) -> None:
         """Reshuffles per epoch (DistributedSampler.set_epoch semantics,
@@ -103,6 +111,17 @@ class DataLoader:
             chunk = order[start: start + self.batch_size].tolist()
             if len(chunk) < self.batch_size and self.drop_last:
                 return
+            if self.process_count > 1:
+                if len(chunk) % self.process_count:
+                    # Shrinking (or emptying) the global batch would desync the
+                    # processes' steps.
+                    raise ValueError(
+                        f"global batch of {len(chunk)} rows is not divisible "
+                        f"by {self.process_count} processes — set batch_size "
+                        "to a multiple of the process count (and drop_last "
+                        "for the trailing batch)")
+                per = len(chunk) // self.process_count
+                chunk = chunk[self.process_index * per:(self.process_index + 1) * per]
             yield chunk
 
     def __len__(self) -> int:

@@ -20,7 +20,10 @@ running statistics (inference). With one, it normalizes with the biased batch
 statistics (computed in fp32 over N, H, W, differentiated through) and
 appends the momentum EMA of the mean and of the unbiased variance, detached,
 to the list; the train step writes them into the running statistics after
-the optimizer step (``apply_bn_updates``). The running statistics are
+the optimizer step (``apply_bn_updates``). Under a process group the batch
+statistics are the global batch's (``fitclip_tpu/models/clip/resnet.py:
+56-57``): the sums over each rank's rows are all-reduced, so the EMA update is
+the same on every rank. The running statistics are
 parameters that never require a gradient, as they are leaves of the JAX
 params tree: a train-state checkpoint carries them, and the optimizer freezes
 them by the encoder's ``bn_freeze_patterns``.
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fitclip_torch.models.clip.model import Dense
+from fitclip_torch.parallel import collectives
 from fitclip_torch.utils.precision import fp32_convolutions
 
 BNUpdates = List[Tuple["BatchNorm", torch.Tensor, torch.Tensor]]
@@ -62,9 +66,18 @@ class BatchNorm(nn.Module):
             shift = self.bias - self.running_mean * inv
             return (x32 * inv.view(shape) + shift.view(shape)).to(x.dtype)
         axes = (0, 2, 3)
-        mean = x32.mean(dim=axes)
-        var = (x32 - mean.view(shape)).square().mean(dim=axes)
         count = x32.numel() // x32.shape[1]
+        if collectives.world_size() > 1:
+            # Synced over the ranks' blocks of the global batch (each rank holds
+            # as many rows), in the same two passes: the global mean, then the
+            # global biased variance, both through a differentiable all-reduce.
+            count *= collectives.world_size()
+            mean = collectives.all_reduce_sum(x32.sum(dim=axes)) / count
+            var = collectives.all_reduce_sum(
+                (x32 - mean.view(shape)).square().sum(dim=axes)) / count
+        else:
+            mean = x32.mean(dim=axes)
+            var = (x32 - mean.view(shape)).square().mean(dim=axes)
         unbiased = var * (count / max(count - 1, 1))
         m = self.momentum
         updates.append((self, ((1 - m) * self.running_mean + m * mean).detach(),

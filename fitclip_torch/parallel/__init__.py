@@ -1,0 +1,22 @@
+"""Distribution over several processes, one per GPU (port of
+``fitclip_tpu/parallel/``): the process group, the per-rank row blocks, the
+gathers the global-batch loss differentiates through, and the FSDP rule.
+
+The JAX package partitions one global program over a mesh (GSPMD); here each
+process runs its own rows on its own device and the collectives are explicit:
+``multihost`` (init, row blocks, gathers, host-side agreement), ``mesh`` (the
+pad of an eval batch, the rank's device), ``collectives`` (the differentiable
+gather and all-reduce of the train steps and the synced BatchNorm, the
+gradient average) and ``sharding_rules`` (the FSDP rule and the sharded train
+state). Tensor parallelism and the GPipe pipeline are not ported.
+"""
+
+from fitclip_torch.parallel.mesh import pad_batch_to_divisible, rank_device
+from fitclip_torch.parallel.multihost import (host_array, is_main_process,
+                                              maybe_initialize_distributed,
+                                              process_count, process_index,
+                                              process_local_rows)
+
+__all__ = ["host_array", "is_main_process", "maybe_initialize_distributed",
+           "pad_batch_to_divisible", "process_count", "process_index",
+           "process_local_rows", "rank_device"]

@@ -6,7 +6,14 @@ A checkpoint is one ``torch.save`` file of CPU tensors: {"step", "params":
 the callback state (best-monitor value, early-stopping counters) in a JSON
 sidecar beside it, ``<path>.trainer.json``. Restoring copies every tensor into
 a state built for the same configuration, so a run resumes bit for bit. The
-files are the port's own format."""
+files are the port's own format.
+
+Under several processes every rank builds the state dict (a sharded state
+gathers its parts whole), only the main process writes, and every rank waits
+for the write at a barrier, so no rank reads a half-written file. The file is
+the same whatever the rank count: every rank restores the same whole state,
+so a one-process checkpoint resumes under several ranks and the other way
+round."""
 
 import json
 import os
@@ -15,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from fitclip_torch.parallel.multihost import barrier, is_main_process
 from fitclip_torch.training.state import TrainState
 
 
@@ -23,21 +31,32 @@ def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def state_dict(state: TrainState) -> Dict[str, Any]:
+    """The whole state on the CPU (a collective for a sharded state: every
+    rank calls it)."""
     opt = state.opt_state
+    params, moments = ((state.named_parameters(), opt) if state.fsdp is None
+                       else state.fsdp.full_tensors(state))
     return {"step": int(state.step),
-            "params": _cpu(state.named_parameters()),
-            "opt_state": {"count": int(opt["count"]), "mu": _cpu(opt["mu"]),
-                          "nu": _cpu(opt["nu"])},
+            "params": _cpu(params),
+            "opt_state": {"count": int(opt["count"]), "mu": _cpu(moments["mu"]),
+                          "nu": _cpu(moments["nu"])},
             "max_logit_scale": state.max_logit_scale.detach().cpu()}
 
 
-def save_checkpoint(path: str, state: TrainState) -> None:
-    """Write atomically: a concurrent reader never sees a partial file."""
-    path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    partial = f"{path}.{os.getpid()}.partial"
-    torch.save(state_dict(state), partial)
-    os.replace(partial, path)
+def save_checkpoint(path: str, state: TrainState,
+                    trainer_state: Optional[Dict[str, Any]] = None) -> None:
+    """Write atomically (a concurrent reader never sees a partial file), with
+    the callback sidecar if given: on the main process, every rank waiting."""
+    payload = state_dict(state)
+    if is_main_process():
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        partial = f"{path}.{os.getpid()}.partial"
+        torch.save(payload, partial)
+        os.replace(partial, path)
+        if trainer_state:
+            save_trainer_state(path, trainer_state)
+    barrier()
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

@@ -121,9 +121,11 @@ class AdamW:
         return {"count": 0, "mu": {n: moment(n, p) for n, p in named.items()},
                 "nu": {n: moment(n, p) for n, p in named.items()}}
 
-    def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _clip(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None
+              ) -> List[torch.Tensor]:
         clip = self.gradient_clip_val
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.fused:  # min(1, clip / max(norm, 1e-16)) (state.py:fused_apply)
             return torch._foreach_mul(grads, torch.clamp(clip / torch.clamp(norm, min=1e-16),
                                                          max=1.0))
@@ -134,7 +136,11 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, named: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
-              opt_state: Mapping[str, Any]) -> Dict[str, Any]:
+              opt_state: Mapping[str, Any],
+              norm_fn: Optional[Callable[[List[str], List[torch.Tensor]], torch.Tensor]] = None
+              ) -> Dict[str, Any]:
+        """``norm_fn(names, fp32 grads)`` gives the clip's global norm where the
+        gradients are parts of a sharded state (FSDP)."""
         count = int(opt_state["count"])
         lr = float(self.learning_rate(count) if callable(self.learning_rate)
                    else self.learning_rate)
@@ -144,7 +150,7 @@ class AdamW:
         params = [named[n] for n in names]
         g32 = [grads[n].float() for n in names]
         if self.gradient_clip_val:
-            g32 = self._clip(g32)
+            g32 = self._clip(g32, norm_fn(names, g32) if norm_fn else None)
         mu = [opt_state["mu"][n].float() for n in names]
         nu = [opt_state["nu"][n].float() for n in names]
 
@@ -215,6 +221,9 @@ class TrainState:
     params: Dict[str, Any]  # {"encoder": ClipVideoTextEncoder, "logit_scale": (1,), ["ts_logit_scale"]}
     opt_state: Dict[str, Any]
     max_logit_scale: torch.Tensor  # the clamp bound, kept with the state
+    # Under ++trainer.fsdp=true on several ranks, the sharded parameters and
+    # moments (parallel/sharding_rules.py:ShardedTrainState).
+    fsdp: Any = None
 
     def named_parameters(self) -> Dict[str, torch.Tensor]:
         return named_parameters(self.params)
@@ -236,10 +245,14 @@ def init_train_state(encoder: nn.Module, optimizer: AdamW, init_temperature: flo
 
 
 def apply_updates_with_clamp(state: TrainState, grads: Mapping[str, torch.Tensor],
-                             optimizer: AdamW) -> TrainState:
+                             optimizer: AdamW,
+                             named: Optional[Mapping[str, torch.Tensor]] = None,
+                             norm_fn=None) -> TrainState:
     """One optimizer step in place, then the temperature clamp
-    logit_scale <= max_logit_scale, as the reference's optimizer_step does."""
-    state.opt_state = optimizer.apply(state.named_parameters(), grads, state.opt_state)
+    logit_scale <= max_logit_scale, as the reference's optimizer_step does.
+    ``named`` and ``norm_fn`` are a sharded state's parts and its global norm."""
+    state.opt_state = optimizer.apply(state.named_parameters() if named is None else named,
+                                      grads, state.opt_state, norm_fn)
     with torch.no_grad():
         for key in ("logit_scale", "ts_logit_scale"):
             if key in state.params:

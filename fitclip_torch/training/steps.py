@@ -11,13 +11,26 @@ batch-statistics BatchNorm (a CLIP ResNet, ``encode_video_train``), writes
 the running statistics' EMA updates; it updates the state in place and
 returns it with a metrics dict whose keys are the JAX steps'. Metric values
 stay 0-dim tensors on the device: reading them waits for the step.
+
+Under a process group each rank holds its block of the global batch. The
+steps are written global-batch style, as the JAX package's: every embedding
+computed from the batch is gathered from all ranks (``parallel/collectives.py:
+gather_rows``, the teacher's without a graph), so each rank's loss is the JAX
+step's loss over the global batch, and the gradients are averaged over ranks
+in flat buckets before AdamW, whose global-norm clip then sees the global
+gradient. Prompt ids are the same on every rank and are not gathered. DDP's
+reducer would see nothing here (``torch.autograd.grad`` fills no ``.grad``),
+so the all-reduce is explicit. A sharded state (``state.fsdp``) gathers its
+parameters for the step and updates each rank's parts.
 """
 
+import contextlib
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from fitclip_torch.ops.losses import nce_loss, teacher_student_nce_loss
+from fitclip_torch.parallel.collectives import average_gradients, gather_rows
 from fitclip_torch.training.state import AdamW, TrainState, apply_updates_with_clamp
 
 Batch = Mapping[str, Any]
@@ -39,7 +52,16 @@ def _update(state: TrainState, loss: torch.Tensor, optimizer: AdamW) -> TrainSta
                                                  allow_unused=True)))
     grads = {n: found[n] if found.get(n) is not None else torch.zeros_like(p)
              for n, p in named.items()}
-    return apply_updates_with_clamp(state, grads, optimizer)
+    if state.fsdp is not None:
+        return state.fsdp.apply(state, grads, optimizer)
+    names = list(grads)
+    averaged = dict(zip(names, average_gradients([grads[n] for n in names])))
+    return apply_updates_with_clamp(state, averaged, optimizer)
+
+
+def _parameters(state: TrainState):
+    """A sharded state's parameters whole for the step; nothing otherwise."""
+    return state.fsdp.gathered(state) if state.fsdp is not None else contextlib.nullcontext()
 
 
 def _encode_video_train(encoder, video: torch.Tensor):
@@ -61,11 +83,13 @@ def make_contrastive_train_step(encoder, optimizer: AdamW):
     module that ``state.params["encoder"]`` holds."""
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        video_emb, bn_updates = _encode_video_train(encoder, batch["video"])
-        text_emb = encoder.encode_text(batch["text"])
-        loss = nce_loss(_scores(video_emb, text_emb, state.params["logit_scale"]))
-        state = _update(state, loss, optimizer)
-        _apply_bn_updates(encoder, bn_updates)
+        with _parameters(state):
+            video_emb, bn_updates = _encode_video_train(encoder, batch["video"])
+            text_emb = encoder.encode_text(batch["text"])
+            loss = nce_loss(_scores(gather_rows(video_emb), gather_rows(text_emb),
+                                    state.params["logit_scale"]))
+            state = _update(state, loss, optimizer)
+            _apply_bn_updates(encoder, bn_updates)
         with torch.no_grad():
             metrics = {"loss/train": loss.detach(),
                        "temperature": 1.0 / torch.exp(state.params["logit_scale"][0])}
@@ -88,10 +112,14 @@ def make_teacher_student_train_step(student, teacher, optimizer: AdamW,
     unlabeled_loss_share = 1.0 - labeled_loss_share
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with _parameters(state):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         logit_scale, ts_logit_scale = state.params["logit_scale"], state.params["ts_logit_scale"]
         labeled, unlabeled = batch["labeled"], batch["unlabeled"]
-        student_text = (student_prompt_ids if student_prompt_ids is not None
-                        else unlabeled["text_student"])
+        prompted = student_prompt_ids is not None
+        student_text = student_prompt_ids if prompted else unlabeled["text_student"]
         teacher_text = (teacher_prompt_ids if teacher_prompt_ids is not None
                         else unlabeled["text_teacher"])
 
@@ -99,13 +127,18 @@ def make_teacher_student_train_step(student, teacher, optimizer: AdamW,
         all_video_emb, bn_updates = _encode_video_train(
             student, torch.cat([labeled["video_student"], unlabeled["video_student"]]))
         all_text_emb = student.encode_text(torch.cat([labeled["text_student"], student_text]))
-        video_emb, u_video = all_video_emb[:n_video], all_video_emb[n_video:]
-        text_emb, u_text = all_text_emb[:n_text], all_text_emb[n_text:]
+        video_emb, u_video = (gather_rows(all_video_emb[:n_video]),
+                              gather_rows(all_video_emb[n_video:]))
+        text_emb, u_text = gather_rows(all_text_emb[:n_text]), all_text_emb[n_text:]
+        if not prompted:
+            u_text = gather_rows(u_text)
         labeled_loss = nce_loss(_scores(video_emb, text_emb, logit_scale))
 
         with torch.no_grad():
-            t_video = teacher.encode_video(unlabeled["video_teacher"])
+            t_video = gather_rows(teacher.encode_video(unlabeled["video_teacher"]))
             t_text = teacher.encode_text(teacher_text)
+            if teacher_prompt_ids is None:
+                t_text = gather_rows(t_text)
         student_scores = _scores(u_video, u_text, logit_scale)
         ts_scale = torch.exp(ts_logit_scale[0])
         teacher_scores = ts_scale * (t_video.float() @ t_text.float().T)

@@ -1,5 +1,6 @@
-"""command=train on one device: contrastive fine-tuning or teacher-student
-distillation (port of ``fitclip_tpu/cli/train_runner.py``).
+"""command=train: contrastive fine-tuning or teacher-student distillation, on
+one device or data-parallel over the ranks of a process group (port of
+``fitclip_tpu/cli/train_runner.py``).
 
 Wires config -> optimizer, state, step, trainer. The encoder slot decides the
 mode: one ``LoadedEncoder`` trains contrastively; a {"student", "teacher"} map
@@ -11,8 +12,16 @@ member's name. The callbacks' ``param_freeze_patterns`` freeze parameters by
 their JAX paths (``trainer.callbacks=clip_freeze_text``: ``^encoder/text/``),
 and a CLIP ResNet student's ``bn_freeze_patterns`` its running statistics,
 which the step moves by their EMA.
-Distribution (DDP, FSDP, several hosts) is not ported yet: ``trainer.fsdp``
-only logs a warning, as the JAX package does on one device.
+
+Under a process group (``cli/main.py:run``) each rank's loaders yield its
+block of every global batch, which it moves to its own device; the steps
+compute the global-batch loss and average the gradients
+(``training/steps.py``), a CLIP ResNet's BatchNorm takes the global batch's
+statistics, and only the main process logs and writes checkpoints. With more
+than one rank, ``++trainer.fsdp=true`` shards the parameters and both AdamW
+moments over the ranks by the JAX package's FSDP rule
+(``parallel/sharding_rules.py``); on one rank it logs a warning, as JAX's
+does on a one-device mesh.
 """
 
 import logging
@@ -25,6 +34,8 @@ from fitclip_torch.cli.runners import run_eval
 from fitclip_torch.config_engine import instantiate
 from fitclip_torch.data.data_module_group import DataModuleStructuredGroup
 from fitclip_torch.models.frozen_in_time.encoder import FrozenInTimeVideoTextEncoder
+from fitclip_torch.parallel.multihost import is_main_process, process_count
+from fitclip_torch.parallel.sharding_rules import shard_train_state
 from fitclip_torch.training.checkpointing import load_trainer_state, restore_checkpoint
 from fitclip_torch.training.state import init_train_state, make_optimizer
 from fitclip_torch.training.steps import (make_contrastive_train_step,
@@ -118,8 +129,9 @@ def run_train(encoder_slot, data_module, model_cfg: Mapping[str, Any],
               callbacks_cfg: Optional[Mapping[str, Any]] = None,
               prompts_path: Optional[str] = None, log_dir: Optional[str] = None,
               checkpoint_path: Optional[str] = None) -> Dict[str, Any]:
-    """Train on the student's device. Returns {"state", "metrics"} (the last
-    validation metrics)."""
+    """Train on the student's device (each rank's, under a process group).
+    Returns {"state", "metrics"} (the last validation metrics); a sharded
+    state comes back whole."""
     is_teacher_student = isinstance(encoder_slot, Mapping)
     student = encoder_slot["student"] if is_teacher_student else encoder_slot
     teacher = encoder_slot["teacher"] if is_teacher_student else None
@@ -171,24 +183,36 @@ def run_train(encoder_slot, data_module, model_cfg: Mapping[str, Any],
     else:
         step = make_contrastive_train_step(encoder, optimizer)
 
-    if bool(trainer_cfg.get("fsdp", False)):
-        LOGGER.warning("++trainer.fsdp=true has no effect on one device; the TrainState "
-                       "is not sharded.")
+    if bool(trainer_cfg.get("fsdp", False)) and process_count() > 1:
+        state = shard_train_state(state, optimizer)
+        LOGGER.info("FSDP: TrainState sharded over data=%d", process_count())
+    elif bool(trainer_cfg.get("fsdp", False)):
+        LOGGER.warning("++trainer.fsdp=true has no effect on a %d-device data mesh; the "
+                       "TrainState is fully replicated.", process_count())
     train_loader = _train_loader(data_module)
     # An experiment-tracker sink (trainer.logger={_target_: ...}) receives every
-    # logged dict beside the JSONL stream.
-    sinks = [instantiate(trainer_cfg["logger"])] if trainer_cfg.get("logger") else []
+    # logged dict beside the JSONL stream; both on the main process only.
+    main = is_main_process()
+    sinks = [instantiate(trainer_cfg["logger"])] if trainer_cfg.get("logger") and main else []
     trainer = Trainer(_trainer_config(trainer_cfg, callbacks_cfg),
-                      logger=MetricsLogger(log_dir=log_dir, sinks=sinks),
+                      logger=MetricsLogger(log_dir=log_dir if main else None, sinks=sinks),
                       prepare_batch=make_batch_preparer(device))
+
+    def validate(current):
+        if current.fsdp is None:
+            return run_eval(student, data_module)
+        with current.fsdp.gathered(current):
+            return run_eval(student, data_module)
+
     try:
         with training_convolutions():
             final_state = trainer.fit(state, step, train_loader,
-                                      validate=((lambda _: run_eval(student, data_module))
-                                                if _has_val(data_module) else None),
+                                      validate=validate if _has_val(data_module) else None,
                                       resume_trainer_state=resume_trainer_state)
     finally:
         trainer.logger.close()
+    if final_state.fsdp is not None:
+        final_state = final_state.fsdp.unshard(final_state)
     return {"state": final_state, "metrics": trainer.last_val_metrics}
 
 

@@ -10,6 +10,11 @@
 - a resumed state fast-forwards its loader to the step it was saved at.
 
 The step runs eagerly on the device; this loop is plain Python on the host.
+Under several processes every rank runs the loop: the validation metrics come
+from the gathered eval, so early stopping and the best monitor decide the
+same on every rank; the wall-clock checkpoint is agreed across ranks; only
+the main process's logger writes (``train_runner``) and every checkpoint is
+written by the main process while the others wait (``checkpointing``).
 """
 
 import dataclasses
@@ -19,7 +24,8 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 
-from fitclip_torch.training.checkpointing import save_checkpoint, save_trainer_state
+from fitclip_torch.parallel.multihost import agree_any
+from fitclip_torch.training.checkpointing import save_checkpoint
 from fitclip_torch.training.state import TrainState
 from fitclip_torch.utils.logging import MetricsLogger
 
@@ -136,8 +142,8 @@ class Trainer:
                     if stop:
                         break
 
-                if (ckpt and ckpt.train_time_interval_seconds
-                        and time.time() - last_time_ckpt > ckpt.train_time_interval_seconds):
+                if (ckpt and ckpt.train_time_interval_seconds and agree_any(
+                        time.time() - last_time_ckpt > ckpt.train_time_interval_seconds)):
                     self._save(state, os.path.join(ckpt.dirpath, "time_interval"))
                     last_time_ckpt = time.time()
 
@@ -174,12 +180,10 @@ class Trainer:
         return early_stopping.update(metrics) if early_stopping else False
 
     def _save(self, state: TrainState, path: str) -> None:
-        save_checkpoint(path, state)
         trainer_state: Dict[str, Any] = {}
         if self._best_monitor is not None:
             trainer_state["best_monitor"] = float(self._best_monitor)
         if self._early_stopping is not None:
             trainer_state["early_stopping_best"] = float(self._early_stopping.best)
             trainer_state["early_stopping_bad_checks"] = int(self._early_stopping.bad_checks)
-        if trainer_state:
-            save_trainer_state(path, trainer_state)
+        save_checkpoint(path, state, trainer_state)

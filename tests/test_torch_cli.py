@@ -473,9 +473,9 @@ BERT_WORDS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *dict.fromkeys(WORDS
 
 def _family_encoder(family, tmp_path, vocab):
     """(config overrides, env, the factory called directly) of one family at the
-    config's widths (FiT's and SLIP's at their tiny_test configs' widths: the
-    test holds the factory's wiring, which no width changes), seeded, with a
-    vocabulary the test writes."""
+    config's widths (FiT's and SLIP's, and VideoCLIP's BERT, at their tiny_test
+    configs' widths: the test holds the factory's wiring, which no width
+    changes), seeded, with a vocabulary the test writes."""
     from fitclip_torch.models import mil_nce, slip, videoclip
     from fitclip_torch.models.frozen_in_time import load as fit_load
 
@@ -519,6 +519,11 @@ def test_predict_builds_each_family_from_its_config(vocab, family, tmp_path_fact
                                                                   max_position_embeddings=512))
         monkeypatch.setattr(fit_load, "FrozenInTimeConfig",
                             lambda num_frames: dataclasses.replace(tiny, num_frames=num_frames))
+    if family == "videoclip":
+        from fitclip_torch.models import videoclip
+
+        tiny = videoclip.BertConfig.tiny_test(vocab_size=128)  # [CLS] is id 101, as in BERT
+        monkeypatch.setattr(videoclip, "BertConfig", lambda: tiny)
     if family == "slip":
         from fitclip_torch.models import slip
         from fitclip_torch.models.clip.tokenizer import ClipTokenizer

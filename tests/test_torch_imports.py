@@ -65,6 +65,9 @@ def test_every_module_imports_without_jax():
     # The export slice and the last single-device utilities.
     assert {"fitclip_torch.serving.export", "fitclip_torch.serving.export_serving",
             "fitclip_torch.utils.profiling", "fitclip_torch.utils.viz"} <= set(names)
+    # The distribution slice.
+    assert {f"fitclip_torch.parallel.{m}" for m in ("multihost", "mesh", "collectives",
+                                                    "sharding_rules")} <= set(names)
 
 
 def _last_line_is_ok(stdout: str) -> bool:

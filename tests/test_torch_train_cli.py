@@ -12,8 +12,8 @@ CPU (``++encoder.device=cpu``):
 - the JAX CLI keys a train-and-eval module's validation ``r10_0``,
   ``r10_1``, ... (it finds no ``names``); the port keys each member by its eval
   group's name (``r10_cc3m``, ...), so the two are held equal by position;
-- the port alone: resume bit for bit through the CLI in both modes (3 steps,
-  then a mid-epoch resume to 8, equals 8 straight), ``command=evaluate`` of a
+- the port alone: resume bit for bit through the CLI in both modes (1 step,
+  then a mid-epoch resume to 4, equals 4 straight), ``command=evaluate`` of a
   train-state file, a bare-params checkpoint into the student, the
   ``trainer.logger`` sink, and ``trainer.callbacks.param_freeze_patterns``.
 
@@ -57,6 +57,16 @@ from fitclip_torch.training.checkpointing import is_full_train_state, load_check
 LR = 1e-4
 WORDS = ["a", "cat", "video", "of", "dog", "man", "the", "car", "red", "clip"]
 FRAMES = 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's tiny models: more only
+    oversubscribe the cores when the suite runs in several workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def jax_tiny_encoder(seed: int = 0, bpe_path=None, vocab_path=None, num_frames: int = FRAMES):
@@ -363,36 +373,38 @@ def test_drift_eval_train_matches_jax_by_member_position(vocab, jax_drift, tmp_p
 # --- the port alone ------------------------------------------------------------------
 
 def _resume_argv(vocab, mode, workdir, *extra):
+    """Two epochs of two steps: batches of 4 clips (4 + 4 in teacher-student)."""
     if mode == "contrastive":
-        argv = [*CONTRASTIVE, *_port_encoder(vocab)]
+        argv = [*CONTRASTIVE, *_port_encoder(vocab), "data.batch_size=4"]
     elif mode == "resnet_contrastive":
-        argv = [*CONTRASTIVE, *_port_encoder(vocab),
+        argv = [*CONTRASTIVE, *_port_encoder(vocab), "data.batch_size=4",
                 "encoder._target_=fitclip_tpu.models.clip.load.load_tiny_rn_test_encoder"]
     else:
         argv = ["--config-name", "teacher_student_trainer", *TEACHER_STUDENT,
                 *_port_encoder(vocab, "encoder.student", seed=0),
-                *_port_encoder(vocab, "encoder.teacher", seed=1)]
+                *_port_encoder(vocab, "encoder.teacher", seed=1),
+                "data.train_sequence_sizes.labeled=4", "data.train_sequence_sizes.unlabeled=4"]
     return [*argv, *_common(workdir), "trainer.max_epochs=2", "optimizer.lr=1e-3",
             "trainer.val_check_interval=1.0", *extra]
 
 
 @pytest.mark.parametrize("mode", ["contrastive", "teacher_student", "resnet_contrastive"])
 def test_resume_through_the_cli_is_bit_identical(vocab, mode, tmp_path):
-    """8 steps straight (2 epochs of 4) against 3 steps, then
-    ``+checkpoint_path=<last> +trainer.max_steps=8``: the resumed run re-reads
-    the partly trained epoch and drops the 3 batches it has seen. A tiny CLIP
+    """4 steps straight (2 epochs of 2) against 1 step, then
+    ``+checkpoint_path=<last> +trainer.max_steps=4``: the resumed run re-reads
+    the partly trained epoch and drops the batch it has seen. A tiny CLIP
     ResNet's running statistics, moved by their EMA, are in the checkpoint and
     resume with the rest, frozen to the optimizer (no moment)."""
     cli.main(_resume_argv(vocab, mode, tmp_path / "straight"))
     straight = load_checkpoint(str(tmp_path / "straight" / "ckpt" / "last"))
-    assert straight["step"] == 8
-    cli.main(_resume_argv(vocab, mode, tmp_path / "resumed", "+trainer.max_steps=3"))
+    assert straight["step"] == 4
+    cli.main(_resume_argv(vocab, mode, tmp_path / "resumed", "+trainer.max_steps=1"))
     last = tmp_path / "resumed" / "ckpt" / "last"
-    assert load_checkpoint(str(last))["step"] == 3
-    cli.main(_resume_argv(vocab, mode, tmp_path / "resumed", "+trainer.max_steps=8",
+    assert load_checkpoint(str(last))["step"] == 1
+    cli.main(_resume_argv(vocab, mode, tmp_path / "resumed", "+trainer.max_steps=4",
                           f"+checkpoint_path={last}"))
     resumed = load_checkpoint(str(last))
-    assert resumed["step"] == 8 and resumed["opt_state"]["count"] == 8
+    assert resumed["step"] == 4 and resumed["opt_state"]["count"] == 4
     assert set(resumed["params"]) == set(straight["params"])
     for name, value in straight["params"].items():
         assert torch.equal(resumed["params"][name], value), name

@@ -24,6 +24,16 @@ from fitclip_torch.training.train_runner import run_train
 FRAMES = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's tiny models: more only
+    oversubscribe the cores when the suite runs in several workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class InMemoryLoader:
     """Batches in an order fixed by the epoch (as the repo's loaders shuffle)."""
 
