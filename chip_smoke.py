@@ -13,6 +13,7 @@
     python3 chip_smoke.py --export                # phase 15 alone
     python3 chip_smoke.py --op-dispatch [DIR]     # phase 15 (d) alone, for DIR's package
     python3 chip_smoke.py --distributed           # phase 16 alone
+    python3 chip_smoke.py --per-epoch-grid        # phases 17 and 18 alone
 
 Drives these paths at full width, with weights initialized from a seed: int8
 CLIP ViT-B/16 zero-shot encoding, CLIP training (contrastive and FitCLIP
@@ -28,8 +29,10 @@ and the drift_eval group), the embed service over HTTP, and the train-side CLI
 through the CLI) and WiSE-FT slice, and the export slice (each tower a
 ``torch.export`` program on the ``fitclip::`` operators, served from
 EMBED_EXPORT_DIR), and the CLI under a process group (torchrun's variables;
-one rank on NCCL, two sharing the card over gloo). It fails (non-zero exit) if
-any phase fails:
+one rank on NCCL, two sharing the card over gloo), the per-epoch evaluation
+loop with its frame cache and checkpoint entry points, and tensor
+parallelism and the GPipe pipeline (four gloo ranks sharing the card). It
+fails (non-zero exit) if any phase fails:
 
 1. device: needs CUDA; prints the card and its power limit;
 2. build: compiles fitclip_torch/csrc/*.cu for sm_90a (fitclip_torch/_build.py);
@@ -227,7 +230,7 @@ any phase fails:
     EMBED_INDEX; one CUDA graph per bucket of each tower (text 1-32, video
     1-8), captured before any dispatcher starts; the stdlib Handler on
     127.0.0.1. Traffic: (a) 64 serial /embed_text of one text, (b) 32 client
-    threads x 16 requests of 1-4 texts (from a spawned process, so that the
+    threads x 4 requests of 1-4 texts (from a spawned process, so that the
     clients do not share the service's interpreter lock), (c) 16 /embed_video
     posts of phase 11's AVIs from 4 threads, (d) 8 /search_videos, (e) an
     empty body, bytes that are not a video, an oversized body and an unknown
@@ -267,7 +270,7 @@ any phase fails:
     RetrievalEvaluator over that state's encoder called directly, whose
     embeddings differ from the untrained encoder's; (g) ``command=tune
     data=webvid``, the doubling from 28 over enough trials to meet one CUDA
-    OOM (sized from phase 6 (e)'s peak memory, printed), 20 LR steps: the
+    OOM (sized from phase 6 (e)'s peak memory, printed), 8 LR steps: the
     suggestion is the last size that ran, the allocated memory after the
     search within 1% of before it, the LR in [1e-8, 1]. ``--train-cli`` runs
     this phase alone (on trees it writes as phase 11 does).
@@ -320,8 +323,8 @@ any phase fails:
 16. distribution, after phase 15 on phase 11's and 13's trees: each rank is a
     child process of this script (``--distributed-child``) that sets
     torchrun's variables and calls ``fitclip_torch.cli.main.run`` with the
-    kernels' launches counted. (a) ``command=train`` fp32 contrastive (3 steps
-    of 28 clips) and teacher-student (bf16 student, bf16 K2 teacher, 3 steps of
+    kernels' launches counted. (a) ``command=train`` fp32 contrastive (2 steps
+    of 28 clips) and teacher-student (bf16 student, bf16 K2 teacher, 2 steps of
     8 + 8) at world size 1 on NCCL: each ``last`` bit-equal to the same run in
     a child with no process group, per step 24 + 24 fp32 attention launches
     (K2's and 24 + 24 bf16 ones for teacher-student); (b) the int8
@@ -335,6 +338,34 @@ any phase fails:
     NCCL processes of (a)-(b) run at once, then the two ranks of (c); prints
     every step's ms beside the no-group run's. ``--distributed`` runs this
     phase alone (on trees it writes).
+17. the per-epoch evaluation loop, after phase 16: ``python -m
+    fitclip_torch.cli.evaluate_per_epoch`` (its ``main`` in this process) over
+    phase 13 (d)'s ``best`` and ``last`` (as epoch_0 and epoch_1) with
+    BENCHMARKS=msrvtt,webvid on phase 11's trees and FRAME_CACHE set: each
+    checkpoint prepared (a NaN logit_scale), then ``--multirun
+    command=evaluate encoder=wise`` of the seeded fp32 clip_vit_b_16 and
+    ``clip_from_pretrained`` on the prepared file. Gates: the first checkpoint
+    fills the cache (one file a clip), the second opens no video, K3f's fp32
+    launches are 24 a batch, the metrics are finite; ``command=predict`` of
+    the same ensemble on the warm cache opens no video and is bit-equal to the
+    run with no cache; ``python -m fitclip_torch.convert.apply_wise_ft`` of the
+    seeded ViT-B/16 and phase 14 (d)'s export is bit-equal to phase 14 (d)'s
+    directly merged state dict. Prints the cold and warm windows with their
+    items' ms a clip, and decode's ms a clip with decode_short_side=224 and
+    without on a tree of 1280 x 720 clips.
+18. tensor parallelism and the pipeline, after phase 17: four gloo ranks that
+    share the card (NCCL refuses two ranks on one GPU), each a child process
+    (``--grid-child``). (a) TP on a (data=2, model=2) grid: 3 contrastive
+    steps of the seeded fp32 ViT-B/16 (8 clips, the global-norm clip 1.0),
+    every loss within rel 1e-4 of the same steps in this process on one
+    device, and the gathered update within 1e-2 of theirs, ‖a − b‖ ≤ 1e-2
+    ‖b − θ₀‖ with the key bias left out as in phase 16; (b) the GPipe pipeline
+    of the visual tower's 12 blocks over 4 stages, 4 microbatches of 2 x 197
+    tokens: the output within atol / rtol 2e-4 of the sequential tower and the
+    gradients within 1e-2 relative L2. Prints each rank's K3f and K3b counts
+    (fp32), TP step ms and the pipeline's forward and backward ms.
+    ``--per-epoch-grid`` runs phases 17 and 18 alone (two checkpoints of one
+    and two contrastive steps through the CLI, and phase 14 (d) on the first).
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 references are fp32.
 Each timed phase prints the card's SM and memory clocks beside its readings.
@@ -389,6 +420,14 @@ INT8_LAUNCHES_PER_LAYER = {"ln_quant": 2, "int8_gemm_bias": 1, "int8_gemm_residu
                            "int8_gemm_gelu": 1, "attention_int8": 1}
 K2_LAUNCHES_PER_LAYER = {"ln_cast": 2, "bf16_gemm_bias": 1, "bf16_gemm_residual": 2,
                          "bf16_gemm_gelu": 1, "attention_block": 1}
+
+
+STARTED = time.perf_counter()
+
+
+def elapsed() -> str:
+    """The script's wall time so far (each phase's start prints it)."""
+    return f"{time.perf_counter() - STARTED:.1f} s into the run"
 
 
 def require(condition: bool, message: str) -> None:
@@ -3549,7 +3588,7 @@ def eval_cli_phase(torch, wrappers, work: Path):
 
 # Phase 12: the embed service (python -m fitclip_torch.serving.embed_service).
 SERVE_TEXT_BUCKETS, SERVE_VIDEO_BUCKETS = (1, 2, 4, 8, 16, 32), (1, 2, 4, 8)
-SERVE_CLIENTS, SERVE_REQUESTS = 32, 16  # traffic (b): threads x requests of 1-4 texts
+SERVE_CLIENTS, SERVE_REQUESTS = 32, 4  # traffic (b): threads x requests of 1-4 texts
 SERVE_SERIAL, SERVE_VIDEOS, SERVE_VIDEO_THREADS, SERVE_QUERIES = 64, 16, 4, 8
 SERVE_MAX_VIDEO_MB = 2
 SERVE_GATE_EAGER = 0.9999  # served against the eager kernel path on the same inputs
@@ -3709,7 +3748,7 @@ def serving_phase(torch, wrappers, tree):
         # (a) one client, serial single texts.
         serial = [embed_text([t]) for t in serve_texts(rng, SERVE_SERIAL)]
         text_requests += SERVE_SERIAL
-        # (b) 32 client threads x 16 requests of 1-4 texts, from a process of their own
+        # (b) 32 client threads x 4 requests of 1-4 texts, from a process of their own
         # (spawned; it imports numpy only), so that the clients do not share the
         # service's interpreter lock.
         plans = [[serve_texts(np.random.default_rng(100 + c), int(k))
@@ -3884,7 +3923,7 @@ def serving_phase(torch, wrappers, tree):
 # Phase 13: the train-side CLI (python -m fitclip_torch command=train|tune, sweeps).
 TRAIN_VIDEOS, TRAIN_FRAMES = 112, 48  # 4 steps of config/data/webvid.yaml's batch of 28
 TRAIN_BATCH = 28
-TUNE_LR_STEPS = 20
+TUNE_LR_STEPS = 3  # the fewest lr_find takes
 
 
 def write_webvid_train_tree(root: Path, seed: int = 3):
@@ -4146,7 +4185,7 @@ def _train_cli_phase(torch, wrappers, work: Path, tree, fp32_step):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (g) Tune: the doubling search sized to meet one OOM, then 20 LR steps.
+    # (g) Tune: the doubling search sized to meet one OOM, then TUNE_LR_STEPS LR steps.
     total = torch.cuda.get_device_properties(0).total_memory
     if fp32_step is None:
         per_clip, fixed = 0.55 * 2 ** 30, 2.5 * 2 ** 30
@@ -5131,6 +5170,19 @@ def _losses(log_dir: Path):
 UPDATE_SHARE = 1e-2  # tests/test_torch_parallel.py's bound on the update's L2 gap
 
 
+def no_key_bias(name: str, x):
+    """A parameter in float64 with the attention's key bias zeroed: its
+    gradient is zero in exact arithmetic, so AdamW steps its rounding noise by
+    about lr, and two correct runs part there by up to 2 lr."""
+    import torch
+
+    x = x.double()
+    if name.endswith("in_proj.bias"):  # packed (q, k, v)
+        x = x.clone()
+        x[x.shape[0] // 3: 2 * x.shape[0] // 3] = 0
+    return torch.zeros_like(x) if name.endswith("k_proj.bias") else x
+
+
 def _params_close(torch, a: Path, b: Path, init: Path, rtol: float, atol: float):
     """(the largest |a - b| - rtol |b| over the parameters of two train-state
     files, <= atol when they agree at the FSDP bound; the L2 norm of a - b
@@ -5143,13 +5195,6 @@ def _params_close(torch, a: Path, b: Path, init: Path, rtol: float, atol: float)
     a, b = load_checkpoint(str(a))["params"], load_checkpoint(str(b))["params"]
     init = torch.load(str(init), weights_only=True)
     require(set(a) == set(b) == set(init), "phase 16: the checkpoints hold other parameters")
-
-    def no_key_bias(name, x):
-        x = x.double()
-        if name.endswith("in_proj.bias"):  # packed (q, k, v)
-            x = x.clone()
-            x[x.shape[0] // 3: 2 * x.shape[0] // 3] = 0
-        return torch.zeros_like(x) if name.endswith("k_proj.bias") else x
 
     excess = max(float(((a[n] - b[n]).abs() - rtol * b[n].abs()).max()) for n in a)
     gap = sum(float((no_key_bias(n, a[n]) - no_key_bias(n, b[n])).square().sum()) for n in a)
@@ -5368,6 +5413,708 @@ def distributed_only(torch) -> int:
     return 0
 
 
+# Phase 17: the per-epoch evaluation loop (python -m fitclip_torch.cli.evaluate_per_epoch).
+SHORT_SIDE = 224  # decode_short_side on the 720p tree: its 720-row frames are >= 2x it
+SHORT_SIDE_CLIPS, SHORT_SIDE_SIZE, SHORT_SIDE_FRAMES = 4, (1280, 720), 48
+
+
+def short_side_readings(torch, work: Path):
+    """Decode's ms a clip on a tree of SHORT_SIDE_CLIPS 1280 x 720 MJPG AVIs,
+    with ``decode_short_side=SHORT_SIDE`` and without: each clip's eval
+    sample of 4 frames opened, decoded and transformed to 224^2 serially,
+    median over the clips (warm: every clip read once first). Returns (the
+    readings, the clips' paths); the caller removes the clips."""
+    import cv2
+
+    from fitclip_torch.data.frame_sampler import UniformFrameSampler
+    from fitclip_torch.data.transforms import eval_transform
+    from fitclip_torch.data.video_reader import VideoReader
+
+    root = work / "hd"
+    root.mkdir()
+    rng = np.random.default_rng(5)
+    paths = []
+    for i in range(SHORT_SIDE_CLIPS):
+        width, height = SHORT_SIDE_SIZE
+        base = cv2.resize(rng.integers(0, 256, (18, 32, 3), dtype=np.uint8), (width, height),
+                          interpolation=cv2.INTER_LINEAR)
+        path = root / f"hd{i}.avi"
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), EVAL_FPS,
+                                 SHORT_SIDE_SIZE)
+        require(writer.isOpened(), "cv2 cannot write MJPG here")
+        for t in range(SHORT_SIDE_FRAMES):
+            writer.write(np.roll(base, (t, 2 * t), axis=(0, 1)))
+        writer.release()
+        paths.append(path)
+    sampler = UniformFrameSampler(4)
+    readings, shapes = {}, {}
+    for label, side in (("full", None), ("short_side", SHORT_SIDE), ("full_again", None)):
+        decode, item = [], []
+        for path in paths:
+            t0 = time.perf_counter()
+            reader = VideoReader.from_path(path, short_side=side)
+            frames = reader(sampler(0, len(reader) - 1, fps=reader.get_avg_fps(), rng=None))
+            t1 = time.perf_counter()
+            out = eval_transform(frames, 224)
+            item.append(time.perf_counter() - t0)
+            decode.append(t1 - t0)
+            shapes[label] = (tuple(frames.shape[1:3]), tuple(out.shape))
+        readings[label] = {"decode_ms": 1e3 * float(np.median(decode)),
+                           "item_ms": 1e3 * float(np.median(item))}
+    require(shapes["short_side"][0][0] == SHORT_SIDE and shapes["full"][0] == (720, 1280)
+            and shapes["short_side"][1] == shapes["full"][1] == (4, 224, 224, 3),
+            f"short side shapes {shapes}")
+    print(f"per-epoch short side: {SHORT_SIDE_CLIPS} clips of {SHORT_SIDE_SIZE[0]}x"
+          f"{SHORT_SIDE_SIZE[1]}, 4 frames each, {type(reader).__name__}; decoded "
+          f"{shapes['full'][0]} without, {shapes['short_side'][0]} with decode_short_side="
+          f"{SHORT_SIDE}; median ms a clip (open + decode; with the transform to 224^2): " +
+          "; ".join(f"{k} {v['decode_ms']:.3f} / {v['item_ms']:.3f}" for k, v in readings.items())
+          + f" ({nvidia_smi()})")
+    return readings, paths
+
+
+F32_TOL = 2e-4  # the float contract (tests/test_block_kernel.py:55-87)
+SUBCORR_ATOL = F32_TOL  # subcorr's probabilities, K3f against the einsum attention (fp32)
+# The seeded model's frame and text embeddings are far enough apart that the
+# default temperature (0.015) saturates the softmax to exact 0s and 1s, which
+# would hide a gap; at 1 the probabilities stay soft.
+SUBCORR_TEMPERATURE = 1.0
+
+
+def subcorr_check(torch, wrappers, work: Path, video: Path, checkpoint: Path, merges: str,
+                  texts):
+    """``python -m fitclip_torch.utils.subcorr`` (its ``main``) at ViT-B/16 on
+    the card on one 720p clip, every frame, with ``checkpoint`` and
+    ``--temperature SUBCORR_TEMPERATURE``: K3f's fp32
+    launches are 12 layers a tower call (the frames in chunks of
+    subcorr.FRAME_CHUNK, the texts once); the probabilities are finite rows
+    that sum to 1, within SUBCORR_ATOL of the same run with fused_attention
+    off (no K3f launch), and the PNG is written. Returns (launches, readings)."""
+    import io
+
+    import cv2
+
+    from fitclip_torch.models.clip import load as L
+    from fitclip_torch.utils import subcorr
+
+    argv = [str(video), *texts, "--checkpoint-path", str(checkpoint), "--bpe-path", merges,
+            "--device", "cuda", "--temperature", str(SUBCORR_TEMPERATURE)]
+    runs, outputs = {}, {}
+    load = L.load_clip_encoder
+    for label, fused in (("fused", True), ("plain", False)):
+        png = work / f"subcorr_{label}.png"
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with swapped(L, load_clip_encoder=lambda *a, **k: load(*a, fused_attention=fused, **k)), \
+                contextlib.redirect_stdout(io.StringIO()):
+            probs = subcorr.main([*argv, "--output", str(png)])
+        torch.cuda.synchronize()
+        runs[label] = {"seconds": time.perf_counter() - start,
+                       "launches": {n: fn.launches for n, fn in wrappers.items()},
+                       "png": cv2.imread(str(png)) is not None}
+        outputs[label] = probs
+    frames = outputs["fused"].shape[0]
+    chunks = -(-frames // subcorr.FRAME_CHUNK)
+    expected = {name: 0 for name in wrappers}
+    expected.update(fused_attention_qkv=LAYERS * (chunks + 1), attention_f32=LAYERS * (chunks + 1))
+    gap = float(np.abs(outputs["fused"] - outputs["plain"]).max())
+    print(f"per-epoch subcorr: ViT-B/16 fp32, {frames} frames of {video.name} x {len(texts)} "
+          f"texts, {runs['fused']['seconds']:.2f} s (einsum attention "
+          f"{runs['plain']['seconds']:.2f} s, model load included); launches "
+          f"{ {k: n for k, n in runs['fused']['launches'].items() if n} } (expected "
+          f"{ {k: n for k, n in expected.items() if n} }), the einsum run's "
+          f"{ {k: n for k, n in runs['plain']['launches'].items() if n} }; probabilities "
+          f"{float(outputs['fused'].min()):.6f} to {float(outputs['fused'].max()):.6f} at "
+          f"temperature {SUBCORR_TEMPERATURE}, max |probability gap| {gap:.3e} (bound "
+          f"{SUBCORR_ATOL}); PNGs written {runs['fused']['png']}, "
+          f"{runs['plain']['png']} ({nvidia_smi()})")
+    rows = outputs["fused"]
+    require(rows.shape == (frames, len(texts)) and frames > 0 and np.isfinite(rows).all()
+            and np.allclose(rows.sum(1), 1.0, atol=1e-5), f"subcorr probabilities {rows}")
+    require(runs["fused"]["launches"] == expected,
+            f"subcorr launches {runs['fused']['launches']}, expected {expected}")
+    require(not any(runs["plain"]["launches"].values()),
+            f"subcorr with fused_attention off launched {runs['plain']['launches']}")
+    require(gap <= SUBCORR_ATOL, f"subcorr: probabilities {gap} apart with and without K3f")
+    require(runs["fused"]["png"] and runs["plain"]["png"], "subcorr wrote no PNG")
+    return runs["fused"]["launches"], {"frames": frames, "seconds": runs["fused"]["seconds"],
+                                       "max_abs_gap": gap}
+
+
+def per_epoch_phase(torch, wrappers, work: Path, tree, checkpoints, student_export: Path,
+                    direct_merged: Path):
+    """Phase 17: ``python -m fitclip_torch.cli.evaluate_per_epoch`` (its
+    ``main``, in this process) over two train-state files (``checkpoints``) and
+    phase 11's MSR-VTT and WebVid val trees, with FRAME_CACHE set. Gates: the
+    first checkpoint fills the cache (one file a clip), the second opens no
+    video, K3f's fp32 launches are 2 towers x 12 layers a batch, the metrics
+    are finite; ``command=predict encoder=wise`` of the second checkpoint's
+    prepared file on the warm cache opens no video and its embeddings are
+    bit-equal to the same run with no cache; ``python -m
+    fitclip_torch.convert.apply_wise_ft`` of the seeded ViT-B/16 and
+    ``student_export`` is bit-equal to phase 14 (d)'s ``direct_merged`` (a NaN
+    logit_scale besides); the generic ``prepare_trained_checkpoint_for_evaluation``
+    gives the CLIP preparation's tensors without logit_scale; ``subcorr`` runs
+    on a 720p clip (``subcorr_check``). Prints each checkpoint's eval window
+    cold and warm with its items' ms a clip, and decode's ms a clip with and
+    without decode_short_side. Returns ({path: launches}, readings)."""
+    import io
+    import os
+    import threading
+
+    from fitclip_torch.cli import evaluate_per_epoch
+    from fitclip_torch.convert import apply_wise_ft
+    from fitclip_torch.convert import prepare_trained_checkpoint_for_evaluation as prepare_generic
+    from fitclip_torch.convert import prepare_trained_clip_checkpoint_for_evaluation as prepare
+    from fitclip_torch.convert.openai_state_dict import openai_state_dict
+    from fitclip_torch.data.video_dataset import VideoDataset
+    from fitclip_torch.data.video_reader import VideoReader
+    from fitclip_torch.models.clip.load import load_clip_encoder
+
+    phase_start = time.perf_counter()
+    epochs, cache = work / "per_epoch", work / "frame_cache"
+    shutil.rmtree(epochs, ignore_errors=True)
+    shutil.rmtree(cache, ignore_errors=True)
+    epochs.mkdir()
+    for i, ckpt in enumerate(checkpoints):
+        (epochs / f"epoch_{i}").symlink_to(ckpt)
+    merges = tree["merges"]
+    extra = [f"+encoder.model1.bpe_path={merges}", f"+encoder.model2.bpe_path={merges}"]
+    os.environ.update(CKPT_GLOB=str(epochs / "epoch_*"), BENCHMARKS="msrvtt,webvid",
+                      WISE_WEIGHT=str(WISE_WEIGHT), FRAME_CACHE=str(cache))
+    clips = len(tree["ids"]) + DRIFT_ITEMS
+    batches = -(-len(tree["ids"]) // EVAL_BATCH) + -(-DRIFT_ITEMS // EVAL_BATCH)
+
+    lock, opens, items = threading.Lock(), [0], []
+    from_path, getitem, prepare_main = VideoReader.from_path, VideoDataset.__getitem__, prepare.main
+
+    def counted(path, short_side=None):
+        with lock:
+            opens[0] += 1
+        return from_path(path, short_side=short_side)
+
+    def timed(self, index, rng=None):
+        t0 = time.perf_counter()
+        try:
+            return getitem(self, index, rng)
+        finally:
+            with lock:
+                items.append(time.perf_counter() - t0)
+
+    marks = []  # (opens, items, launches, perf_counter) as each checkpoint starts
+
+    def marking(argv):
+        torch.cuda.synchronize()
+        marks.append((opens[0], len(items), {n: fn.launches for n, fn in wrappers.items()},
+                      time.perf_counter()))
+        start = time.perf_counter()
+        prepare_main(argv)
+        marks[-1] += (time.perf_counter() - start,)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = io.StringIO()
+    print(f"per-epoch: CKPT_GLOB={os.environ['CKPT_GLOB']} BENCHMARKS=msrvtt,webvid "
+          f"WISE_WEIGHT={WISE_WEIGHT} FRAME_CACHE={cache} python -m "
+          f"fitclip_torch.cli.evaluate_per_epoch {' '.join(extra)}")
+    level = logging.getLogger().level  # silent=true quiets the root logger
+    try:
+        with swapped(VideoReader, from_path=staticmethod(counted)), \
+                swapped(VideoDataset, __getitem__=timed), swapped(prepare, main=marking), \
+                contextlib.redirect_stdout(out):
+            evaluate_per_epoch.main(extra)
+    finally:
+        logging.getLogger().setLevel(level)
+    torch.cuda.synchronize()
+    marks.append((opens[0], len(items), {n: fn.launches for n, fn in wrappers.items()},
+                  time.perf_counter(), 0.0))
+    printed = out.getvalue()
+    decoder, jobs, at = json.JSONDecoder(), [], 0
+    while (found := printed.find("{", at)) >= 0:
+        value, at = decoder.raw_decode(printed, found)
+        jobs.append(value)
+    windows = []
+    for (o0, i0, l0, t0, prep_s), (o1, i1, l1, t1, _) in zip(marks, marks[1:]):
+        windows.append({"wall_s": t1 - t0, "prepare_s": prep_s, "eval_s": t1 - t0 - prep_s,
+                        "opens": o1 - o0, "items": i1 - i0,
+                        "item_ms_mean": 1e3 * float(np.mean(items[i0:i1])) if i1 > i0 else None,
+                        "launches": {n: l1[n] - l0[n] for n in wrappers}})
+    expected = {name: 0 for name in wrappers}
+    expected.update(fused_attention_qkv=2 * LAYERS * batches, attention_f32=2 * LAYERS * batches)
+    cached = len(os.listdir(cache))
+    for label, w, ckpt in zip(("cold", "warm"), windows, checkpoints):
+        print(f"per-epoch {label} ({ckpt.relative_to(work)}): {w['wall_s']:.2f} s "
+              f"(prepare {w['prepare_s']:.2f} s, the two eval jobs {w['eval_s']:.2f} s); "
+              f"{w['opens']} videos opened; {w['items']} items at {w['item_ms_mean']:.3f} ms "
+              f"a clip (on {EVAL_BATCH}-item batches, 8 loader threads); launches "
+              f"{ {k: n for k, n in w['launches'].items() if n} }")
+    print(f"per-epoch: jobs' metrics {jobs}; {cached} cache files ({nvidia_smi()})")
+    require(len(jobs) == 4 and all(np.isfinite(v) for job in jobs for v in job.values())
+            and all("r1" in job for job in jobs), f"per-epoch jobs {jobs}")
+    require(len(windows) == 2 and windows[0]["opens"] == clips and cached == clips,
+            f"per-epoch: the first checkpoint opened {windows[0]['opens']} videos and left "
+            f"{cached} cache files, expected {clips}")
+    require(windows[1]["opens"] == 0, f"per-epoch: the warm checkpoint opened "
+                                      f"{windows[1]['opens']} videos")
+    require(all(w["launches"] == expected for w in windows),
+            f"per-epoch launches {[w['launches'] for w in windows]}, expected {expected}")
+
+    # The cached predictions against the same checkpoint's with no cache.
+    prepared = work / "per_epoch_prepared.pt"
+    prepare.main([str(checkpoints[1]), str(prepared)])
+    wise = [o for o in evaluate_per_epoch.wise_overrides(str(prepared), str(WISE_WEIGHT), "msrvtt",
+                                                         None) if o not in (
+        "command=evaluate", "silent=true")] + extra
+    dumps, predict_launches, predict_opens = [], [], []
+    for label, override in (("cache", [f"++data.eval_frame_cache_dir={cache}"]), ("plain", [])):
+        dump = work / f"per_epoch_{label}.pt"
+        before = opens[0]
+        with swapped(VideoReader, from_path=staticmethod(counted)):
+            _, _, seconds, launches = cli_run(torch, wrappers, ["command=predict", *wise,
+                                                                *override, f"+output_path={dump}"])
+        predict_opens.append(opens[0] - before)
+        predict_launches.append(launches)
+        dumps.append(torch.load(dump, weights_only=False))
+        print(f"per-epoch predict ({label}): {seconds:.2f} s wall, {opens[0] - before} videos "
+              f"opened")
+    same = dumps[0]["video_ids"] == dumps[1]["video_ids"] and all(
+        torch.equal(dumps[0][k], dumps[1][k]) for k in ("encoded_videos", "encoded_texts"))
+    print(f"per-epoch predict: cached embeddings bit-equal to the run with no cache: {same}")
+    require(same, "per-epoch: the cached predictions differ from the decoded ones")
+    require(predict_opens == [0, len(tree["ids"])], f"per-epoch predict opens {predict_opens}")
+
+    # Offline WiSE-FT against phase 14 (d)'s merge, written directly.
+    exported = torch.load(student_export, weights_only=False)
+    seeded = openai_state_dict(load_clip_encoder("ViT-B/16", device="cpu", seed=0)
+                               .encoder.model.state_dict())
+    if "visual.conv1.bias" in exported and "visual.conv1.bias" not in seeded:
+        seeded["visual.conv1.bias"] = torch.zeros_like(exported["visual.conv1.bias"])
+    torch.save(seeded, work / "seeded_openai.pt")
+    merged_path = work / "wise_ft.pt"
+    start = time.perf_counter()
+    apply_wise_ft.main([str(work / "seeded_openai.pt"), str(student_export), str(merged_path),
+                        "--weight-for-2", str(WISE_WEIGHT)])
+    wise_s = time.perf_counter() - start
+    merged, direct = (torch.load(p, weights_only=False) for p in (merged_path, direct_merged))
+    bitwise = set(merged) == set(direct) | {"logit_scale"} and all(
+        torch.equal(merged[k], direct[k]) for k in direct)
+    print(f"per-epoch: python -m fitclip_torch.convert.apply_wise_ft seeded student "
+          f"--weight-for-2 {WISE_WEIGHT}: {wise_s:.2f} s; {len(merged)} tensors, bit-equal to "
+          f"phase 14 (d)'s merged state dict: {bitwise}; logit_scale "
+          f"{float(merged['logit_scale'])}")
+    require(bitwise and bool(torch.isnan(merged["logit_scale"])),
+            "per-epoch: apply_wise_ft's file differs from the directly merged state dict")
+
+    # The generic (non-CLIP) preparation: the CLIP one's tensors, no logit_scale.
+    generic_path = work / "per_epoch_generic.pt"
+    prepare_generic.main([str(checkpoints[1]), str(generic_path), "--prefix", "encoder.model"])
+    generic, clip_prepared = (torch.load(p, weights_only=False) for p in (generic_path, prepared))
+    generic_same = set(generic) == set(clip_prepared) - {"logit_scale"} and all(
+        torch.equal(generic[k], clip_prepared[k]) for k in generic)
+    print(f"per-epoch: python -m fitclip_torch.convert.prepare_trained_checkpoint_for_evaluation "
+          f"--prefix encoder.model: {len(generic)} tensors, bit-equal to the CLIP preparation's "
+          f"but for logit_scale: {generic_same}")
+    require(generic_same, "per-epoch: the generic preparation differs from the CLIP one")
+
+    short_side, hd_clips = short_side_readings(torch, work)
+    annotations = json.loads((tree["root"] / "annotation" / "MSR_VTT.json").read_text())
+    texts = [a["caption"] for a in annotations["annotations"][:3]]
+    subcorr_launches, subcorr_readings = subcorr_check(torch, wrappers, work, hd_clips[0],
+                                                       prepared, merges, texts)
+    shutil.rmtree(hd_clips[0].parent, ignore_errors=True)
+    for path in (prepared, merged_path, work / "seeded_openai.pt", generic_path,
+                 work / "subcorr_fused.png", work / "subcorr_plain.png"):
+        path.unlink()
+    shutil.rmtree(cache, ignore_errors=True)
+    seconds = time.perf_counter() - phase_start
+    print(f"per-epoch: phase 17 took {seconds:.1f} s ({nvidia_smi()})")
+    readings = {"cold": {k: v for k, v in windows[0].items() if k != "launches"},
+                "warm": {k: v for k, v in windows[1].items() if k != "launches"},
+                "short_side": short_side, "subcorr": subcorr_readings, "seconds": seconds}
+    print(json.dumps({"per_epoch": readings, "card": nvidia_smi()}))
+    return {"per_epoch_cold": windows[0]["launches"], "per_epoch_warm": windows[1]["launches"],
+            "per_epoch_predict": predict_launches[0],
+            "per_epoch_predict_plain": predict_launches[1],
+            "subcorr": subcorr_launches}, readings
+
+
+# Phase 18: tensor parallelism and the GPipe pipeline, four gloo ranks sharing the card.
+GRID_RANKS, GRID_STEPS, GRID_ROWS = 4, 3, 8  # ranks; TP steps; global batch of clips
+GRID_LR, GRID_CLIP = 1e-4, 1.0
+PIPE_MICROBATCHES, PIPE_ROWS = 4, 8  # GPipe over 4 stages: microbatches; frames of 197 tokens
+
+
+GRID_GRAD_SHARE, GRID_NORM_RTOL = 1e-3, 1e-4  # the first step's gradient, leaf by leaf; its norm
+
+
+def recording_clip(torch, optimizer, names):
+    """Wrap ``optimizer``'s global-norm clip so that it keeps what the first
+    step hands it: {"grads": {name: the fp32 gradient, after the data
+    average}, "norm": the clip's norm}. ``names``: the trainable state
+    parameters in the state's order (as ``AdamW.apply`` lists them)."""
+    seen, clip = {}, optimizer._clip
+
+    def recording(grads, norm=None):
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if not seen:
+            seen.update(grads={n: g.detach().clone() for n, g in zip(names, grads)},
+                        norm=float(norm))
+        return clip(grads, norm)
+
+    optimizer._clip = recording
+    return seen
+
+
+def publish(torch, obj, path: Path) -> None:
+    """torch.save to ``path`` whole: a reader that sees the file sees all of it."""
+    partial = path.with_suffix(".partial")
+    torch.save(obj, partial)
+    partial.replace(path)
+
+
+def awaited(path: str) -> str:
+    """``path`` once it exists (phase 18's parent publishes its references
+    while the ranks run; faulthandler ends a rank that waits too long)."""
+    while not Path(path).exists():
+        time.sleep(0.2)
+    return path
+
+
+def grid_inputs(torch):
+    """Phase 18's seeded inputs, the same in every process: the TP batch (on
+    the card) and the pipeline's (PIPE_ROWS, 197, 768) activations."""
+    rng = np.random.default_rng(18)
+    video = torch.from_numpy(rng.integers(0, 256, (GRID_ROWS, 4, 224, 224, 3),
+                                          dtype=np.uint8)).cuda()
+    text = torch.from_numpy(token_ids(GRID_ROWS, rng)).cuda()
+    h = torch.from_numpy(rng.standard_normal((PIPE_ROWS, 197, 768)).astype(np.float32)).cuda()
+    return video, text, h
+
+
+def grid_child(spec_path: str) -> int:
+    """``--grid-child SPEC``: one rank of phase 18 (gloo, on cuda:0). (a) TP on
+    a (data=2, model=2) grid: GRID_STEPS contrastive steps of the seeded fp32
+    ViT-B/16 on this data row's clips; rank 0 gathers the parameters and the
+    first step's gradients (as the clip receives them) and holds them to the
+    one-process steps' (the parent's file). (b) The GPipe
+    pipeline over the four ranks: the seeded visual tower's 12 blocks, this
+    stage's 3 kept, PIPE_MICROBATCHES microbatches; the output and this
+    stage's gradients against the sequential tower's (the parent's file).
+    Prints one JSON line of readings and launch counts."""
+    import faulthandler
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.dump_traceback_later(DIST_TIMEOUT_S - 60, exit=True)
+    sys.path.insert(0, str(ROOT))
+    spec = json.loads(Path(spec_path).read_text())
+    rank = spec["rank"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=GRID_RANKS, rank=rank)
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.parallel.mesh import create_grid
+    from fitclip_torch.parallel.pipeline import pipeline_apply, stage_layers
+    from fitclip_torch.parallel.sharding_rules import gathered_params, shard_params
+    from fitclip_torch.training import state as S
+    from fitclip_torch.training import steps as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = kernel_wrappers()
+
+    def zeroed():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counted():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    video, text, h = grid_inputs(torch)
+    out = {"rank": rank}
+
+    # (a) Tensor parallelism.
+    grid = create_grid(2, GRID_RANKS // 2)
+    rows = slice(grid.data_index * GRID_ROWS // 2, (grid.data_index + 1) * GRID_ROWS // 2)
+    encoder = load_clip_encoder("ViT-B/16", device="cuda", seed=0).encoder
+    shard_params(encoder, grid)
+    optimizer = S.make_optimizer(GRID_LR, gradient_clip_val=GRID_CLIP)
+    state = S.init_train_state(encoder, optimizer)
+    seen = recording_clip(torch, optimizer, [n for n in state.named_parameters()
+                                             if optimizer.trainable(n)])
+    step = T.make_contrastive_train_step(encoder, optimizer)
+    losses, step_ms = [], []
+    zeroed()
+    for _ in range(GRID_STEPS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, metrics = step(state, {"video": video[rows], "text": text[rows]})
+        losses.append(float(metrics["loss/train"]))
+        step_ms.append(1e3 * (time.perf_counter() - start))
+    out["tp"] = {"losses": losses, "step_ms": step_ms, "launches": counted(),
+                 "local_bytes": sum(p.numel() * p.element_size()
+                                    for p in encoder.model.parameters())}
+    whole = gathered_params(encoder.model)
+    grads = gathered_params(encoder.model, {n[len("encoder."):]: g for n, g in
+                                            seen["grads"].items() if n.startswith("encoder.")})
+    grads = {f"encoder.{n}": g for n, g in grads.items()}
+    grads["logit_scale"] = seen["grads"]["logit_scale"]
+    out["tp"]["norm"] = seen["norm"]
+    if rank == 0:
+        reference = torch.load(awaited(spec["tp_reference"]), weights_only=True)
+        after, before = reference["after"], reference["before"]
+        shares = {}
+        for n, g in grads.items():
+            gap = float((g.cpu().double() - reference["grads"][n].double()).norm())
+            scale = float(reference["grads"][n].double().norm())
+            shares[n] = gap / scale if scale else (0.0 if gap == 0 else float("inf"))
+        worst = max(shares, key=shares.get)
+        out["tp"].update(grad_leaves=len(shares), grad_worst=[worst, shares[worst]],
+                         grad_over=sorted(n for n, v in shares.items()
+                                          if not v <= GRID_GRAD_SHARE),
+                         reference_norm=reference["norm"])
+        gap = sum(float((no_key_bias(n, whole[n].cpu()) - no_key_bias(n, after[n]))
+                        .square().sum()) for n in after)
+        moved = sum(float((no_key_bias(n, after[n]) - no_key_bias(n, before[n]))
+                          .square().sum()) for n in after)
+        out["tp"].update(gap=gap ** 0.5, moved=moved ** 0.5)
+    del encoder, state, whole, grads, seen, optimizer
+    torch.cuda.empty_cache()
+
+    # (b) The GPipe pipeline: only this stage's blocks stay on the card.
+    blocks = load_clip_encoder("ViT-B/16", device="cpu", seed=0,
+                               fused_attention=True).encoder.model.visual
+    local = stage_layers(blocks.transformer.blocks, rank, GRID_RANKS).cuda()
+    del blocks
+    zeroed()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = pipeline_apply(lambda block, x: block(x), local, h, PIPE_MICROBATCHES)
+    torch.cuda.synchronize()
+    forward_ms = 1e3 * (time.perf_counter() - start)
+    start = time.perf_counter()
+    grads = torch.autograd.grad(result.square().mean() / GRID_RANKS, list(local.parameters()))
+    torch.cuda.synchronize()
+    backward_ms = 1e3 * (time.perf_counter() - start)
+    reference = torch.load(awaited(spec["pipe_reference"]), weights_only=True)
+    per = LAYERS // GRID_RANKS
+    names = [f"{rank * per + int(n.split('.', 1)[0])}.{n.split('.', 1)[1]}"
+             for n, _ in local.named_parameters()]
+    out["pipeline"] = {
+        "blocks": len(local), "forward_ms": forward_ms, "backward_ms": backward_ms,
+        "max_abs_err": float((result.cpu() - reference["out"]).abs().max()),
+        "close": bool(torch.allclose(result.cpu(), reference["out"], rtol=F32_TOL, atol=F32_TOL)),
+        "grad_gap_sq": sum(float((g.cpu().double() - reference["grads"][n].double()).square()
+                                 .sum()) for n, g in zip(names, grads)),
+        "grad_sq": sum(float(reference["grads"][n].double().square().sum()) for n in names),
+        "launches": counted()}
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+
+def grid_phase(torch, wrappers, work: Path):
+    """Phase 18: four gloo ranks that share the card, each a child process
+    (``--grid-child``), started before this process computes the one-device
+    references they are held to: (a) TP, model = 2 and data = 2, GRID_STEPS contrastive
+    steps of the seeded fp32 ViT-B/16 with the global-norm clip: every step's
+    loss within rel 1e-4 of the same steps in this process (one device, the
+    whole batch), the first step's gradients gathered whole within
+    GRID_GRAD_SHARE of theirs leaf by leaf (relative L2) and the clip's norm
+    within GRID_NORM_RTOL (AdamW's first step is about lr · sign(g), so only
+    these see a gradient off by a factor or a norm counted on the wrong
+    ranks), the gathered update within UPDATE_SHARE of theirs; (b) the
+    GPipe pipeline of the visual tower's 12 blocks over 4 stages with
+    PIPE_MICROBATCHES microbatches: the output within the fp32 tolerance of
+    the sequential tower's and the gradients within UPDATE_SHARE (relative
+    L2). K3f and K3b (fp32) are counted per rank. Returns {path: launches}."""
+    from fitclip_torch.models.clip.load import load_clip_encoder
+    from fitclip_torch.training import state as S
+    from fitclip_torch.training import steps as T
+
+    phase_start = time.perf_counter()
+    video, text, h = grid_inputs(torch)
+    # The ranks start first (a process takes seconds to reach the card) and
+    # wait for each reference file, which this process computes meanwhile and
+    # publishes whole (os.replace).
+    tp_reference = work / "grid_tp_reference.pt"
+    pipe_reference = work / "grid_pipe_reference.pt"
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(GRID_RANKS):
+        path = work / f"grid_spec{rank}.json"
+        path.write_text(json.dumps({"rank": rank, "port": port, "tp_reference": str(tp_reference),
+                                    "pipe_reference": str(pipe_reference)}))
+        logs.append((work / f"grid_child{rank}.out", work / f"grid_child{rank}.err"))
+        with open(logs[-1][0], "w") as out, open(logs[-1][1], "w") as err:
+            procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                           "--grid-child", str(path)], cwd=ROOT, stdout=out,
+                                          stderr=err, text=True))
+    try:
+        # The one-process references.
+        encoder = load_clip_encoder("ViT-B/16", device="cuda", seed=0).encoder
+        before = {n: p.detach().cpu().clone() for n, p in encoder.model.named_parameters()}
+        optimizer = S.make_optimizer(GRID_LR, gradient_clip_val=GRID_CLIP)
+        state = S.init_train_state(encoder, optimizer)
+        seen = recording_clip(torch, optimizer, [n for n in state.named_parameters()
+                                                 if optimizer.trainable(n)])
+        step = T.make_contrastive_train_step(encoder, optimizer)
+        losses = []
+        for _ in range(GRID_STEPS):
+            state, metrics = step(state, {"video": video, "text": text})
+            losses.append(float(metrics["loss/train"]))
+        publish(torch, {"before": before, "after": {n: p.detach().cpu() for n, p in
+                                                    encoder.model.named_parameters()},
+                        "grads": {n: g.cpu() for n, g in seen["grads"].items()},
+                        "norm": seen["norm"]}, tp_reference)
+        del seen
+        blocks = encoder.model.visual.transformer.blocks
+        with torch.no_grad():
+            for (name, param) in blocks.named_parameters():
+                param.copy_(before[f"visual.transformer.blocks.{name}"].cuda())
+        x = h
+        for block in blocks:
+            x = block(x)
+        grads = torch.autograd.grad(x.square().mean(), list(blocks.parameters()))
+        publish(torch, {"out": x.detach().cpu(), "grads": {n: g.cpu() for (n, _), g in
+                                                           zip(blocks.named_parameters(), grads)}},
+                pipe_reference)
+        del encoder, state, optimizer, blocks, grads, x
+        torch.cuda.empty_cache()
+
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outs = [(out.read_text(), err.read_text()) for out, err in logs]
+    for proc, (stdout, stderr) in zip(procs, outs):
+        require(proc.returncode == 0, f"phase 18 child exited {proc.returncode}:\n"
+                                      f"{stdout[-3000:]}\n{stderr[-6000:]}")
+    ranks = [json.loads(stdout.strip().splitlines()[-1]) for stdout, _ in outs]
+    for path in (tp_reference, pipe_reference, *(p for pair in logs for p in pair)):
+        path.unlink()
+
+    tp_expected = {name: 0 for name in wrappers}
+    tp_expected.update({name: 2 * LAYERS * GRID_STEPS for name in (
+        "fused_attention_qkv", "attention_f32", "fused_attention_qkv_backward",
+        "attention_bwd_f32")})
+    per = LAYERS // GRID_RANKS * PIPE_MICROBATCHES
+    pipe_expected = {name: 0 for name in wrappers}
+    pipe_expected.update({name: per for name in (
+        "fused_attention_qkv", "attention_f32", "fused_attention_qkv_backward",
+        "attention_bwd_f32")})
+    for r in ranks:
+        tp, pipe = r["tp"], r["pipeline"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(tp["losses"], losses)]
+        print(f"grid rank {r['rank']}: TP losses {tp['losses']} (one process {losses}, relative "
+              f"{[f'{v:.2e}' for v in rel]}); step ms {[round(v, 1) for v in tp['step_ms']]}; "
+              f"{tp['local_bytes']} parameter bytes; launches "
+              f"{ {k: n for k, n in tp['launches'].items() if n} }; pipeline: {pipe['blocks']} "
+              f"blocks, forward {pipe['forward_ms']:.1f} ms, backward {pipe['backward_ms']:.1f} "
+              f"ms, max |out - sequential| {pipe['max_abs_err']:.3e}; launches "
+              f"{ {k: n for k, n in pipe['launches'].items() if n} }")
+        require(max(rel) <= 1e-4, f"grid rank {r['rank']}: TP losses {tp['losses']} vs {losses}")
+        require(tp["launches"] == tp_expected, f"grid rank {r['rank']}: TP launches "
+                                               f"{tp['launches']}, expected {tp_expected}")
+        require(pipe["blocks"] == LAYERS // GRID_RANKS and pipe["close"],
+                f"grid rank {r['rank']}: pipeline output off by {pipe['max_abs_err']}")
+        require(pipe["launches"] == pipe_expected, f"grid rank {r['rank']}: pipeline launches "
+                                                   f"{pipe['launches']}, expected {pipe_expected}")
+    tp0 = ranks[0]["tp"]
+    norm_rel = [abs(r["tp"]["norm"] - tp0["reference_norm"]) / tp0["reference_norm"]
+                for r in ranks]
+    print(f"grid: TP first step's gradients, gathered whole, against the one-process step's: "
+          f"{tp0['grad_leaves']} leaves, the worst {tp0['grad_worst'][0]} at a relative L2 gap "
+          f"of {tp0['grad_worst'][1]:.3e} (bound {GRID_GRAD_SHARE}); the clip's norm "
+          f"{[r['tp']['norm'] for r in ranks]} against {tp0['reference_norm']} (relative "
+          f"{max(norm_rel):.2e}, bound {GRID_NORM_RTOL}; clip {GRID_CLIP})")
+    require(not tp0["grad_over"] and tp0["grad_leaves"] > 0,
+            f"grid: TP gradients over {GRID_GRAD_SHARE} of the one-process step's: "
+            f"{tp0['grad_over']}")
+    require(max(norm_rel) <= GRID_NORM_RTOL, f"grid: TP clip norms {norm_rel}")
+    gap, moved = ranks[0]["tp"]["gap"], ranks[0]["tp"]["moved"]
+    grad_rel = (sum(r["pipeline"]["grad_gap_sq"] for r in ranks)
+                / sum(r["pipeline"]["grad_sq"] for r in ranks)) ** 0.5
+    print(f"grid: TP update gap {gap:.4e} against the one-process update {moved:.4e} "
+          f"(ratio {gap / moved:.3e}, bound {UPDATE_SHARE}); pipeline gradients' relative L2 "
+          f"gap {grad_rel:.3e} (bound {UPDATE_SHARE}); phase 18 took "
+          f"{time.perf_counter() - phase_start:.1f} s ({nvidia_smi()})")
+    require(moved > 0 and gap <= UPDATE_SHARE * moved, f"grid: TP update gap {gap} vs {moved}")
+    require(grad_rel <= UPDATE_SHARE, f"grid: pipeline gradients' relative gap {grad_rel}")
+    print(json.dumps({"grid": {"tp_step_ms": [r["tp"]["step_ms"] for r in ranks],
+                               "pipeline_ms": [[r["pipeline"]["forward_ms"],
+                                                r["pipeline"]["backward_ms"]] for r in ranks],
+                               "tp_update_ratio": gap / moved, "pipe_grad_rel": grad_rel,
+                               "tp_grad_worst": tp0["grad_worst"][1],
+                               "tp_norm_rel": max(norm_rel)},
+                      "card": nvidia_smi()}))
+    return {"tp_grid": {n: sum(r["tp"]["launches"][n] for r in ranks) for n in wrappers},
+            "pipeline": {n: sum(r["pipeline"]["launches"][n] for r in ranks) for n in wrappers}}
+
+
+def per_epoch_grid_only(torch) -> int:
+    """Phases 17 and 18 alone (``--per-epoch-grid``): the build, phase 11's
+    MSR-VTT and drift trees, phase 13's WebVid train tree, two checkpoints of
+    the seeded ViT-B/16 (one contrastive step, and a second step resumed from
+    it, through the CLI), phase 14 (d) on the first, then phases 17 and 18."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    from fitclip_torch import _build
+    from fitclip_torch.models.clip.tokenizer import write_tiny_test_vocab
+
+    start = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - start:.1f} s; {nvidia_smi()}")
+    wrappers = kernel_wrappers()
+    work = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        ids, captions = write_msrvtt_tree(work / "msrvtt")
+        merges, _ = write_tiny_test_vocab(str(work), [w for c in captions for w in c.split()])
+        os.environ.update(write_drift_trees(work), MSRVTT_PATH=str(work / "msrvtt"))
+        os.environ.update(write_webvid_train_tree(work))
+        tree = {"root": work / "msrvtt", "ids": ids, "merges": merges}
+        common = ["command=train", "encoder=clip_vit_b_16", f"+encoder.bpe_path={merges}",
+                  "data=webvid"]
+        cli_run(torch, wrappers, [*common, "+trainer.max_steps=1",
+                                  f"+log_dir={work / 'a' / 'logs'}",
+                                  f"trainer.callbacks.checkpoint.dirpath={work / 'a' / 'ckpt'}"])
+        shutil.copy(work / "a" / "ckpt" / "last", work / "a" / "first")
+        cli_run(torch, wrappers, [*common, "+trainer.max_steps=2",
+                                  f"+checkpoint_path={work / 'a' / 'first'}",
+                                  f"+log_dir={work / 'b' / 'logs'}",
+                                  f"trainer.callbacks.checkpoint.dirpath={work / 'b' / 'ckpt'}"])
+        torch.set_grad_enabled(False)
+        wise_phase(torch, wrappers, work, tree, work / "a" / "first")
+        paths, _ = per_epoch_phase(torch, wrappers, work, tree,
+                                   [work / "a" / "first", work / "b" / "ckpt" / "last"],
+                                   work / "student_openai.pt", work / "wise_merged.pt")
+        torch.set_grad_enabled(True)
+        torch.cuda.empty_cache()
+        paths.update(grid_phase(torch, wrappers, work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"per_epoch_grid": {path: {k: n for k, n in c.items() if n}
+                                         for path, c in paths.items()}, "card": nvidia_smi()}))
+    return 0
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the main paths by name; each counts its launches."""
     from fitclip_torch.ops import attention as A
@@ -5432,12 +6179,16 @@ def main() -> int:
         return load_exported_child(*sys.argv[2:5])
     if sys.argv[1:2] == ["--distributed-child"]:
         return distributed_child(sys.argv[2])
+    if sys.argv[1:2] == ["--grid-child"]:
+        return grid_child(sys.argv[2])
     alone["--op-dispatch"] = op_dispatch_only
-    if sys.argv[1:2] in (["--train-cli"], ["--resnet-wise"], ["--export"], ["--distributed"]):
+    if sys.argv[1:2] in (["--train-cli"], ["--resnet-wise"], ["--export"], ["--distributed"],
+                         ["--per-epoch-grid"]):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return {"--train-cli": train_cli_only, "--resnet-wise": resnet_wise_only,
-                "--export": export_only, "--distributed": distributed_only}[sys.argv[1]](torch)
+                "--export": export_only, "--distributed": distributed_only,
+                "--per-epoch-grid": per_epoch_grid_only}[sys.argv[1]](torch)
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -5534,7 +6285,7 @@ def main() -> int:
           f"diagonal mean {float(scores.diagonal().mean()):.4f}")
 
     # Phase 5: the slice's throughput at 32 clips.
-    print(f"clocks (phase 5): {clocks()}")
+    print(f"clocks (phase 5): {clocks()}; {elapsed()}")
     video32 = torch.randint(0, 256, (32, 4, 224, 224, 3), generator=gen, device="cuda",
                             dtype=torch.uint8)
     torch.cuda.reset_peak_memory_stats()
@@ -5551,7 +6302,7 @@ def main() -> int:
 
     # Phase 9 runs here, while phase 4's inputs and bf16 encoder are at hand.
     # (a) CLIP ViT-B/16 bf16 with fused_block=True (K2); (b) SLIP ViT-B/16.
-    print(f"clocks (phase 9): {clocks()}")
+    print(f"clocks (phase 9): {clocks()}; {elapsed()}")
     clip_k2_paths, clip_k2_times = clip_bf16_fused_phase(torch, wrappers, float_enc, video, text,
                                                          video32)
     slip_paths, slip_times = slip_phase(torch, wrappers, video, calib_text, text, video32)
@@ -5573,60 +6324,74 @@ def main() -> int:
     # Phase 7: Frozen-in-Time. Inference: no autograd graph.
     torch.set_grad_enabled(False)
     torch.cuda.empty_cache()
-    print(f"clocks (phase 7): {clocks()}")
+    print(f"clocks (phase 7): {clocks()}; {elapsed()}")
     fit_paths, fit_times = fit_phase(torch, wrappers)
     torch.cuda.empty_cache()
     fit_fp32_paths, fit_fp32_times = fit_fp32_phase(torch, wrappers)
 
     # Phase 8: the S3D-G family (MIL-NCE, VideoCLIP).
     torch.cuda.empty_cache()
-    print(f"clocks (phase 8): {clocks()}")
+    print(f"clocks (phase 8): {clocks()}; {elapsed()}")
     s3dg_paths, s3dg_times = s3dg_phase(torch, wrappers)
 
     # Phase 10: the bench path (python -m fitclip_torch.bench's arms and encode).
     torch.cuda.empty_cache()
-    print(f"clocks (phase 10): {clocks()}")
+    print(f"clocks (phase 10): {clocks()}; {elapsed()}")
     bench_paths, bench_times, _ = bench_phase(torch, checks, wrappers)
     times.update(bench_times)
 
     # Phase 11: the eval CLI on the card; phase 12: the embed service, on phase 11's
     # scales, predictions and videos.
     torch.cuda.empty_cache()
-    print(f"clocks (phase 11): {clocks()}")
+    print(f"clocks (phase 11): {clocks()}; {elapsed()}")
     work = ROOT / "build" / "chip_smoke_eval"
     try:
         cli_paths, eval_tree = eval_cli_phase(torch, wrappers, work)
         torch.cuda.empty_cache()
-        print(f"clocks (phase 12): {clocks()}")
+        print(f"clocks (phase 12): {clocks()}; {elapsed()}")
         serving_paths = serving_phase(torch, wrappers, eval_tree)
         # Phase 13: the train-side CLI, on phase 11's trees.
         torch.cuda.empty_cache()
-        print(f"clocks (phase 13): {clocks()}")
+        print(f"clocks (phase 13): {clocks()}; {elapsed()}")
         torch.set_grad_enabled(True)
         train_cli_paths = train_cli_phase(torch, wrappers, work, eval_tree,
                                           fp32_train_times.get("contrastive"))
         # Phase 14: the CLIP ResNet and WiSE-FT, on phase 11's and 13's trees and
         # phase 13 (a)'s trained student.
         torch.cuda.empty_cache()
-        print(f"clocks (phase 14): {clocks()}")
+        print(f"clocks (phase 14): {clocks()}; {elapsed()}")
         resnet_wise_paths, _ = resnet_wise_phase(torch, wrappers, work, eval_tree,
                                                  work / "a" / "ckpt" / "last")
         # Phase 15: export, on phase 11's BPE vocabulary.
         torch.cuda.empty_cache()
-        print(f"clocks (phase 15): {clocks()}")
+        print(f"clocks (phase 15): {clocks()}; {elapsed()}")
         export_paths = export_phase(torch, wrappers, work, eval_tree["merges"])
         # Phase 16: the CLI under a process group, each rank a child process, on
         # phase 11's and 13's trees.
         torch.cuda.empty_cache()
-        print(f"clocks (phase 16): {clocks()}")
+        print(f"clocks (phase 16): {clocks()}; {elapsed()}")
         distributed_paths = distributed_phase(torch, wrappers, work, eval_tree["merges"])
+        # Phase 17: the per-epoch loop over phase 13 (d)'s best and last, on phase
+        # 11's trees, its offline WiSE-FT held to phase 14 (d)'s merge.
+        torch.cuda.empty_cache()
+        print(f"clocks (phase 17): {clocks()}; {elapsed()}")
+        torch.set_grad_enabled(False)
+        per_epoch_paths, _ = per_epoch_phase(
+            torch, wrappers, work, eval_tree,
+            [work / "d" / "ckpt" / "best", work / "d" / "ckpt" / "last"],
+            work / "student_openai.pt", work / "wise_merged.pt")
+        # Phase 18: tensor parallelism and the pipeline, four gloo ranks on the card.
+        torch.cuda.empty_cache()
+        print(f"clocks (phase 18): {clocks()}; {elapsed()}")
+        torch.set_grad_enabled(True)
+        grid_paths = grid_phase(torch, wrappers, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"encode": launches, **paths, **fit_paths, **fit_fp32_paths, **s3dg_paths,
              **clip_k2_paths,
              **slip_paths, **fp32_paths, **fp32_train_paths, **bench_paths, **cli_paths,
              **serving_paths, **train_cli_paths, **resnet_wise_paths, **export_paths,
-             **distributed_paths}
+             **distributed_paths, **per_epoch_paths, **grid_paths}
     print(f"launches per path (nonzero counts): "
           f"{ {path: {k: n for k, n in c.items() if n} for path, c in paths.items()} }")
     for name in wrappers:
@@ -5693,6 +6458,7 @@ def main() -> int:
         print_row(entry["name"], entry)
         require(entry["ms"] >= DEVICE_BELOW_MS or "device_ms" in entry,
                 f"{entry['name']}: {entry['ms']:.4f} ms by events and no device time")
+    print(f"chip_smoke: every phase passed, {elapsed()}")
     print(json.dumps({"kernels": record}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

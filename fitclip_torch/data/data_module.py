@@ -76,12 +76,21 @@ def _map_over_encoders(encoder: EncoderOrMap, fn):
 class VideoDataModule(ABC):
     def __init__(self, encoder: EncoderOrMap, batch_size: Optional[int] = 1,
                  eval_batch_size: Optional[int] = 32, num_threads: int = 8,
-                 seed: int = 42) -> None:
+                 seed: int = 42,
+                 decode_short_side: Optional[int] = None,
+                 eval_frame_cache_dir: Optional[str] = None) -> None:
         self.encoder = encoder
         self.batch_size = batch_size
         self.eval_batch_size = eval_batch_size
         self.num_threads = num_threads
         self.seed = seed
+        # Decode-time aspect-preserving downscale (++data.decode_short_side=N);
+        # see VideoReader.from_path for the parity note.
+        self.decode_short_side = decode_short_side
+        # Opt-in cache of transformed frames for repeated eval sweeps
+        # (++data.eval_frame_cache_dir=DIR); eval loaders only, since train
+        # pipelines draw anew every epoch.
+        self.eval_frame_cache_dir = eval_frame_cache_dir
 
     def _pipelines(self, train: bool):
         return _map_over_encoders(self.encoder, lambda e: build_pipeline(e, train))
@@ -94,7 +103,9 @@ class VideoDataModule(ABC):
 
     def _dataset_kwargs(self, train: bool) -> Dict[str, Any]:
         return {"pipelines": self._pipelines(train),
-                "pad_batch": self._pad_batch()}
+                "pad_batch": self._pad_batch(),
+                "decode_short_side": self.decode_short_side,
+                "frame_cache_dir": None if train else self.eval_frame_cache_dir}
 
     def _collator(self) -> Collator:
         return Collator(tokenizers=None, pad_batch=self._pad_batch())

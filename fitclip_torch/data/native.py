@@ -17,11 +17,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
-from fitclip_torch.data.video_reader import VideoReader, _nearest_indices
+from fitclip_torch.data.video_reader import VideoReader, _nearest_indices, scaled_size
 
 LOGGER = logging.getLogger(__name__)
 
@@ -83,6 +83,8 @@ def load_decoder() -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vd_open.restype = ctypes.c_void_p
     lib.vd_open.argtypes = [ctypes.c_char_p]
+    lib.vd_open_threaded.restype = ctypes.c_void_p
+    lib.vd_open_threaded.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
     lib.vd_num_frames.restype = ctypes.c_int
     lib.vd_num_frames.argtypes = [ctypes.c_void_p]
     lib.vd_avg_fps.restype = ctypes.c_double
@@ -110,10 +112,14 @@ class NativeVideoReader(VideoReader):
     """Indexed reads through the C++ decoder; decord-compatible error
     tolerance (zeros instead of raising) and timestamp-based seeks."""
 
-    def __init__(self, path) -> None:
+    def __init__(self, path, short_side: Optional[int] = None) -> None:
         super().__init__(path)
         self._lib = load_decoder()
-        self._handle = self._lib.vd_open(str(path).encode())  # full size, one thread
+        # short_side: aspect-preserving downscale at decode (swscale, and
+        # lowres DCT decoding where the codec has it); one decode thread.
+        self.short_side = short_side
+        self._handle = self._lib.vd_open_threaded(str(path).encode(),
+                                                  int(short_side or 0), 1)
         if not self._handle:
             LOGGER.error("An error occurred when trying to load the video "
                          "with path %s.", self.path)
@@ -126,6 +132,10 @@ class NativeVideoReader(VideoReader):
             w = ctypes.c_int()
             self._lib.vd_frame_size(self._handle, ctypes.byref(h), ctypes.byref(w))
             height, width = h.value, w.value
+            # Scale at decode only from >= 2x the target short side; below
+            # that a 1:1 conversion and the transform's resize are faster.
+            if self.short_side and min(height, width) >= 2 * self.short_side:
+                height, width = scaled_size(height, width, self.short_side)
             out = np.empty((len(indices_arr), height, width, 3), dtype=np.uint8)
             code = self._lib.vd_get_frames(
                 self._handle,

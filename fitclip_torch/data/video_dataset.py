@@ -17,8 +17,10 @@ count — stronger than the reference's seeded-worker approach.
 """
 
 import dataclasses
+import hashlib
 import logging
 import os
+import threading
 from abc import ABC, abstractmethod
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -49,10 +51,21 @@ class VideoDataset(ABC):
     def __init__(self, video_paths: Sequence,
                  pipelines: Union[FramePipeline, Mapping[str, FramePipeline]],
                  video_key_name: str = "video", target_key_name: str = "target",
-                 pad_batch: bool = True) -> None:
+                 pad_batch: bool = True,
+                 decode_short_side: Optional[int] = None,
+                 frame_cache_dir: Optional[str] = None) -> None:
         self.video_paths = list(video_paths)
         self.target_key_name = target_key_name
         self.pad_batch = pad_batch
+        self.decode_short_side = decode_short_side
+        # Opt-in cache of transformed frames for repeated deterministic eval
+        # sweeps (the per-epoch loop over many checkpoints): one .npy per
+        # (video file, pipeline key, row), so later sweeps skip decode and
+        # transform. The key covers file identity (path, mtime, size) and
+        # decode geometry, not the transform's settings: use one cache
+        # directory per eval configuration. The key is the JAX package's, so
+        # either package reads a cache the other filled.
+        self.frame_cache_dir = frame_cache_dir
         if isinstance(pipelines, Mapping):
             self.pipelines = {f"{video_key_name}_{k}": v for k, v in pipelines.items()}
         else:
@@ -69,13 +82,41 @@ class VideoDataset(ABC):
         """Clip start/end times (YouCook2-style segment datasets override)."""
         return None, None
 
+    def _cache_path(self, path, key: str, video_idx: int) -> str:
+        try:
+            stat = os.stat(path)
+            identity = f"{os.path.abspath(path)}|{stat.st_mtime_ns}|{stat.st_size}"
+        except OSError:
+            identity = os.path.abspath(str(path))
+        # Segment datasets (YouCook2, DiDeMo) repeat one video file over many
+        # rows with different clip times: the row and the times are part of
+        # the key, or every segment would share one entry.
+        times = self._get_times(video_idx)
+        digest = hashlib.sha1(
+            f"{identity}|{key}|{self.decode_short_side}|{video_idx}|{times}"
+            .encode()).hexdigest()
+        return os.path.join(self.frame_cache_dir, f"{digest}.npy")
+
     def __getitem__(self, video_idx: int,
                     rng: Optional[np.random.Generator] = None) -> Dict[str, Any]:
         rng = rng or np.random.default_rng()
-        reader = VideoReader.from_path(self.video_paths[video_idx])
-        start_time, end_time = self._get_times(video_idx)
-        start_frame = 0 if start_time is None else int(reader.time_to_indices(start_time))
-        end_frame = len(reader) - 1 if end_time is None else int(reader.time_to_indices(end_time))
+        path = self.video_paths[video_idx]
+
+        # The reader opens lazily: an item that hits the cache for every
+        # pipeline never opens the video (the open indexes the file's frames).
+        reader: Optional[VideoReader] = None
+        frame_range: Optional[Tuple[int, int]] = None
+
+        def get_reader() -> VideoReader:
+            nonlocal reader, frame_range
+            if reader is None:
+                reader = VideoReader.from_path(path, short_side=self.decode_short_side)
+                start_time, end_time = self._get_times(video_idx)
+                start = 0 if start_time is None else int(reader.time_to_indices(start_time))
+                end = (len(reader) - 1 if end_time is None
+                       else int(reader.time_to_indices(end_time)))
+                frame_range = (start, end)
+            return reader
 
         item: Dict[str, Any] = {
             self.target_key_name: self._get_target(video_idx, rng=rng)
@@ -83,9 +124,23 @@ class VideoDataset(ABC):
             "video_id": self._get_video_id(video_idx),
         }
         for key, pipeline in self.pipelines.items():
-            indices = pipeline.sampler(start_frame, end_frame,
-                                       fps=reader.get_avg_fps(), rng=rng)
-            item[key] = pipeline.transform(reader(indices), rng)
+            cache_file = (self._cache_path(path, key, video_idx)
+                          if self.frame_cache_dir else None)
+            if cache_file and os.path.exists(cache_file):
+                item[key] = np.load(cache_file)
+                continue
+            r = get_reader()
+            start_frame, end_frame = frame_range
+            indices = pipeline.sampler(start_frame, end_frame, fps=r.get_avg_fps(), rng=rng)
+            item[key] = pipeline.transform(r(indices), rng)
+            if cache_file:
+                os.makedirs(self.frame_cache_dir, exist_ok=True)
+                # Atomic publish: the loader's threads, and the ranks of a
+                # group that all decode the unsliced eval set, may write the
+                # same clip at once.
+                tmp = f"{cache_file}.{os.getpid()}.{threading.get_ident()}.tmp.npy"
+                np.save(tmp, item[key])
+                os.replace(tmp, cache_file)
         return item
 
     def __len__(self) -> int:

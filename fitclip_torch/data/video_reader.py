@@ -23,7 +23,7 @@ Frames are numpy uint8 HWC; the device sees them only after collation.
 import logging
 import os
 from abc import ABC, abstractmethod
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
@@ -65,14 +65,29 @@ class VideoReader(ABC):
         raise NotImplementedError
 
     @staticmethod
-    def from_path(path) -> "VideoReader":
+    def from_path(path, short_side: Optional[int] = None) -> "VideoReader":
+        """short_side: decode-time aspect-preserving downscale to this short
+        side, only for frames whose short side is at least twice it (swscale
+        in the native decoder, ``cv2.resize`` bicubic in OpenCV's). An opt-in
+        speed option (``++data.decode_short_side=N``): its bicubic differs
+        from the transform's at the last bit, so bit-parity paths leave it
+        unset. Never upscales."""
         if str(path).lower().endswith(IMAGE_EXTENSIONS):
             return ImageVideoReader(path)
         native = _native_reader()
         if native is not None:
-            return native(path)
+            return native(path, short_side=short_side)
         _require_cv2(path)
-        return OpenCVVideoReader(path)
+        return OpenCVVideoReader(path, short_side=short_side)
+
+
+def scaled_size(height: int, width: int, short_side: int):
+    """Aspect-preserving (h, w) with min side == short_side; never upscales."""
+    if height <= 0 or width <= 0 or min(height, width) <= short_side:
+        return height, width
+    if height <= width:
+        return short_side, max(1, round(width * short_side / height))
+    return max(1, round(height * short_side / width)), short_side
 
 
 def _native_reader():
@@ -110,11 +125,12 @@ class OpenCVVideoReader(VideoReader):
     (i + 0.5) / fps (frame midpoints), matching decord's mean of per-frame
     (start, end) timestamps for constant-frame-rate streams."""
 
-    def __init__(self, path) -> None:
+    def __init__(self, path, short_side: Optional[int] = None) -> None:
         super().__init__(path)
         import cv2
 
         self._cv2 = cv2
+        self.short_side = short_side
         self.capture = None
         try:
             capture = cv2.VideoCapture(self.path)
@@ -159,6 +175,13 @@ class OpenCVVideoReader(VideoReader):
             ok, frame = self.capture.retrieve()
             if not ok or frame is None:
                 raise IOError(f"failed to decode frame {index}")
+            # The native reader's rule (>= 2x the target short side), so a
+            # run has the same geometry whichever backend decodes.
+            if self.short_side and min(frame.shape[:2]) >= 2 * self.short_side:
+                new_h, new_w = scaled_size(frame.shape[0], frame.shape[1],
+                                           self.short_side)
+                frame = cv2.resize(frame, (new_w, new_h),
+                                   interpolation=cv2.INTER_CUBIC)
             frames[index] = frame[:, :, ::-1]  # BGR -> RGB
         return np.stack([frames[int(i)] for i in indices]).astype(np.uint8)
 

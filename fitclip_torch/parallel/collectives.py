@@ -35,15 +35,15 @@ class _GatherRows(torch.autograd.Function):
     rank order. Backward: the gradient summed over ranks, this rank's rows."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        ctx.rows, ctx.rank = x.shape[0], dist.get_rank()
-        return host_array(x)
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.rows, ctx.rank, ctx.group = x.shape[0], dist.get_rank(group), group
+        return host_array(x, group=group)
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         summed = grad.contiguous().clone()
-        dist.all_reduce(summed)
-        return summed[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
+        dist.all_reduce(summed, group=ctx.group)
+        return summed[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -62,10 +62,11 @@ class _AllReduceSum(torch.autograd.Function):
         return summed
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``x``, differentiable (see the module docstring);
-    ``x`` itself when no collective runs."""
-    return _GatherRows.apply(x) if collectives_active() else x
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's rows of ``x`` over ``group`` (the whole process group by
+    default; a grid's data group under tensor parallelism), differentiable
+    (see the module docstring); ``x`` itself when no collective runs."""
+    return _GatherRows.apply(x, group) if collectives_active() else x
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
@@ -94,17 +95,17 @@ def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
     return [bucket for buckets in groups.values() for bucket in buckets]
 
 
-def average_gradients(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The mean over ranks of each gradient, all-reduced in flat buckets (one
-    collective a bucket, not one a leaf); the gradients themselves when no
-    collective runs."""
+def average_gradients(grads: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The mean over the ranks of ``group`` (the whole process group by
+    default) of each gradient, all-reduced in flat buckets (one collective a
+    bucket, not one a leaf); the gradients themselves when no collective runs."""
     if not collectives_active():
         return list(grads)
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
     out: List[torch.Tensor] = list(grads)
     for bucket in _buckets(grads):
         flat = torch.cat([grads[i].reshape(-1) for i in bucket])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat.div_(world)
         offset = 0
         for i in bucket:

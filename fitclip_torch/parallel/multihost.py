@@ -174,14 +174,14 @@ def process_local_rows(n_rows: int, process_index: Optional[int] = None,
     return slice(p * per, (p + 1) * per)
 
 
-def host_array(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+def host_array(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
     """Every rank's part of ``x`` (the same shape on each), concatenated along
-    ``dim`` in rank order on every rank, on ``x``'s device; ``x`` itself
-    without a group."""
+    ``dim`` in rank order on every rank of ``group`` (the whole process group
+    by default), on ``x``'s device; ``x`` itself without a group."""
     if not dist.is_initialized():
         return x
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x.contiguous())
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
 
 

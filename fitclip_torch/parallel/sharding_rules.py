@@ -1,5 +1,18 @@
-"""FSDP over the data ranks (port of ``fitclip_tpu/parallel/sharding_rules.py:
-fsdp_shardings`` and the ``_spec_for`` it uses on a mesh without a model axis).
+"""Tensor parallelism's layout and FSDP over the data ranks (port of
+``fitclip_tpu/parallel/sharding_rules.py``: ``_RULES``, ``_spec_for``,
+``tensor_parallel_shardings``, ``shard_params`` and ``fsdp_shardings``).
+
+Tensor parallelism: ``_RULES`` is JAX's Megatron layout, read on each port
+parameter's JAX path and leaf layout (below): column-parallel ``in_proj`` and
+``mlp_fc`` with their biases, row-parallel ``out_proj`` and ``mlp_proj``,
+vocab-parallel ``token_embedding``. ``tensor_parallel_shardings`` gives each
+split parameter's port dim; ``shard_params`` keeps each rank's part of them on
+a grid (``mesh.create_grid``) and switches the model to the operators of
+``tensor_parallel.py``. One part differs from JAX's: GSPMD keeps a contiguous
+slab of the packed (3W) QKV output and re-lays the activations itself, while
+the attention kernels here need whole heads of Q, K and V, so each rank keeps
+its heads' slice of each third (``qkv_part``). Compare gathered weights, not
+parts.
 
 The rule is the JAX package's, read on the JAX layout of each leaf: a leaf of
 at least ``min_leaf_size`` elements is split over the N ranks on its largest
@@ -20,8 +33,15 @@ forward and backward as without FSDP, all-reduces the gradients (gloo has no
 reduce-scatter; a rank keeps its part of each split one), and AdamW updates
 each rank's parts, the global-norm clip summing the parts' squares over
 ranks. A checkpoint is written whole (``full_tensors``); ``unshard`` gives
-back a replicated state. Tensor parallelism (``tensor_parallel_shardings``,
-``shard_params``) is not ported.
+back a replicated state.
+
+FSDP composes with tensor parallelism as ``fsdp_shardings`` does on a mesh
+with a model axis: a leaf takes its TP split first, and the data split goes
+on the largest remaining dim of the whole leaf that the data ranks divide
+(the Megatron + ZeRO 2-D layout). A sharded state on a grid gathers and
+all-reduces over the grid's data group, and the clip's norm sums each leaf's
+squares over the ranks that split it: the model group, the data group, or
+all ranks for a leaf split on both axes.
 """
 
 import contextlib
@@ -36,12 +56,49 @@ from fitclip_torch.parallel.collectives import average_gradients
 from fitclip_torch.parallel.multihost import host_array
 
 MIN_LEAF_SIZE = 4096
+MODEL_AXIS = "model"
+
+# (path suffix, the spec of the trailing dims of the JAX leaf): first match
+# wins; leading (layer) dims stay whole. fitclip_tpu/parallel/sharding_rules.py:22.
+_RULES = [
+    ("attn/in_proj/kernel", ("replicated", MODEL_AXIS)),   # column parallel
+    ("attn/in_proj/bias", (MODEL_AXIS,)),
+    ("attn/out_proj/kernel", (MODEL_AXIS, "replicated")),  # row parallel
+    ("mlp_fc/kernel", ("replicated", MODEL_AXIS)),
+    ("mlp_fc/bias", (MODEL_AXIS,)),
+    ("mlp_proj/kernel", (MODEL_AXIS, "replicated")),
+    ("token_embedding", (MODEL_AXIS, "replicated")),       # vocab parallel
+]
+# The packed QKV projection's leaves: a rank keeps its heads' slice of each of
+# the Q, K and V thirds of the split dim (``qkv_part``), not one contiguous
+# block of it.
+_PACKED_QKV = ("attn/in_proj/kernel", "attn/in_proj/bias")
+
+
+def _spec_for(path_str: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """The JAX leaf's partition spec, one axis name or None per dim."""
+    for suffix, trailing in _RULES:
+        if path_str.endswith(suffix):
+            axes = [None if axis == "replicated" else axis for axis in trailing]
+            if len(axes) > ndim:
+                break
+            return tuple([None] * (ndim - len(axes)) + axes)
+    return (None,) * ndim
 
 
 def _jax_path(name: str) -> str:
     from fitclip_torch.training.state import jax_param_path
 
     return jax_param_path(name)
+
+
+def dense_kind(name: str) -> Optional[str]:
+    """"column" or "row" for a dense layer's weight that ``_RULES`` splits on
+    its output or its input features (the JAX kernel is (in, out)), else None."""
+    spec = _spec_for(_jax_path(name), 2)
+    if spec[1] == MODEL_AXIS:
+        return "column"
+    return "row" if spec[0] == MODEL_AXIS else None
 
 
 def jax_layout(name: str, shape: Sequence[int]) -> Tuple[Tuple[int, ...], List[Optional[int]]]:
@@ -59,13 +116,105 @@ def jax_layout(name: str, shape: Sequence[int]) -> Tuple[Tuple[int, ...], List[O
     return (shape[2], shape[3], shape[1], shape[0]), [2, 3, 1, 0]  # OIHW -> HWIO
 
 
-def _split_dim(shape: Sequence[int], n: int, min_leaf_size: int) -> Optional[int]:
+def tensor_parallel_shardings(named: Mapping[str, torch.Tensor]) -> Dict[str, Optional[int]]:
+    """{port parameter name: the port dim its model-axis split runs along, or
+    None where it replicates} (JAX's NamedShardings of the CLIP tree)."""
+    out: Dict[str, Optional[int]] = {}
+    for name, tensor in named.items():
+        shape, to_port = jax_layout(name, tensor.shape)
+        spec = _spec_for(_jax_path(name), len(shape))
+        out[name] = next((to_port[d] for d, axis in enumerate(spec) if axis == MODEL_AXIS),
+                         None)
+    return out
+
+
+def qkv_part(tensor: torch.Tensor, rank: int, size: int) -> torch.Tensor:
+    """The rank's heads of a packed (3W, ...) in_proj weight or bias: its
+    slice of each of the Q, K and V thirds, concatenated."""
+    return torch.cat([third.chunk(size, 0)[rank] for third in tensor.chunk(3, 0)])
+
+
+def tensor_parallel_part(name: str, tensor: torch.Tensor, dim: int, rank: int,
+                         size: int) -> torch.Tensor:
+    """The rank's part of a whole parameter under its TP split."""
+    if _jax_path(name).endswith(_PACKED_QKV):
+        return qkv_part(tensor, rank, size).contiguous()
+    return tensor.chunk(size, dim)[rank].contiguous()
+
+
+def tensor_parallel_whole(name: str, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """The whole parameter from every rank's part, in rank order (the inverse
+    of ``tensor_parallel_part``)."""
+    if _jax_path(name).endswith(_PACKED_QKV):
+        thirds = [part.chunk(3, 0) for part in parts]
+        return torch.cat([torch.cat([t[i] for t in thirds]) for i in range(3)])
+    return torch.cat(list(parts), dim)
+
+
+def shard_params(encoder, grid) -> Dict[str, Optional[int]]:
+    """Tensor parallelism on ``grid``, in place: the encoder's (or CLIPModel's)
+    split parameters keep this rank's part and the model runs the operators of
+    ``tensor_parallel.py``. Returns ``tensor_parallel_shardings`` of the
+    model's parameters. Heads, the vocabulary and the MLP width must divide by
+    the model size (ValueError); the fused int8 and bf16 paths are refused."""
+    from fitclip_torch.parallel.tensor_parallel import parallelize_clip_model, refuse_fused_paths
+
+    refuse_fused_paths(encoder)
+    model = getattr(encoder, "model", encoder)
+    size = grid.model
+    if getattr(model, "tp_grid", None) is not None:
+        raise ValueError("the model is tensor-parallel already")
+    for tower in (model.visual, model.text):
+        heads = tower.config.heads
+        if heads % size:
+            raise ValueError(f"{heads} attention heads are not divisible by the model size {size}")
+    vocab = model.text.config.vocab_size
+    if vocab % size:
+        raise ValueError(f"a vocabulary of {vocab} is not divisible by the model size {size}")
+    named = dict(model.named_parameters())
+    layout = tensor_parallel_shardings(named)
+    with torch.no_grad():
+        for name, dim in layout.items():
+            if dim is not None:
+                if named[name].shape[dim] % size:
+                    raise ValueError(f"{name} {tuple(named[name].shape)} is not divisible "
+                                     f"by the model size {size} along dim {dim}")
+                named[name].data = tensor_parallel_part(name, named[name].detach(), dim,
+                                                        grid.model_index, size)
+    parallelize_clip_model(model, grid)
+    return layout
+
+
+def gathered_params(model, parts: Optional[Mapping[str, torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """A tensor-parallel model's parameters whole, on every rank of its model
+    group (a collective); or ``parts``, tensors named and laid out as the
+    rank's parameters (their gradients), whole."""
+    grid = model.tp_grid
+    out = {}
+    named = dict(model.named_parameters()) if parts is None else parts
+    for name, tensor in named.items():
+        dim = tensor_parallel_shardings({name: tensor})[name]
+        if dim is None:
+            out[name] = tensor.detach()
+        else:
+            parts = [torch.empty_like(tensor) for _ in range(grid.model)]
+            dist.all_gather(parts, tensor.detach().contiguous(), group=grid.model_group)
+            out[name] = tensor_parallel_whole(name, parts, dim)
+    return out
+
+
+def _split_dim(shape: Sequence[int], n: int, min_leaf_size: int,
+               taken: Sequence[bool] = ()) -> Optional[int]:
     """fsdp_shardings' choice on one leaf: the largest dim n divides (the
-    first of equals), or None to replicate."""
+    first of equals) among those not ``taken`` by the TP split, or None to
+    replicate."""
     if (math.prod(shape) if shape else 1) < min_leaf_size:
         return None
     best = None
     for dim, extent in enumerate(shape):
+        if dim < len(taken) and taken[dim]:
+            continue
         if extent % n == 0 and (best is None or extent > shape[best]):
             best = dim
     return best
@@ -79,20 +228,29 @@ class LeafSplit:
 
 
 def fsdp_layout(named: Mapping[str, torch.Tensor], n: int,
-                min_leaf_size: int = MIN_LEAF_SIZE) -> Dict[str, Optional[LeafSplit]]:
+                min_leaf_size: int = MIN_LEAF_SIZE,
+                model_size: int = 1) -> Dict[str, Optional[LeafSplit]]:
     """{port parameter name: its LeafSplit, or None where it replicates}, the
-    rule applied to each JAX leaf (the port's parameters of one stack together)."""
+    rule applied to each JAX leaf (the port's parameters of one stack together).
+    With ``model_size`` > 1 the parameters are a tensor-parallel rank's parts:
+    the rule reads each whole leaf and skips its TP dim."""
     if n <= 1:
         raise ValueError(f"FSDP needs more than one rank, got {n}")
     groups: Dict[str, List[str]] = {}
     for name in named:
         groups.setdefault(_jax_path(name), []).append(name)
+    tp = tensor_parallel_shardings(named) if model_size > 1 else {}
     layout: Dict[str, Optional[LeafSplit]] = {}
     for path, names in groups.items():
         shape, to_port = jax_layout(names[0], named[names[0]].shape)
+        tp_dim = tp.get(names[0])
+        taken = [to_port[d] == tp_dim for d in range(len(shape))] if tp_dim is not None \
+            else [False] * len(shape)
+        shape = tuple(extent * model_size if hit else extent for extent, hit in zip(shape, taken))
         stacked = ".blocks." in names[0]  # a transformer's layers, one JAX leaf
         leaf_shape = ((len(names),) + shape) if stacked else shape
-        dim = _split_dim(leaf_shape, n, min_leaf_size)
+        taken = ([False] if stacked else []) + taken
+        dim = _split_dim(leaf_shape, n, min_leaf_size, taken)
         if dim is not None and stacked and dim == 0:
             raise NotImplementedError(f"the FSDP rule splits {path} on its layer axis")
         port_dim = None if dim is None else to_port[dim - stacked]
@@ -111,12 +269,17 @@ def _chunk(tensor: torch.Tensor, split: LeafSplit, rank: int, world: int) -> tor
 class ShardedTrainState:
     """The FSDP side of a TrainState (``state.fsdp``); see the module docstring."""
 
-    def __init__(self, state, optimizer, min_leaf_size: int = MIN_LEAF_SIZE):
-        self.world, self.rank = dist.get_world_size(), dist.get_rank()
+    def __init__(self, state, optimizer, min_leaf_size: int = MIN_LEAF_SIZE, grid=None):
+        # On a tensor-parallel grid the data group splits; else every rank.
+        self.grid = grid
+        self.group = None if grid is None else grid.data_group
+        self.world, self.rank = dist.get_world_size(self.group), dist.get_rank(self.group)
         named = state.named_parameters()
         self.optimizer = optimizer
-        self.layout = {name: split for name, split in
-                       fsdp_layout(named, self.world, min_leaf_size).items() if split}
+        self.tp = ({n: d for n, d in tensor_parallel_shardings(named).items() if d is not None}
+                   if grid is not None else {})
+        self.layout = {name: split for name, split in fsdp_layout(
+            named, self.world, min_leaf_size, grid.model if grid else 1).items() if split}
         self.parts: Dict[str, torch.Tensor] = {}
         with torch.no_grad():
             for name, split in self.layout.items():
@@ -143,7 +306,7 @@ class ShardedTrainState:
         named = state.named_parameters()
         with torch.no_grad():
             for name, split in self.layout.items():
-                named[name].data = host_array(self.parts[name], split.dim)
+                named[name].data = host_array(self.parts[name], split.dim, self.group)
         try:
             yield
         finally:
@@ -155,18 +318,10 @@ class ShardedTrainState:
             self._release(state)
 
     def _global_norm(self, names: Sequence[str], grads: Sequence[torch.Tensor]):
-        """The norm of the whole gradient: replicated leaves once, the split
-        ones' parts summed over ranks."""
-        zero = grads[0].new_zeros((), dtype=torch.float32)
-        whole, split = zero.clone(), zero.clone()
-        for name, g in zip(names, grads):
-            square = g.float().square().sum()
-            if name in self.layout:
-                split += square
-            else:
-                whole += square
-        dist.all_reduce(split)
-        return torch.sqrt(whole + split)
+        """The norm of the whole gradient: each leaf's squares summed over the
+        ranks that split it (data, model or both axes), a replicated leaf's once."""
+        return split_global_norm(names, grads, lambda n: (n in self.layout, n in self.tp),
+                                 self.grid)
 
     def apply(self, state, grads: Mapping[str, torch.Tensor], optimizer):
         """The optimizer step on each rank's parts (gradients averaged over
@@ -174,7 +329,7 @@ class ShardedTrainState:
         from fitclip_torch.training.state import apply_updates_with_clamp
 
         names = list(grads)
-        averaged = dict(zip(names, average_gradients([grads[n] for n in names])))
+        averaged = dict(zip(names, average_gradients([grads[n] for n in names], self.group)))
         named = dict(state.named_parameters())
         for name, split in self.layout.items():
             if name in averaged:
@@ -195,11 +350,11 @@ class ShardedTrainState:
     def full_tensors(self, state) -> Tuple[Dict[str, torch.Tensor], Dict[str, Dict]]:
         """(params, {"mu", "nu"}) whole, gathered on every rank (a collective)."""
         named = state.named_parameters()
-        params = {n: (host_array(self.parts[n], self.layout[n].dim) if n in self.layout
-                      else p.detach()) for n, p in named.items()}
+        params = {n: (host_array(self.parts[n], self.layout[n].dim, self.group)
+                      if n in self.layout else p.detach()) for n, p in named.items()}
         moments = {}
         for key in ("mu", "nu"):
-            moments[key] = {n: (host_array(m, self.layout[n].dim)
+            moments[key] = {n: (host_array(m, self.layout[n].dim, self.group)
                                 if n in self.layout and m.dim() else m)
                             for n, m in state.opt_state[key].items()}
         return params, moments
@@ -218,11 +373,38 @@ class ShardedTrainState:
         return state
 
 
-def shard_train_state(state, optimizer, min_leaf_size: int = MIN_LEAF_SIZE):
-    """Shard ``state`` in place over the ranks of the process group by the FSDP rule."""
-    state.fsdp = ShardedTrainState(state, optimizer, min_leaf_size)
+def split_global_norm(names: Sequence[str], grads: Sequence[torch.Tensor], split_of,
+                      grid=None) -> torch.Tensor:
+    """The global norm of gradients that are parts: ``split_of(name)`` gives
+    (split over the data ranks, split over the model ranks) of a leaf, whose
+    squares are then summed over those ranks (a leaf split on both axes over
+    all of them); a replicated leaf counts once. Without a grid a data split
+    spans the whole process group."""
+    sums: Dict[Tuple[bool, bool], torch.Tensor] = {}
+    for name, g in zip(names, grads):
+        key = tuple(split_of(name))
+        square = g.float().square().sum()
+        sums[key] = sums[key] + square if key in sums else square
+    total = grads[0].new_zeros((), dtype=torch.float32)
+    for key in sorted(sums):  # one order on every rank
+        by_data, by_model = key
+        if by_data and (by_model or grid is None):
+            dist.all_reduce(sums[key])
+        elif by_data:
+            dist.all_reduce(sums[key], group=grid.data_group)
+        elif by_model:
+            dist.all_reduce(sums[key], group=grid.model_group)
+        total = total + sums[key]
+    return torch.sqrt(total)
+
+
+def shard_train_state(state, optimizer, min_leaf_size: int = MIN_LEAF_SIZE, grid=None):
+    """Shard ``state`` in place by the FSDP rule over the ranks of the process
+    group, or over the data group of a tensor-parallel ``grid``."""
+    state.fsdp = ShardedTrainState(state, optimizer, min_leaf_size, grid)
     return state
 
 
-__all__ = ["MIN_LEAF_SIZE", "LeafSplit", "ShardedTrainState", "fsdp_layout", "jax_layout",
-           "shard_train_state"]
+__all__ = ["MIN_LEAF_SIZE", "LeafSplit", "ShardedTrainState", "dense_kind", "fsdp_layout",
+           "jax_layout", "gathered_params", "shard_params", "shard_train_state", "split_global_norm",
+           "tensor_parallel_shardings"]

@@ -22,6 +22,13 @@ gradient. Prompt ids are the same on every rank and are not gathered. DDP's
 reducer would see nothing here (``torch.autograd.grad`` fills no ``.grad``),
 so the all-reduce is explicit. A sharded state (``state.fsdp``) gathers its
 parameters for the step and updates each rank's parts.
+
+The contrastive step also runs on a tensor-parallel encoder
+(``parallel/sharding_rules.py:shard_params`` on a (data, model) grid): the
+ranks of a data row encode the same rows, so the embeddings are gathered and
+the gradients averaged over the data group only, and the clip's norm sums a
+TP-split leaf's squares over the model group (a replicated leaf's gradient is
+the same on every rank of the row, and counts once).
 """
 
 import contextlib
@@ -31,6 +38,8 @@ import torch
 
 from fitclip_torch.ops.losses import nce_loss, teacher_student_nce_loss
 from fitclip_torch.parallel.collectives import average_gradients, gather_rows
+from fitclip_torch.parallel.sharding_rules import split_global_norm, tensor_parallel_shardings
+from fitclip_torch.parallel.tensor_parallel import grid_of
 from fitclip_torch.training.state import AdamW, TrainState, apply_updates_with_clamp
 
 Batch = Mapping[str, Any]
@@ -42,10 +51,13 @@ def _scores(video_emb: torch.Tensor, text_emb: torch.Tensor,
     return torch.exp(logit_scale[0]) * (video_emb.float() @ text_emb.float().T)
 
 
-def _update(state: TrainState, loss: torch.Tensor, optimizer: AdamW) -> TrainState:
+def _update(state: TrainState, loss: torch.Tensor, optimizer: AdamW, grid=None,
+            tp_split: Optional[Mapping[str, bool]] = None) -> TrainState:
     """One optimizer step on the trainable parameters. A parameter that takes
     no gradient (a BatchNorm's running statistics) gets a zero one, as JAX's
-    gradient of a value used only under stop_gradient is."""
+    gradient of a value used only under stop_gradient is. ``grid``: a
+    tensor-parallel encoder's, and ``tp_split`` whether each state parameter
+    is split over its model group (``_tp_split``)."""
     named = {n: p for n, p in state.named_parameters().items() if optimizer.trainable(n)}
     wanted = [n for n, p in named.items() if p.requires_grad]
     found = dict(zip(wanted, torch.autograd.grad(loss, [named[n] for n in wanted],
@@ -55,8 +67,19 @@ def _update(state: TrainState, loss: torch.Tensor, optimizer: AdamW) -> TrainSta
     if state.fsdp is not None:
         return state.fsdp.apply(state, grads, optimizer)
     names = list(grads)
-    averaged = dict(zip(names, average_gradients([grads[n] for n in names])))
-    return apply_updates_with_clamp(state, averaged, optimizer)
+    if grid is None:
+        averaged = dict(zip(names, average_gradients([grads[n] for n in names])))
+        return apply_updates_with_clamp(state, averaged, optimizer)
+    averaged = dict(zip(names, average_gradients([grads[n] for n in names], grid.data_group)))
+    return apply_updates_with_clamp(state, averaged, optimizer, norm_fn=lambda names, g32: (
+        split_global_norm(names, g32, lambda n: (False, tp_split.get(n, False)), grid)))
+
+
+def _tp_split(encoder) -> Dict[str, bool]:
+    """{state parameter name: split over the model group} of a tensor-parallel
+    encoder's parameters; the rest of the state (``logit_scale``) replicates."""
+    return {f"encoder.{n}": dim is not None for n, dim in
+            tensor_parallel_shardings(dict(encoder.model.named_parameters())).items()}
 
 
 def _parameters(state: TrainState):
@@ -80,15 +103,20 @@ def _apply_bn_updates(encoder, updates) -> None:
 
 def make_contrastive_train_step(encoder, optimizer: AdamW):
     """(state, batch{video, text}) -> (state, metrics). ``encoder`` is the
-    module that ``state.params["encoder"]`` holds."""
+    module that ``state.params["encoder"]`` holds; on a tensor-parallel
+    encoder the batch is this data row's rows."""
+    grid = grid_of(encoder)
+    rows_group = None if grid is None else grid.data_group
+    tp_split = None if grid is None else _tp_split(encoder)
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         with _parameters(state):
             video_emb, bn_updates = _encode_video_train(encoder, batch["video"])
             text_emb = encoder.encode_text(batch["text"])
-            loss = nce_loss(_scores(gather_rows(video_emb), gather_rows(text_emb),
+            loss = nce_loss(_scores(gather_rows(video_emb, rows_group),
+                                    gather_rows(text_emb, rows_group),
                                     state.params["logit_scale"]))
-            state = _update(state, loss, optimizer)
+            state = _update(state, loss, optimizer, grid, tp_split)
             _apply_bn_updates(encoder, bn_updates)
         with torch.no_grad():
             metrics = {"loss/train": loss.detach(),
@@ -110,6 +138,9 @@ def make_teacher_student_train_step(student, teacher, optimizer: AdamW,
     the fused layer kernels. A BatchNorm student normalizes with the combined
     batch's statistics and takes one EMA update a step."""
     unlabeled_loss_share = 1.0 - labeled_loss_share
+    if grid_of(student) is not None:
+        raise ValueError("tensor parallelism runs the contrastive step only; the "
+                         "teacher-student step takes a replicated student")
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         with _parameters(state):

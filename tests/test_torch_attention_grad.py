@@ -17,6 +17,7 @@ import torch
 
 from fitclip_tpu.ops.attention import fused_attention_qkv as jax_fused_attention_qkv
 from fitclip_torch.ops import attention as A
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _inputs(batch, seq, heads, head_dim, seed):

@@ -23,6 +23,7 @@ from fitclip_torch.models.clip.encoder import ClipVideoTextEncoder
 from fitclip_torch.models.clip.load import load_clip_encoder
 from fitclip_torch.models.clip.model import CLIPConfig, init_float_params
 from fitclip_torch.ops import attention as A
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _batch(seed=0):

@@ -68,6 +68,14 @@ def test_every_module_imports_without_jax():
     # The distribution slice.
     assert {f"fitclip_torch.parallel.{m}" for m in ("multihost", "mesh", "collectives",
                                                     "sharding_rules")} <= set(names)
+    # The last slice: the per-epoch loop and its checkpoint entry points,
+    # subcorr, tensor parallelism and the pipeline.
+    assert {"fitclip_torch.cli.evaluate_per_epoch",
+            "fitclip_torch.convert.prepare_trained_clip_checkpoint_for_evaluation",
+            "fitclip_torch.convert.prepare_trained_checkpoint_for_evaluation",
+            "fitclip_torch.convert.apply_wise_ft", "fitclip_torch.utils.subcorr",
+            "fitclip_torch.parallel.tensor_parallel", "fitclip_torch.parallel.pipeline"} <= \
+        set(names)
 
 
 def _last_line_is_ok(stdout: str) -> bool:

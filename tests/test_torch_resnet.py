@@ -48,6 +48,7 @@ from fitclip_torch.training.steps import (make_contrastive_train_step,
 
 from tests.test_torch_convert_state_dict import _save
 from tests.test_torch_convert_state_dict import openai_state_dict as openai_vit_state_dict
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FLOAT_TOL = 2e-4
 LR = 1e-3

@@ -53,20 +53,11 @@ from fitclip_torch.convert.from_jax import params_to_jax
 from fitclip_torch.data import video_reader
 from fitclip_torch.models.clip.model import CLIPConfig, CLIPModel, init_float_params
 from fitclip_torch.training.checkpointing import is_full_train_state, load_checkpoint
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LR = 1e-4
 WORDS = ["a", "cat", "video", "of", "dog", "man", "the", "car", "red", "clip"]
 FRAMES = 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module's tiny models: more only
-    oversubscribe the cores when the suite runs in several workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def jax_tiny_encoder(seed: int = 0, bpe_path=None, vocab_path=None, num_frames: int = FRAMES):

@@ -37,6 +37,7 @@ from fitclip_torch.models.clip.encoder import ClipVideoTextEncoder
 from fitclip_torch.models.clip.model import CLIPConfig, CLIPModel, init_float_params
 from fitclip_torch.training import state as S
 from fitclip_torch.training import steps as T
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LR = 1e-4
 FRAMES = 2

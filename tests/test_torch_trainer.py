@@ -20,18 +20,9 @@ from fitclip_torch.models.clip.model import CLIPConfig, init_float_params
 from fitclip_torch.training.checkpointing import (is_full_train_state, load_checkpoint,
                                                   load_trainer_state)
 from fitclip_torch.training.train_runner import run_train
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FRAMES = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module's tiny models: more only
-    oversubscribe the cores when the suite runs in several workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class InMemoryLoader:

@@ -35,6 +35,7 @@ from fitclip_torch.cli import sweep, tune
 from fitclip_torch.data import video_reader
 
 from tests.test_torch_train_cli import WORDS, one_device_mesh, write_trees
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SEARCHES = sorted(Path(DEFAULT_CONFIG_DIR, "hparam_search").glob("*.yaml"))
 TUNE = ["command=tune", "encoder=clip_vit_b_16", "data=webvid", "data.batch_size=2",
