@@ -33,6 +33,8 @@ from pathlib import Path
 
 import torch
 
+from fitclip_torch.utils.profiling import count, span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "fitclip_torch"
 LIBRARY_NAME = "libfitclip_kernels.so"
@@ -125,6 +127,7 @@ def build() -> Path:
     if library.is_file():
         return library
     out_dir.mkdir(parents=True, exist_ok=True)
+    count("kernel_builds")
     nvcc = _nvcc()
     tag = os.getpid()
     units = [(src, out_dir / f"{src.stem}.{tag}.o") for src in sources() if src.suffix == ".cu"]
@@ -144,6 +147,11 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
+    with span("kernel_library"):
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

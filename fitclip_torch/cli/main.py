@@ -27,6 +27,12 @@ global batch (``batch_size`` is the global batch), ``++trainer.fsdp=true``
 shards the train state, tune runs on every rank as on one device, and only
 the main process prints, logs and writes.
 
+``+profile_dir=DIR`` runs evaluate, validate, test or predict under
+``torch.profiler`` with the program's spans on (``utils/profiling.py``),
+writes ``DIR/trace.json`` and logs the spans' host times. ``train`` and
+``tune`` take no profile: a whole training run under the profiler is
+unbounded.
+
 A config with ``hparam_search`` runs a sweep of trials (``sweep.py``) and
 returns the best value of ``optimized_metric_name``. ``checkpoint_path``:
 under ``train``, the port's full train-state file resumes everything; any
@@ -36,11 +42,12 @@ torch checkpoint (OpenAI or HF layout). An Orbax directory needs JAX and is
 refused.
 """
 
+import contextlib
 import json
 import logging
 import os
 import sys
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 LOGGER = logging.getLogger(__name__)
 
@@ -216,6 +223,26 @@ def run(cfg: Dict[str, Any]) -> Optional[float]:
             shutdown_distributed()
 
 
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str]) -> Iterator[None]:
+    """``+profile_dir=DIR``: the command under ``device_trace`` with the
+    program's spans on, a rank's trace in ``DIR`` (``DIR/rank<R>`` under a
+    group of several processes); the spans' host times logged at the end."""
+    if not profile_dir:
+        yield
+        return
+    from fitclip_torch.parallel.multihost import process_count, process_index
+    from fitclip_torch.utils.profiling import StageTimer, device_trace, tracing
+
+    if process_count() > 1:
+        profile_dir = os.path.join(profile_dir, f"rank{process_index()}")
+    timer = StageTimer()
+    with tracing(timer), device_trace(profile_dir):
+        yield
+    LOGGER.info("Wrote a trace to %s; spans: %s", os.path.join(profile_dir, "trace.json"),
+                timer.report())
+
+
 def _run(cfg: Dict[str, Any]) -> Optional[float]:
     from fitclip_torch.cli.runners import run_eval, run_predict
     from fitclip_torch.parallel.multihost import is_main_process, local_only
@@ -230,6 +257,9 @@ def _run(cfg: Dict[str, Any]) -> Optional[float]:
     if command not in COMMANDS:
         raise SystemExit(f"Unknown command: {command!r} — expected one of "
                          f"{', '.join(COMMANDS)}")
+    if cfg.get("profile_dir") and command in ("train", "tune"):
+        LOGGER.warning("profile_dir is ignored under command=%s: a whole run under the "
+                       "profiler is unbounded", command)
     if not cfg.get("encoder"):
         raise SystemExit("No encoder selected — pass encoder=<name> "
                          "(e.g. encoder=clip_vit_b_16; see config/encoder/)")
@@ -269,15 +299,16 @@ def _run(cfg: Dict[str, Any]) -> Optional[float]:
         if isinstance(encoder_slot, Mapping):
             raise ValueError(f"command={command} takes one encoder, not a "
                              f"{{{', '.join(encoder_slot)}}} slot")
-        if command in ("evaluate", "validate", "test"):
-            split = "test" if command == "test" else "val"
-            metrics = run_eval(encoder_slot, data_module, split=split, quant_cfg=quant_cfg)
-            if is_main_process():
-                print(json.dumps(metrics, indent=2))
-        else:
-            run_predict(encoder_slot, data_module,
-                        output_path=cfg.get("output_path", "predictions.pt"),
-                        quant_cfg=quant_cfg)
+        with _profiled(cfg.get("profile_dir")):
+            if command in ("evaluate", "validate", "test"):
+                split = "test" if command == "test" else "val"
+                metrics = run_eval(encoder_slot, data_module, split=split, quant_cfg=quant_cfg)
+                if is_main_process():
+                    print(json.dumps(metrics, indent=2))
+            else:
+                run_predict(encoder_slot, data_module,
+                            output_path=cfg.get("output_path", "predictions.pt"),
+                            quant_cfg=quant_cfg)
 
     optimized_metric_name = cfg.get("optimized_metric_name")
     return metrics.get(optimized_metric_name) if optimized_metric_name else None

@@ -49,6 +49,7 @@ from fitclip_torch.ops.quant import (apply_act_scales, load_act_scales, merge_ac
                                      save_act_scales)
 from fitclip_torch.parallel import multihost
 from fitclip_torch.parallel.mesh import pad_batch_to_divisible
+from fitclip_torch.utils.profiling import span
 
 LOGGER = logging.getLogger(__name__)
 
@@ -96,9 +97,10 @@ def _calibrate_on_batches(encoder, observations, quant_cfg) -> None:
     the running abs-max of each site, written once (and saved if
     quant.scales_path names a file)."""
     amax = None
-    for video, text in observations:
-        amax = merge_act_amax(amax, encoder.collect_act_amax(video, text))
-    apply_act_scales(encoder.model, multihost.all_reduce_max(amax))
+    with span("calibrate"):
+        for video, text in observations:
+            amax = merge_act_amax(amax, encoder.collect_act_amax(video, text))
+        apply_act_scales(encoder.model, multihost.all_reduce_max(amax))
     scales_path = (quant_cfg or {}).get("scales_path")
     if scales_path:
         if multihost.is_main_process():
@@ -164,8 +166,11 @@ def _retrieval_metrics(encoder, device, loader, quant_cfg, calibrate: bool) -> D
     batches = _calibrated_batches(encoder, (_video_text(b, device) for b in loader), quant_cfg,
                                   calibrate)
     for video, text, _, valid in batches:
-        evaluator.update(_gathered(encoder.encode_video(video), valid),
-                         _gathered(encoder.encode_text(text), valid))
+        with span("encode_video"):
+            video_emb = _gathered(encoder.encode_video(video), valid)
+        with span("encode_text"):
+            text_emb = _gathered(encoder.encode_text(text), valid)
+        evaluator.update(video_emb, text_emb)
         clips += video.shape[0]
     metrics = evaluator.compute()  # waits for the device
     _log_rate("Evaluated", clips, start, calibrate)
@@ -212,7 +217,9 @@ def _classification_metrics(encoder, device, loader, quant_cfg, calibrate: bool,
 def _encode_videos(encoder, batch, device) -> torch.Tensor:
     """The batch's video embeddings, each rank encoding its block under a group."""
     rows, valid = _rank_rows({"video": batch["video"]})
-    return _gathered(encoder.encode_video(to_device(rows["video"], device)), valid)
+    video = to_device(rows["video"], device)
+    with span("encode_video"):
+        return _gathered(encoder.encode_video(video), valid)
 
 
 @torch.no_grad()
@@ -263,8 +270,10 @@ def run_predict(loaded, data_module, output_path: str = "predictions.pt",
                                       quant_cfg, calibrate)
         calibrate = False
         for video, text, ids, valid in batches:
-            encoded_videos.append(_gathered(encoder.encode_video(video).float(), valid))
-            encoded_texts.append(_gathered(encoder.encode_text(text).float(), valid))
+            with span("encode_video"):
+                encoded_videos.append(_gathered(encoder.encode_video(video).float(), valid))
+            with span("encode_text"):
+                encoded_texts.append(_gathered(encoder.encode_text(text).float(), valid))
             video_ids.extend(ids)
     predictions = {"encoded_videos": torch.cat(encoded_videos).cpu(),  # waits for the device
                    "encoded_texts": torch.cat(encoded_texts).cpu(),

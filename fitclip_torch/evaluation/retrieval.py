@@ -9,6 +9,7 @@ from typing import Dict, List, Optional
 import torch
 
 from fitclip_torch.ops.metrics import mean_rank, median_rank, ranks_from_scores, recall_at_k
+from fitclip_torch.utils.profiling import span
 
 
 def retrieval_metrics(ranks: torch.Tensor, include_mean_rank: bool = False) -> Dict[str, float]:
@@ -34,13 +35,15 @@ class RetrievalEvaluator:
                valid: Optional[int] = None) -> None:
         """``valid``: the batch's real rows; the rows past them are padding and
         are dropped."""
-        if valid is not None:
-            video_emb, text_emb = video_emb[:valid], text_emb[:valid]
-        self._videos.append(video_emb.detach().float())
-        self._texts.append(text_emb.detach().float())
+        with span("retrieval.update"):
+            if valid is not None:
+                video_emb, text_emb = video_emb[:valid], text_emb[:valid]
+            self._videos.append(video_emb.detach().float())
+            self._texts.append(text_emb.detach().float())
 
     def compute(self) -> Dict[str, float]:
-        videos, texts = torch.cat(self._videos).cpu(), torch.cat(self._texts).cpu()
-        scores = texts @ videos.T
-        ranks = ranks_from_scores(scores, torch.arange(scores.shape[0]))
-        return retrieval_metrics(ranks, self.include_mean_rank)
+        with span("retrieval.compute"):
+            videos, texts = torch.cat(self._videos).cpu(), torch.cat(self._texts).cpu()
+            scores = texts @ videos.T
+            ranks = ranks_from_scores(scores, torch.arange(scores.shape[0]))
+            return retrieval_metrics(ranks, self.include_mean_rank)

@@ -32,6 +32,7 @@ from fitclip_torch.models.clip.fast_eval import encode_frames_fast, encode_text_
 from fitclip_torch.models.clip.model import CLIPConfig, CLIPModel, fold_pixel_normalization
 from fitclip_torch.models.clip.tokenizer import ClipTokenizer
 from fitclip_torch.ops.quant import apply_act_scales, dynamic_observing, observed_act_amax
+from fitclip_torch.utils.profiling import span
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -156,7 +157,8 @@ class ClipVideoTextEncoder(nn.Module):
                   margin: float = 1.0) -> "ClipVideoTextEncoder":
         """Post-training calibration on one batch: write the observed activation
         abs-maxes into the act_scale buffers, in place."""
-        apply_act_scales(self.model, self.collect_act_amax(video, text), margin=margin)
+        with span("calibrate"):
+            apply_act_scales(self.model, self.collect_act_amax(video, text), margin=margin)
         return self
 
     def get_tokenizer(self) -> Callable[[Sequence[str]], np.ndarray]:

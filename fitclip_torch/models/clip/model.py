@@ -33,6 +33,7 @@ from fitclip_torch.ops.attention import fused_attention_qkv, fused_int8_qkv_atte
 from fitclip_torch.ops.block import prepare_bf16_layer, prepare_int8_layer
 from fitclip_torch.ops.quant import QUANT_EPS, int8_dense, int8_dense_static, quantize_rint
 from fitclip_torch.utils.precision import fp32_convolutions
+from fitclip_torch.utils.profiling import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,6 +260,7 @@ class ResidualBlock(nn.Module):
             sources += [getattr(dense, leaf) for leaf in leaves]
         key = (kind,) + tuple((id(t), t.data_ptr(), t._version) for t in sources)
         if self._fold_cache is None or self._fold_cache[0] != key:
+            count("operand_folds")
             self._fold_cache = (key, fold())
         return self._fold_cache[1]
 

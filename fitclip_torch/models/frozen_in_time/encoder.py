@@ -38,6 +38,7 @@ from fitclip_torch.models.frozen_in_time.fit_fast import encode_video_features_f
 from fitclip_torch.models.frozen_in_time.video_transformer import (SpaceTimeTransformer,
                                                                     VarAttention)
 from fitclip_torch.ops.quant import apply_act_scales, dynamic_observing, observed_act_amax
+from fitclip_torch.utils.profiling import span
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -136,7 +137,8 @@ class FrozenInTimeVideoTextEncoder(nn.Module):
     def calibrate(self, video: torch.Tensor, text=None,
                   margin: float = 1.0) -> "FrozenInTimeVideoTextEncoder":
         """Post-training calibration on one batch, in place."""
-        apply_act_scales(self, self.collect_act_amax(video, text), margin=margin)
+        with span("calibrate"):
+            apply_act_scales(self, self.collect_act_amax(video, text), margin=margin)
         return self
 
     def get_tokenizer(self):

@@ -31,6 +31,7 @@ from fitclip_torch.models.clip.model import LayerNormFp32, _dense
 from fitclip_torch.ops.attention import fused_attention_qkv_gkv, fused_time_attention
 from fitclip_torch.ops.fit_block import FIT_LN_EPS, prepare_fit_int8_layer
 from fitclip_torch.utils.precision import fp32_convolutions
+from fitclip_torch.utils.profiling import count
 
 
 class LayerNormTorch(LayerNormFp32):
@@ -142,6 +143,7 @@ class SpaceTimeBlock(nn.Module):
             sources += [dense.weight_q, dense.scale, dense.bias, dense.act_scale]
         key = tuple((id(t), t.data_ptr(), t._version) for t in sources)
         if self._int8_cache is None or self._int8_cache[0] != key:
+            count("operand_folds")
             self._int8_cache = (key, prepare_fit_int8_layer(self))
         return self._int8_cache[1]
 

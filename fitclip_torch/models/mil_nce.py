@@ -28,6 +28,7 @@ from fitclip_torch.models.clip.load import _DTYPES, LoadedEncoder, resolve_devic
 from fitclip_torch.models.s3dg import S3DG, MilNceTextEncoder, init_s3dg_params, nest
 from fitclip_torch.models.s3dg_fast import quantize_s3dg_fast, s3dg_fast_apply
 from fitclip_torch.ops.quant import apply_act_scales, dynamic_observing, observed_act_amax
+from fitclip_torch.utils.profiling import span
 
 LOGGER = logging.getLogger(__name__)
 
@@ -172,7 +173,8 @@ class MilNceVideoTextEncoder(nn.Module):
     def calibrate(self, video: torch.Tensor, text=None,
                   margin: float = 1.0) -> "MilNceVideoTextEncoder":
         """Post-training calibration on one batch, in place."""
-        apply_act_scales(self, self.collect_act_amax(video, text), margin=margin)
+        with span("calibrate"):
+            apply_act_scales(self, self.collect_act_amax(video, text), margin=margin)
         return self
 
     def get_tokenizer(self) -> MilNceTokenizer:

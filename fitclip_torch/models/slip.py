@@ -39,6 +39,7 @@ from fitclip_torch.models.clip.model import (Dense, LayerNormFp32, TextConfig, T
 from fitclip_torch.models import slip_fast
 from fitclip_torch.ops.quant import (apply_act_scales, dynamic_observing, observed_act_amax,
                                      quantize_clip_params)
+from fitclip_torch.utils.profiling import span
 
 LOGGER = logging.getLogger(__name__)
 
@@ -255,7 +256,8 @@ class SlipVideoTextEncoder(nn.Module):
                   margin: float = 1.0) -> "SlipVideoTextEncoder":
         """Post-training calibration on one batch: write the observed activation
         abs-maxes into the act_scale buffers, in place."""
-        apply_act_scales(self.model, self.collect_act_amax(video, text), margin=margin)
+        with span("calibrate"):
+            apply_act_scales(self.model, self.collect_act_amax(video, text), margin=margin)
         return self
 
     def get_tokenizer(self) -> ClipTokenizer:

@@ -37,6 +37,7 @@ from fitclip_torch.models.mil_nce import torch_tree_to_jax
 from fitclip_torch.models.s3dg import S3DG, init_s3dg_params
 from fitclip_torch.models.s3dg_fast import quantize_s3dg_fast, s3dg_fast_apply
 from fitclip_torch.ops.quant import apply_act_scales, dynamic_observing, observed_act_amax
+from fitclip_torch.utils.profiling import span
 
 LOGGER = logging.getLogger(__name__)
 BERT_LN_EPS = 1e-12
@@ -248,7 +249,8 @@ class VideoClipVideoTextEncoder(nn.Module):
     def calibrate(self, video: torch.Tensor, text=None,
                   margin: float = 1.0) -> "VideoClipVideoTextEncoder":
         """Post-training calibration on one batch, in place."""
-        apply_act_scales(self, self.collect_act_amax(video, text), margin=margin)
+        with span("calibrate"):
+            apply_act_scales(self, self.collect_act_amax(video, text), margin=margin)
         return self
 
     def get_tokenizer(self):

@@ -6,7 +6,8 @@ One function per task module of the reference:
 - eval step         <- the validation paths (embeddings only)
 
 A train step runs the forward, ``torch.autograd.grad`` over the trainable
-parameters, and ``apply_updates_with_clamp``, then, for an encoder with
+parameters, and ``apply_updates_with_clamp`` (each phase a span of
+``utils/profiling.py``), then, for an encoder with
 batch-statistics BatchNorm (a CLIP ResNet, ``encode_video_train``), writes
 the running statistics' EMA updates; it updates the state in place and
 returns it with a metrics dict whose keys are the JAX steps'. Metric values
@@ -41,6 +42,7 @@ from fitclip_torch.parallel.collectives import average_gradients, gather_rows
 from fitclip_torch.parallel.sharding_rules import split_global_norm, tensor_parallel_shardings
 from fitclip_torch.parallel.tensor_parallel import grid_of
 from fitclip_torch.training.state import AdamW, TrainState, apply_updates_with_clamp
+from fitclip_torch.utils.profiling import span
 
 Batch = Mapping[str, Any]
 
@@ -60,19 +62,22 @@ def _update(state: TrainState, loss: torch.Tensor, optimizer: AdamW, grid=None,
     is split over its model group (``_tp_split``)."""
     named = {n: p for n, p in state.named_parameters().items() if optimizer.trainable(n)}
     wanted = [n for n, p in named.items() if p.requires_grad]
-    found = dict(zip(wanted, torch.autograd.grad(loss, [named[n] for n in wanted],
-                                                 allow_unused=True)))
+    with span("backward"):
+        found = dict(zip(wanted, torch.autograd.grad(loss, [named[n] for n in wanted],
+                                                     allow_unused=True)))
     grads = {n: found[n] if found.get(n) is not None else torch.zeros_like(p)
              for n, p in named.items()}
     if state.fsdp is not None:
-        return state.fsdp.apply(state, grads, optimizer)
+        with span("grad_average"):
+            return state.fsdp.apply(state, grads, optimizer)
     names = list(grads)
-    if grid is None:
-        averaged = dict(zip(names, average_gradients([grads[n] for n in names])))
-        return apply_updates_with_clamp(state, averaged, optimizer)
-    averaged = dict(zip(names, average_gradients([grads[n] for n in names], grid.data_group)))
-    return apply_updates_with_clamp(state, averaged, optimizer, norm_fn=lambda names, g32: (
-        split_global_norm(names, g32, lambda n: (False, tp_split.get(n, False)), grid)))
+    with span("grad_average"):
+        averaged = dict(zip(names, average_gradients([grads[n] for n in names],
+                                                     None if grid is None else grid.data_group)))
+    norm_fn = None if grid is None else (lambda names, g32: split_global_norm(
+        names, g32, lambda n: (False, tp_split.get(n, False)), grid))
+    with span("optimizer"):
+        return apply_updates_with_clamp(state, averaged, optimizer, norm_fn=norm_fn)
 
 
 def _tp_split(encoder) -> Dict[str, bool]:
@@ -110,12 +115,14 @@ def make_contrastive_train_step(encoder, optimizer: AdamW):
     tp_split = None if grid is None else _tp_split(encoder)
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        with _parameters(state):
-            video_emb, bn_updates = _encode_video_train(encoder, batch["video"])
-            text_emb = encoder.encode_text(batch["text"])
-            loss = nce_loss(_scores(gather_rows(video_emb, rows_group),
-                                    gather_rows(text_emb, rows_group),
-                                    state.params["logit_scale"]))
+        with span("train_step"), _parameters(state):
+            with span("student_forward"):
+                video_emb, bn_updates = _encode_video_train(encoder, batch["video"])
+                text_emb = encoder.encode_text(batch["text"])
+            with span("loss"):
+                loss = nce_loss(_scores(gather_rows(video_emb, rows_group),
+                                        gather_rows(text_emb, rows_group),
+                                        state.params["logit_scale"]))
             state = _update(state, loss, optimizer, grid, tp_split)
             _apply_bn_updates(encoder, bn_updates)
         with torch.no_grad():
@@ -143,7 +150,7 @@ def make_teacher_student_train_step(student, teacher, optimizer: AdamW,
                          "teacher-student step takes a replicated student")
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        with _parameters(state):
+        with span("train_step"), _parameters(state):
             return _step(state, batch)
 
     def _step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -155,27 +162,30 @@ def make_teacher_student_train_step(student, teacher, optimizer: AdamW,
                         else unlabeled["text_teacher"])
 
         n_video, n_text = labeled["video_student"].shape[0], labeled["text_student"].shape[0]
-        all_video_emb, bn_updates = _encode_video_train(
-            student, torch.cat([labeled["video_student"], unlabeled["video_student"]]))
-        all_text_emb = student.encode_text(torch.cat([labeled["text_student"], student_text]))
-        video_emb, u_video = (gather_rows(all_video_emb[:n_video]),
-                              gather_rows(all_video_emb[n_video:]))
-        text_emb, u_text = gather_rows(all_text_emb[:n_text]), all_text_emb[n_text:]
-        if not prompted:
-            u_text = gather_rows(u_text)
-        labeled_loss = nce_loss(_scores(video_emb, text_emb, logit_scale))
+        with span("student_forward"):
+            all_video_emb, bn_updates = _encode_video_train(
+                student, torch.cat([labeled["video_student"], unlabeled["video_student"]]))
+            all_text_emb = student.encode_text(torch.cat([labeled["text_student"],
+                                                          student_text]))
+            video_emb, u_video = (gather_rows(all_video_emb[:n_video]),
+                                  gather_rows(all_video_emb[n_video:]))
+            text_emb, u_text = gather_rows(all_text_emb[:n_text]), all_text_emb[n_text:]
+            if not prompted:
+                u_text = gather_rows(u_text)
 
-        with torch.no_grad():
+        with torch.no_grad(), span("teacher_forward"):
             t_video = gather_rows(teacher.encode_video(unlabeled["video_teacher"]))
             t_text = teacher.encode_text(teacher_text)
             if teacher_prompt_ids is None:
                 t_text = gather_rows(t_text)
-        student_scores = _scores(u_video, u_text, logit_scale)
-        ts_scale = torch.exp(ts_logit_scale[0])
-        teacher_scores = ts_scale * (t_video.float() @ t_text.float().T)
-        unlabeled_loss = (teacher_student_nce_loss(student_scores, teacher_scores,
-                                                   reduction="batchmean") * ts_scale ** 2)
-        total = labeled_loss_share * labeled_loss + unlabeled_loss_share * unlabeled_loss
+        with span("loss"):
+            labeled_loss = nce_loss(_scores(video_emb, text_emb, logit_scale))
+            student_scores = _scores(u_video, u_text, logit_scale)
+            ts_scale = torch.exp(ts_logit_scale[0])
+            teacher_scores = ts_scale * (t_video.float() @ t_text.float().T)
+            unlabeled_loss = (teacher_student_nce_loss(student_scores, teacher_scores,
+                                                       reduction="batchmean") * ts_scale ** 2)
+            total = labeled_loss_share * labeled_loss + unlabeled_loss_share * unlabeled_loss
 
         state = _update(state, total, optimizer)
         _apply_bn_updates(student, bn_updates)
@@ -195,7 +205,9 @@ def make_eval_step(encoder):
 
     @torch.no_grad()
     def step(batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        return (encoder.encode_video(batch["video"]).float(),
-                encoder.encode_text(batch["text"]).float())
+        with span("encode_video"):
+            video = encoder.encode_video(batch["video"]).float()
+        with span("encode_text"):
+            return video, encoder.encode_text(batch["text"]).float()
 
     return step

@@ -307,6 +307,34 @@ def test_commands_that_are_not_ported_raise(vocab, msrvtt_root, monkeypatch):
                   if not a.startswith("+data.")])
 
 
+def test_profile_dir_writes_a_trace_with_the_programs_spans(vocab, msrvtt_root, monkeypatch,
+                                                            capsys, caplog, tmp_path):
+    """+profile_dir=DIR: evaluate runs under the profiler with the spans on,
+    writes DIR/trace.json holding them and logs their host times; the
+    metrics are those of the run without it."""
+    monkeypatch.setenv("MSRVTT_PATH", msrvtt_root)
+    caplog.set_level("INFO", logger=cli.LOGGER.name)
+    argv = _port_argv(vocab, "command=evaluate", "data=msrvtt", "data.eval_batch_size=2")
+    cli.main(argv)
+    plain = _printed_metrics(capsys)
+    cli.main(argv + [f"+profile_dir={tmp_path / 'profile'}"])
+    assert _printed_metrics(capsys) == plain
+    with open(tmp_path / "profile" / "trace.json") as f:
+        names = {event.get("name") for event in json.load(f)["traceEvents"]}
+    assert {"fitclip/encode_video", "fitclip/encode_text", "fitclip/retrieval.update",
+            "fitclip/retrieval.compute"} <= names
+    assert "encode_video: " in caplog.text and "(3x)" in caplog.text
+
+
+def test_profile_dir_is_logged_as_ignored_under_train(tmp_path, caplog):
+    """A whole training run under the profiler is unbounded: train takes no profile."""
+    caplog.set_level("INFO", logger=cli.LOGGER.name)
+    with pytest.raises(SystemExit, match="No encoder"):
+        cli.run({"command": "train", "profile_dir": str(tmp_path / "profile")})
+    assert "profile_dir is ignored under command=train" in caplog.text
+    assert not (tmp_path / "profile").exists()
+
+
 def test_compilation_cache_dir_is_logged_as_ignored(tmp_path, caplog):
     """++compilation_cache_dir, which the JAX CLI applies before it checks the
     command (fitclip_tpu/cli/main.py:146-154), is logged as ignored: the
